@@ -2,6 +2,7 @@
 """Quickest proof that the PyTorch/CUDA port runs on the card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels-only   # phases 1-3 only (no result line)
 
 Needs one CUDA card and the repository checkout around this file; exits
 non-zero (printing no result) without either.  In order, it:
@@ -9,26 +10,33 @@ non-zero (printing no result) without either.  In order, it:
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds every hand-written kernel from ``src/repro_torch/kernels/csrc``;
 3. holds each kernel against its plain PyTorch version on the card at the
-   full-width smollm-360m main-path shapes (the encoder, v3 and v4 must be
-   identical; v2 within ``rtol=1e-5``), and times the kernel, the plain
-   version and one PyTorch yardstick call (CUDA events, median of runs, L2
-   flushed before every timed launch, as the decode path finds it cold);
+   full-width main-path shapes (smollm-360m for the encoder, v2, v3 and v4;
+   deepseek-v2-lite-16b's expert banks for the batched v2 and v3): the
+   encoder, v3, batched v3 and v4 must be identical, v2 and batched v2
+   within ``rtol=1e-5``; it times the kernel, the plain version and one
+   PyTorch yardstick call (CUDA events, median of runs, L2 flushed before
+   every timed launch, as the decode path finds it cold);
 4. serves full-width smollm-360m from random weights (``--pvq --act-int8
    --kv-pvq --agreement-min 0.99``, batch 4, prompt 128, 32 new tokens)
    with every kernel launch count set to 0 just before and read just after;
-   requires finite logits of the expected shape and every kernel launched;
-   then runs the same tokens and packed weights through the plain versions
-   on the card: the served leg's teacher-forced logits must be identical
-   to the kernel path's, and the f32 leg (kernel v2) must agree with its
-   plain path at CI's top-1 threshold (0.99);
-5. serves the reduced model the same way, where the serve gate (top-1
+   requires finite logits of the expected shape and every kernel of the
+   path launched; then runs the same tokens and packed weights through the
+   plain versions on the card: the served leg's teacher-forced logits must
+   be identical to the kernel path's, and the f32 leg (kernel v2) must
+   agree with its plain path at CI's top-1 threshold (0.99);
+5. frees that model and does the same for full-width deepseek-v2-lite-16b
+   (``--pvq --act-int8 --agreement-min 0.99``, batch 4, prompt 128, 32 new
+   tokens; its MLA latent cache is dense, so kernel v4 is not on this
+   path); it also counts the MoE routing decisions in which the f32 leg's
+   kernel path and plain path differ, and prints the peak device memory;
+6. serves both reduced models the same way, where the serve gate (top-1
    agreement >= 0.99 of the served leg with the f32 leg, CI's
    configuration) must hold;
-6. prints the ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
+7. prints the ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
 
 Any failed phase, kernel mismatch or missed gate raises.  The full-width
-served leg's agreement with its f32 leg is printed, not gated: the JAX
-reference misses 0.99 there too (``tests/test_torch_fidelity.py``,
+served legs' agreement with their f32 legs is printed, not gated: the JAX
+reference misses 0.99 there too on smollm (``tests/test_torch_fidelity.py``,
 PERF.md), because random full-width weights leave near-tie margins that
 int8 activations and the packed KV cache flip.
 """
@@ -60,6 +68,26 @@ REDUCED_SERVE = [
     "--pvq", "--act-int8", "--kv-pvq", "--kv-block", "8", "--kv-group", "16",
     "--agreement-min", "0.99", "--seed", "0",
 ]
+MOE_ARCH = "deepseek-v2-lite-16b"
+MOE_FULL_SERVE = [
+    "--arch", MOE_ARCH, "--batch", str(BATCH), "--prompt-len", str(PROMPT), "--gen", str(GEN),
+    "--pvq", "--act-int8", "--agreement-min", "0.99", "--seed", "0",
+]
+MOE_REDUCED_SERVE = [
+    "--arch", MOE_ARCH, "--reduced", "--batch", "2", "--prompt-len", "20", "--gen", "6",
+    "--pvq", "--act-int8", "--agreement-min", "0.99", "--seed", "0",
+]
+# the kernels each full-width path must launch
+SMOLLM_KERNELS = ("pvq_encode_batch", "pvq_matmul_q", "pvq_attn_q", "pvq_matmul")
+MOE_KERNELS = ("pvq_encode_batch", "pvq_matmul_q", "pvq_matmul", "pvq_matmul_q_batched",
+               "pvq_matmul_batched")
+# one MoE layer's expert banks at full width: (what, k_pad, n) of up/gate
+# (d 2048 -> d_expert 1408) and wo (1408 -> 2048, k padded to 1536); 64
+# experts; m = dispatch rows per expert: 1 at decode (4 tokens, capacity 1),
+# 60 at prefill (512 tokens, capacity 60)
+EXPERTS = 64
+BANK_SHAPES = [("up/gate", 2048, 1408), ("wo", 1536, 2048)]
+MOE_DECODE_M, MOE_PREFILL_M = 1, 60
 # one decoder layer's packed matmuls at full width: (k_pad, n) of
 # wq, wk, wv, wo, wi_gate, wi_up, wo(ffn); group 256
 LAYER_SHAPES = [(1024, 960), (1024, 320), (1024, 320), (1024, 960),
@@ -148,8 +176,9 @@ def check_matmuls(torch, timer, mm, ops, quantize):
                 def plain(): return mm.pvq_matmul_plain(x, pulses, scales, group=GROUP)
                 nbytes = 4 * m * k + k * n + 4 * (k // GROUP) * n + 4 * m * n
                 nops, rate = 2.0 * m * k * n, F32_FLOPS_PER_S
-            # v3 is identical to its plain version by construction; v2's f32
-            # sums run in another order
+            # v3 is identical to its plain version by construction; v2's f64
+            # group sums run in another order (the same f32 value unless a
+            # sum lies on an f32 rounding boundary)
             tol = 0.0 if name == "pvq_matmul_q" else 1e-5
             err = check_close(f"{name} m{m} k{k} n{n}", kern(), plain(), tol)
             t_k, t_p = timer(kern), timer(plain)
@@ -225,6 +254,76 @@ def check_attention(torch, timer, mm, quant):
     }
 
 
+def check_batched(torch, timer, mm, quantize):
+    """Batched kernels v3 and v2 at one MoE layer's expert-bank shapes, at
+    decode and prefill; the entries total one decode step's MoE layer (up,
+    gate and wo: the up/gate shape counts twice).  The yardstick is
+    ``torch.bmm`` on the dequantized f32 banks."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rows = []
+    totals = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0, err=0.0)
+              for name in ("pvq_matmul_q_batched", "pvq_matmul_batched")}
+    banks = {}
+    for what, k, n in BANK_SHAPES:
+        pulses = torch.randint(-9, 10, (EXPERTS, k, n), generator=gen, device="cuda",
+                               dtype=torch.int8)
+        scales = torch.rand(EXPERTS, k // GROUP, n, generator=gen, device="cuda") * 0.01
+        banks[what] = (pulses, scales)
+    for m in (MOE_DECODE_M, MOE_PREFILL_M):
+        for what, k, n in BANK_SHAPES:
+            pulses, scales = banks[what]
+            x = torch.randn(EXPERTS, m, k, generator=gen, device="cuda")
+            x_q, a = quantize(x)
+            w_deq = pulses.float() * torch.repeat_interleave(scales, GROUP, dim=1)
+            e = EXPERTS
+            for name in ("pvq_matmul_q_batched", "pvq_matmul_batched"):
+                if name == "pvq_matmul_q_batched":
+                    def kern(): return mm.pvq_matmul_q_batched_cuda(x_q, pulses, scales, a, group=GROUP)
+                    def plain(): return mm.pvq_matmul_q_batched_plain(x_q, pulses, scales, a, group=GROUP)
+                    nbytes = e * (m * k + k * n + 4 * (k // GROUP) * n + 4 * m + 4 * m * n)
+                    nops, rate = 2.0 * e * m * k * n, INT8_OPS_PER_S
+                else:
+                    def kern(): return mm.pvq_matmul_batched_cuda(x, pulses, scales, group=GROUP)
+                    def plain(): return mm.pvq_matmul_batched_plain(x, pulses, scales, group=GROUP)
+                    nbytes = e * (4 * m * k + k * n + 4 * (k // GROUP) * n + 4 * m * n)
+                    nops, rate = 2.0 * e * m * k * n, F32_FLOPS_PER_S
+                tol = 0.0 if name == "pvq_matmul_q_batched" else 1e-5
+                err = check_close(f"{name} E{e} m{m} k{k} n{n}", kern(), plain(), tol)
+                t_k, t_p = timer(kern), timer(plain)
+                t_lib = timer(lambda: torch.bmm(x, w_deq))
+                b_ms, b_by = bound_ms(nbytes, nops, rate)
+                rows.append({"kernel": name, "bank": what, "experts": e, "m": m, "k": k, "n": n,
+                             "ms": t_k, "plain_ms": t_p, "library_ms": t_lib, "bound_ms": b_ms,
+                             "bound_by": b_by, "max_abs_err": err})
+                if m == MOE_DECODE_M:
+                    tot = totals[name]
+                    times = 2 if what == "up/gate" else 1
+                    tot["ms"] += times * t_k
+                    tot["plain_ms"] += times * t_p
+                    tot["library_ms"] += times * t_lib
+                    tot["bytes"] += times * nbytes
+                    tot["ops"] += times * nops
+                    tot["err"] = max(tot["err"], err)
+            del w_deq
+    entries = {}
+    for name, tot in totals.items():
+        rate = INT8_OPS_PER_S if name == "pvq_matmul_q_batched" else F32_FLOPS_PER_S
+        b_ms, b_by = bound_ms(tot["bytes"], tot["ops"], rate)
+        entries[name] = {
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/pvq_matmul_batched.cu",
+            "replaces": ("src/repro/kernels/pvq_matmul.py:619 (pvq_matmul_q_batched), "
+                         "src/repro/kernels/pvq_matmul.py:555 (_kernel_q_dma)"
+                         if name == "pvq_matmul_q_batched"
+                         else "src/repro/kernels/pvq_matmul.py:250"),
+            "shape": f"one MoE layer's expert banks (up, gate, wo), {EXPERTS} experts, "
+                     f"m={MOE_DECODE_M}, group {GROUP}",
+            "max_abs_err": tot["err"], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": tot["library_ms"],
+        }
+    return entries, rows
+
+
 def _encode_ops(torch, w, k, delta_max):
     """Operations the encode needs on these rows: per lane the floor
     allocation (~8), 32 bisection compare+count rounds, the tree sums (~8),
@@ -280,6 +379,7 @@ def plain_versions(mm, enc):
     package has no such switch: this patches the attributes ``ops`` reads."""
     saved = [(mod, name, getattr(mod, name + "_cuda"))
              for mod, name in ((mm, "pvq_matmul"), (mm, "pvq_matmul_q"),
+                               (mm, "pvq_matmul_batched"), (mm, "pvq_matmul_q_batched"),
                                (mm, "pvq_attn_q"), (enc, "pvq_encode_batch"))]
     try:
         for mod, name, _ in saved:
@@ -290,37 +390,75 @@ def plain_versions(mm, enc):
             setattr(mod, name + "_cuda", fn)
 
 
-def serve_full(torch, serve, kernels_mod, mm, enc, quant, argv=FULL_SERVE):
+class RoutingLog:
+    """Records the top-k expert indices of every MoE routing call while
+    ``active`` (a harness-only wrapper of ``nn.moe._topk_argmax``), so the
+    f32 leg's routing through the kernels can be compared with its routing
+    through the plain versions."""
+
+    def __init__(self, moe):
+        self.moe, self.calls, self.active = moe, [], False
+        self.inner = moe._topk_argmax
+
+        def recorded(probs, k):
+            vals, idx = self.inner(probs, k)
+            if self.active:
+                self.calls.append(idx.clone())
+            return vals, idx
+
+        moe._topk_argmax = recorded
+
+    @contextlib.contextmanager
+    def recording(self):
+        self.active = True
+        try:
+            yield self.calls
+        finally:
+            self.active = False
+
+    def close(self):
+        self.moe._topk_argmax = self.inner
+
+
+def serve_full(torch, serve, kernels_mod, mm, enc, quant, routing, argv, *, kvq, expect):
     """The main path at full width, then the same teacher-forced tokens and
-    packed parameters through the plain versions on the card."""
+    packed parameters through the plain versions on the card.  ``kvq`` is
+    the served leg's KV contract (None: dense cache); ``expect`` names the
+    kernels the path must launch.  Returns the launch counts."""
+    batch, prompt, gen = (int(argv[argv.index(f) + 1]) for f in ("--batch", "--prompt-len", "--gen"))
+    torch.cuda.reset_peak_memory_stats()
+    routing.calls.clear()
     kernels_mod.reset_launches()
     t0 = time.time()
-    report, rc, state = serve.run(argv, return_state=True)
+    with routing.recording():
+        report, rc, state = serve.run(argv, return_state=True)
     counts = kernels_mod.launches()
     report["phase_wall_s"] = round(time.time() - t0, 2)
     print(json.dumps({"serve": "full", **report}), flush=True)
     if not state:
         fail(f"full serve stopped early: {report}")
-    if report.get("generated_shape") != [BATCH, PROMPT + GEN] or not report.get("logits_finite"):
+    if report.get("generated_shape") != [batch, prompt + gen] or not report.get("logits_finite"):
         fail(f"full serve produced {report.get('generated_shape')} / finite={report.get('logits_finite')}")
-    missing = [name for name, c in counts.items() if c <= 0]
+    missing = [name for name in expect if counts[name] <= 0]
     if missing:
         fail(f"full serve never launched {missing}: {counts}")
     if rc != 0 and "agreement_fail" not in report:
         fail(f"full serve exited {rc}: {report}")
+    kernel_routes = list(routing.calls)
 
     t0 = time.time()
-    with plain_versions(mm, enc):
-        with quant.act_quant_scope(quant.ActQuant()), \
-                quant.kv_quant_scope(quant.KVQuant(KV_BLOCK, KV_GROUP)):
+    routing.calls.clear()
+    with plain_versions(mm, enc), routing.recording():
+        with quant.act_quant_scope(quant.ActQuant()), quant.kv_quant_scope(kvq):
             plain_q = serve.teacher_forced_logits(state["model"], state["params"], state["seq"],
-                                                  prompt_len=PROMPT)
+                                                  prompt_len=prompt)
+        n_q = len(routing.calls)
         with quant.act_quant_scope(None), quant.kv_quant_scope(None):
             plain_f = serve.teacher_forced_logits(state["model"], state["params"], state["seq"],
-                                                  prompt_len=PROMPT)
+                                                  prompt_len=prompt)
     legs = {}
-    for leg, kern, plain in (("int8_kv_pvq", state["logits_q"], plain_q),
-                             ("f32", state["logits_f"], plain_f)):
+    served = "int8_kv_pvq" if kvq else "int8"
+    for leg, kern, plain in ((served, state["logits_q"], plain_q), ("f32", state["logits_f"], plain_f)):
         ag = serve.top1_agreement(plain, kern)
         legs[leg] = {
             "identical": torch.equal(kern, plain),
@@ -328,18 +466,33 @@ def serve_full(torch, serve, kernels_mod, mm, enc, quant, argv=FULL_SERVE):
             "rel_l2_logit_diff": float((kern - plain).norm() / plain.norm()),
             "agreement": ag["top1_agreement"], "agreement_strict": ag["top1_agreement_strict"],
         }
-    print(json.dumps({"full_width_kernels_vs_plain_on_card": legs,
-                      "seconds": round(time.time() - t0, 2)}), flush=True)
+    if routing.calls:
+        # the kernel run's last teacher-forced leg is its f32 leg
+        plain_f_routes = routing.calls[n_q:]
+        kern_f_routes = kernel_routes[len(kernel_routes) - len(plain_f_routes):]
+        kern_q_routes = kernel_routes[-2 * len(plain_f_routes):-len(plain_f_routes)]
+        legs["f32"]["routing_decisions"] = sum(int(r.numel()) for r in plain_f_routes)
+        legs["f32"]["routing_decisions_differing"] = sum(
+            int((a != b).sum()) for a, b in zip(kern_f_routes, plain_f_routes))
+        # how far the served leg's routing is from the f32 leg's (kernel path)
+        legs["f32"]["served_vs_f32_routing_decisions_differing"] = sum(
+            int((a != b).sum()) for a, b in zip(kern_q_routes, kern_f_routes))
+    print(json.dumps({"full_width_kernels_vs_plain_on_card": legs, "arch": report["arch"],
+                      "seconds": round(time.time() - t0, 2),
+                      "peak_device_memory_bytes": torch.cuda.max_memory_allocated()}), flush=True)
     print(json.dumps({"full_width_f32_leg_agreement": {
-        "required_by_ci_at_reduced": 0.99, "measured": report["act_int8_top1_agreement"],
+        "arch": report["arch"], "required_by_ci_at_reduced": 0.99,
+        "measured": report["act_int8_top1_agreement"],
         "strict": report["act_int8_top1_agreement_strict"],
     }}), flush=True)
-    # the served leg runs kernels v3, v4 and the encoder, each identical to
-    # its plain version by construction: the logits must be too
-    if not legs["int8_kv_pvq"]["identical"]:
-        fail(f"full-width served leg: kernel path differs from the plain path {legs['int8_kv_pvq']}")
-    # the f32 leg runs kernel v2, whose f32 sums run in another order than
-    # the plain version's: CI's agreement threshold holds it
+    # the served leg runs kernels v3 (2-D and batched), v4 and the encoder,
+    # each identical to its plain version by construction: the logits must
+    # be too
+    if not legs[served]["identical"]:
+        fail(f"full-width served leg: kernel path differs from the plain path {legs[served]}")
+    # the f32 leg runs kernel v2 (2-D and batched), whose f64 group sums run
+    # in another order than the plain version's: CI's agreement threshold
+    # holds it
     if legs["f32"]["agreement"] < AGREEMENT_MIN:
         fail(f"full-width f32 leg: kernel path vs plain path agreement {legs['f32']}")
     return counts
@@ -379,6 +532,7 @@ def main() -> int:
     from repro_torch.kernels import pvq_encode as enc
     from repro_torch.kernels import pvq_matmul as mm
     from repro_torch.launch import serve
+    from repro_torch.nn import moe
 
     t0 = time.time()
     build.build_all()
@@ -388,18 +542,37 @@ def main() -> int:
     entries, rows = check_matmuls(torch, timer, mm, ops, quantize_activations)
     entries["pvq_attn_q"] = check_attention(torch, timer, mm, quantize_activations)
     entries["pvq_encode_batch"], enc_rows = check_encode(torch, timer, enc)
-    for row in rows + enc_rows:
+    batched, batched_rows = check_batched(torch, timer, mm, quantize_activations)
+    entries.update(batched)
+    for row in rows + enc_rows + batched_rows:
         print(json.dumps({"kernel_check": row}), flush=True)
     del timer
+    if "--kernels-only" in sys.argv[1:]:
+        return 0
 
-    counts = serve_full(torch, serve, kernels_mod, mm, enc, quant)
+    routing = RoutingLog(moe)
+    counts = {
+        "smollm-360m": serve_full(torch, serve, kernels_mod, mm, enc, quant, routing, FULL_SERVE,
+                                  kvq=quant.KVQuant(KV_BLOCK, KV_GROUP), expect=SMOLLM_KERNELS),
+    }
+    torch.cuda.empty_cache()  # the smollm model is gone: the card is free for deepseek
+    counts[MOE_ARCH] = serve_full(torch, serve, kernels_mod, mm, enc, quant, routing,
+                                  MOE_FULL_SERVE, kvq=None, expect=MOE_KERNELS)
+    routing.close()
+    torch.cuda.empty_cache()
     serve_reduced(serve, REDUCED_SERVE)
+    serve_reduced(serve, MOE_REDUCED_SERVE)
 
-    order = ("pvq_encode_batch", "pvq_matmul_q", "pvq_attn_q", "pvq_matmul")
+    # each kernel's launches come from the main path that first ported it;
+    # launches_by_path has every full-width path's count
+    order = (("pvq_encode_batch", "smollm-360m"), ("pvq_matmul_q", "smollm-360m"),
+             ("pvq_attn_q", "smollm-360m"), ("pvq_matmul", "smollm-360m"),
+             ("pvq_matmul_q_batched", MOE_ARCH), ("pvq_matmul_batched", MOE_ARCH))
     line = []
-    for name in order:
+    for name, path in order:
         e = dict(entries[name])
-        e["launches"] = counts[name]
+        e["launches"] = counts[path][name]
+        e["launches_by_path"] = {p: c[name] for p, c in counts.items()}
         line.append(e)
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,10 @@
 
 from typing import Dict
 
-from . import smollm_360m
+from . import deepseek_v2_lite_16b, smollm_360m
 from .base import ModelConfig, PVQConfig
 
-ARCHS: Dict[str, ModelConfig] = {c.CONFIG.name: c.CONFIG for c in (smollm_360m,)}
+ARCHS: Dict[str, ModelConfig] = {c.CONFIG.name: c.CONFIG for c in (smollm_360m, deepseek_v2_lite_16b)}
 
 
 def get_config(arch: str) -> ModelConfig:

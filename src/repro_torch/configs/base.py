@@ -1,15 +1,20 @@
 """Model configuration schema (PyTorch port of ``repro.configs.base``).
 
 The reference module imports the MLA/MoE/SSM/RWKV config types from its
-JAX layer modules, so the port keeps its own copy.  Those families are not
-ported yet: their fields exist (so ``dataclasses.asdict`` matches the
-reference field for field) but only ``None`` is accepted.
+JAX layer modules; the port keeps its own copies of ``MoEConfig`` and
+``MLAConfig`` (in ``repro_torch.nn.moe`` / ``repro_torch.nn.mla``).  The
+SSM and RWKV families are not ported yet: their fields exist (so
+``dataclasses.asdict`` matches the reference field for field) but only
+``None`` is accepted.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Optional
+
+from ..nn.mla import MLAConfig
+from ..nn.moe import MoEConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,7 +32,7 @@ class PVQConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # only 'dense' is ported
+    family: str  # 'dense' | 'moe' are ported
     n_layers: int
     d_model: int
     n_heads: int
@@ -42,13 +47,13 @@ class ModelConfig:
     attn_bias: bool = False
     learned_positions: bool = False
     max_position: int = 0
-    # --- MoE (not ported: None only) ---
-    moe: Optional[Any] = None
-    moe_period: int = 1
-    first_dense: int = 0
-    d_ff_dense: int = 0
-    # --- MLA (not ported: None only) ---
-    mla: Optional[Any] = None
+    # --- MoE ---
+    moe: Optional[MoEConfig] = None
+    moe_period: int = 1  # MoE FFN every `moe_period` layers (others dense)
+    first_dense: int = 0  # first k layers always dense FFN (DeepSeek)
+    d_ff_dense: int = 0  # hidden dim of those dense FFNs (0 -> d_ff)
+    # --- MLA ---
+    mla: Optional[MLAConfig] = None
     # --- hybrid / ssm (not ported: None only) ---
     hybrid_period: int = 0
     ssm: Optional[Any] = None
@@ -70,7 +75,7 @@ class ModelConfig:
     z_loss_coef: float = 0.0
 
     def __post_init__(self) -> None:
-        for field in ("moe", "mla", "ssm", "rwkv"):
+        for field in ("ssm", "rwkv"):
             if getattr(self, field) is not None:
                 raise NotImplementedError(
                     f"{self.name}: {field} configs are not ported yet"
@@ -81,8 +86,26 @@ class ModelConfig:
         return self.head_dim or (self.d_model // self.n_heads)
 
     def reduced(self) -> "ModelConfig":
-        """Tiny same-family variant for CPU smoke tests (same values as the
-        reference's ``reduced()`` for the dense family)."""
+        """Tiny same-family variant for CPU smoke tests (the reference's
+        ``reduced()`` values for the dense and MoE/MLA families)."""
+        small_moe = None
+        if self.moe is not None:
+            small_moe = self.moe._replace(
+                n_experts=min(self.moe.n_experts, 4),
+                top_k=min(self.moe.top_k, 2),
+                d_expert=32,
+                group_size=64,
+                n_shared=min(self.moe.n_shared, 1),
+            )
+        small_mla = None
+        if self.mla is not None:
+            small_mla = MLAConfig(
+                kv_lora_rank=16,
+                q_lora_rank=(16 if self.mla.q_lora_rank else None),
+                nope_head_dim=8,
+                rope_head_dim=4,
+                v_head_dim=8,
+            )
         n_heads = min(self.n_heads, 4)
         return dataclasses.replace(
             self,
@@ -95,6 +118,8 @@ class ModelConfig:
             d_ff=96,
             d_ff_dense=96 if self.d_ff_dense else 0,
             vocab_size=128,
+            moe=small_moe,
+            mla=small_mla,
             encoder_layers=2 if self.encoder_layers else 0,
             prefix_len=4 if self.prefix_len else 0,
             first_dense=min(self.first_dense, 1),

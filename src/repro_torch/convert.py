@@ -5,8 +5,11 @@ a framework-neutral form (nested dicts of numpy arrays, each ``PackedPVQ``
 given as a dict with ``pulses``, ``scales``, ``group``, ``k``, ``shape``,
 ``dtype``, ``layout`` and ``scale_mode``) and returns the port's
 parameters: the same nested dicts with torch tensors and
-:class:`~repro_torch.core.packed.PackedPVQ` leaves.  Both packages then
-compute on identical weights and identical packed codes.  Turning JAX
+:class:`~repro_torch.core.packed.PackedPVQ` leaves, stacked ones included
+(a MoE expert bank packed under a layer stack is 4-D: ``(repeats, E,
+k_pad, n)``).  Leaves without a packed form (the f32 MoE router, the MLA
+b-projections, norms) stay tensors.  Both packages then compute on
+identical weights and identical packed codes.  Turning JAX
 arrays into numpy is the caller's step, so this module imports no JAX.
 """
 

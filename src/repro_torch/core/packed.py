@@ -25,6 +25,10 @@ import torch
 
 from .quantize import KVQuant, QuantPolicy, k_for
 
+#: the MoE expert banks ``_pack_leaf`` packs into the expert-stacked matmul
+#: layout: the one predicate every expert-bank report filters with
+EXPERT_LEAF_REGEX = r"(wi_up|wi_gate|wo)_experts$"
+
 #: leaves the packed policy never touches even when a rule matches
 PACK_SKIP_REGEX = r"(conv_kernel|pos_embedding|wk_b|wv_b|time_|router)"
 
@@ -122,6 +126,14 @@ class PackedPVQ:
 
 def is_packed(leaf: Any) -> bool:
     return isinstance(leaf, PackedPVQ)
+
+
+def materialize(leaf: Any, dtype=None) -> torch.Tensor:
+    """Dense view of a (possibly packed) leaf, for consumers without a
+    packed compute path (the MLA b-projections at decode)."""
+    if is_packed(leaf):
+        return leaf.dequantize(dtype)
+    return leaf if dtype is None else leaf.to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -332,22 +344,48 @@ def is_packed_kv(leaf: Any) -> bool:
 # ---------------------------------------------------------------------------
 
 
+#: stacked leaves above this many elements are packed one leading-axis
+#: slice at a time (each matrix is its own code, so the result is
+#: byte-identical); it bounds the f32 and int32 transients of a pack
+PACK_CHUNK_ELEMS = 1 << 28
+
+
 def pack_matmul(
     w: torch.Tensor, *, group: int, n_over_k: Optional[float] = None,
     k: Optional[int] = None, scale_mode: str = "ls",
 ) -> PackedPVQ:
     """Encode a dense weight ``(..., d_in, d_out)`` (leading axes: a layer
-    stack, each matrix its own code) into the kernel-native matmul layout.
-    For K > 127 a coordinate may be clamped to the int8 range, so rho is
-    refit against the pulses actually stored."""
-    from ..kernels import ops
-    from .pvq import _scales
-
+    or expert stack, each matrix its own code) into the kernel-native
+    matmul layout.  For K > 127 a coordinate may be clamped to the int8
+    range, so rho is refit against the pulses actually stored.  A stack of
+    more than ``PACK_CHUNK_ELEMS`` elements is encoded one leading slice at
+    a time into preallocated planes."""
     if w.ndim < 2:
         raise ValueError(f"matmul layout needs a tensor of rank >= 2, got {tuple(w.shape)}")
     d_in, d_out = w.shape[-2:]
-    g, _ = matmul_plan(group, d_in)
+    g, k_pad = matmul_plan(group, d_in)
     k = _resolve_k(g, n_over_k, k)
+    if w.ndim > 2 and w.numel() > PACK_CHUNK_ELEMS:
+        pulses = torch.empty((*w.shape[:-2], k_pad, d_out), dtype=torch.int8, device=w.device)
+        scales = torch.empty((*w.shape[:-2], k_pad // g, d_out), dtype=torch.float32,
+                             device=w.device)
+        for i in range(w.shape[0]):
+            part = pack_matmul(w[i], group=group, k=k, scale_mode=scale_mode)
+            pulses[i], scales[i] = part.pulses, part.scales
+    else:
+        pulses, scales = _encode_matmul(w, g, k, scale_mode)
+    return PackedPVQ(
+        pulses=pulses, scales=scales, group=g, k=k, shape=(int(d_in), int(d_out)),
+        dtype=dtype_name(w.dtype), layout="matmul", scale_mode=scale_mode,
+    )
+
+
+def _encode_matmul(w: torch.Tensor, g: int, k: int, scale_mode: str):
+    """``(pulses int8 (..., k_pad, n), scales f32 (..., k_pad // g, n))``."""
+    from ..kernels import ops
+    from .pvq import _scales
+
+    d_in, d_out = w.shape[-2:]
     wf = w.to(torch.float32)
     pulses, scales, k_pad = ops.encode_weight_matrix(wf, group=g, k_pulses=k)
     if scale_mode != "ls" or k > 127:
@@ -357,10 +395,7 @@ def pack_matmul(
         wg = wp.transpose(-1, -2).reshape(*lead, d_out, k_pad // g, g)
         pg = pulses.transpose(-1, -2).reshape(*lead, d_out, k_pad // g, g)
         scales = _scales(wg, pg, scale_mode).transpose(-1, -2).to(torch.float32).contiguous()
-    return PackedPVQ(
-        pulses=pulses, scales=scales, group=g, k=k, shape=(int(d_in), int(d_out)),
-        dtype=dtype_name(w.dtype), layout="matmul", scale_mode=scale_mode,
-    )
+    return pulses, scales
 
 
 def pack_flat(
@@ -414,13 +449,23 @@ def _pack_leaf(pstr: str, leaf: torch.Tensor, n_over_k: float, group: Optional[i
                          row_align=leaf.shape[-1])
     if re.search(r"kernel$", pstr) and leaf.ndim in (2, 3):
         return pack_matmul(leaf, group=g, n_over_k=n_over_k, scale_mode=scale_mode)
+    # stacked MoE expert banks: (E, d_in, d_out) or layer-stacked
+    # (repeats, E, d_in, d_out), one code per expert matrix
+    if re.search(EXPERT_LEAF_REGEX, pstr) and leaf.ndim in (3, 4):
+        return pack_matmul(leaf, group=g, n_over_k=n_over_k, scale_mode=scale_mode)
     return None
 
 
 def quantize_params(params: Any, policy: QuantPolicy, *, min_size: int = 64) -> Any:
     """Encode a parameter tree once into ``PackedPVQ`` leaves (dense kernels,
-    embeddings) and untouched leaves (norms and anything without a packed
-    consumer)."""
+    embeddings, expert banks) and untouched leaves (norms and anything
+    without a packed consumer).
+
+    Packs in place: each packed leaf replaces its dense leaf in ``params``
+    as soon as it is encoded, so a dense leaf's memory is released before
+    the next one is packed (a model that fills most of the card).  Returns
+    ``params``; a caller that needs the dense tree afterwards packs a copy.
+    """
 
     def visit(pstr, leaf):
         if is_packed(leaf) or not isinstance(leaf, torch.Tensor) or leaf.ndim < 2:
@@ -437,7 +482,16 @@ def quantize_params(params: Any, policy: QuantPolicy, *, min_size: int = 64) -> 
         _probe_weight_pack(leaf, packed)
         return packed
 
-    return tree_map_with_path(visit, params)
+    def pack_dict(tree, prefix):
+        for key in list(tree):
+            pstr = f"{prefix}/{key}" if prefix else str(key)
+            if isinstance(tree[key], dict):
+                pack_dict(tree[key], pstr)
+            else:
+                tree[key] = visit(pstr, tree[key])
+        return tree
+
+    return pack_dict(params, "")
 
 
 def _probe_weight_pack(leaf: torch.Tensor, packed: PackedPVQ) -> None:
@@ -463,6 +517,11 @@ def packed_leaves(params: Any) -> Dict[str, PackedPVQ]:
 
     tree_map_with_path(visit, params)
     return out
+
+
+def expert_leaves(params: Any) -> Dict[str, PackedPVQ]:
+    """{path: PackedPVQ} for the packed MoE expert banks only."""
+    return {k: v for k, v in packed_leaves(params).items() if re.search(EXPERT_LEAF_REGEX, k)}
 
 
 def packed_stats(params: Any, *, entropy: bool = False) -> Dict[str, float]:

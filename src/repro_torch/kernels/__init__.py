@@ -12,6 +12,8 @@ LAUNCHES: Dict[str, int] = {
     "pvq_matmul": 0,
     "pvq_matmul_q": 0,
     "pvq_attn_q": 0,
+    "pvq_matmul_batched": 0,
+    "pvq_matmul_q_batched": 0,
 }
 
 

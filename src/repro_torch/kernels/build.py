@@ -1,6 +1,7 @@
 """Build and load the hand-written Hopper kernels.
 
-Each ``csrc/*.cu`` file exposes a plain C interface and is compiled by
+Each ``csrc/*.cu`` file (with the ``csrc/*.cuh`` headers they share)
+exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library under
 ``build/kernels/`` at the root of the checkout, then loaded with
 ``ctypes``.  All sources are compiled at once (one ``nvcc`` process per
@@ -28,6 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES: Dict[str, tuple] = {
     "pvq_encode": ("-fmad=false",),
     "pvq_matmul": (),
+    "pvq_matmul_batched": (),
     "pvq_attn": (),
 }
 
@@ -41,6 +43,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "pvq_matmul": {
         "pvq_matmul_launch": ([_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P], _I),
         "pvq_matmul_q_launch": ([_P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P], _I),
+    },
+    "pvq_matmul_batched": {
+        "pvq_matmul_batched_launch": ([_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P], _I),
+        "pvq_matmul_q_batched_launch": ([_P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P], _I),
     },
     "pvq_attn": {
         "pvq_attn_q_smem_bytes": ([_I, _I, _I], ctypes.c_size_t),
@@ -65,9 +71,11 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
+    """The library's path, keyed on its source, the shared headers and its flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     flags = " ".join(SOURCES[name]).encode()
-    digest = hashlib.sha256(src + flags).hexdigest()[:16]
+    digest = hashlib.sha256(src + headers + flags).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -1,0 +1,54 @@
+// PVQ matmuls over a stack of expert matrices: the MoE expert-bank
+// contraction, one launch for every expert.
+//
+// Replaces:
+//   * src/repro/kernels/pvq_matmul.py:pvq_matmul_q_batched (a lax.scan of
+//     kernel v3 over the expert axis) together with the DMA body it reaches
+//     for big tiles, _kernel_q_dma, which keeps the pulse operand in HBM and
+//     streams it in bk-row chunks through a 2-slot VMEM ring
+//     (make_async_copy + semaphores) while the previous chunk contracts;
+//   * src/repro/kernels/pvq_matmul.py:pvq_matmul_batched (a lax.scan of
+//     kernel v2 over the expert axis).
+//
+//   v3:  y[e] = act(a[e] (.) sum_g rho[e, g, :] * int32(x_q[e][:, gG:(g+1)G] @ W[e][gG:(g+1)G, :]))
+//   v2:  y[e] = act(sum_g rho[e, g, :] * (x[e][:, gG:(g+1)G] @ W[e][gG:(g+1)G, :]))
+//
+// What bounds it: at decode the dispatch GEMM has m = groups x capacity = 1
+// row per expert, so every pulse byte feeds one multiply-add: the kernel is
+// bound by the bytes of the pulse planes (E * k * n int8 plus the rho
+// planes).  At prefill (m = 60) it still is: 2 * 60 multiply-adds per
+// pulse byte is far below the card's int8 ops-to-bytes ratio.
+//
+// Design: the scan over experts becomes the grid's z axis (blockIdx.z is
+// the expert; its base pointers come from the strides), so one launch
+// fills the card with (ceil(n/32), ceil(m/8), E) CTAs.  Both bodies are
+// the 2-D kernels' own (pvq_matmul_common.cuh), launched over the stack:
+// v3 stages each group's pulse tile through a 2-stage cp.async ring, which
+// stands in for the DMA body's streaming, and is bit-identical to
+// pvq_matmul_q_batched_plain; v2 reads the pulses straight from global
+// memory.  No tensor cores or TMA yet.
+
+#include "pvq_matmul_common.cuh"
+
+using namespace pvq;
+
+// Batched kernel v3 over E experts: x (E, m, k) int8, w (E, k, n) int8,
+// rho (E, k/G, n) f32, a (E, m, 1) per row (a_mode 0) or (E, m, k/G) per
+// tile (a_mode 2, applied beside rho); out (E, m, n) f32 (out_bf16 = 0) or
+// bf16 (out_bf16 = 1).
+extern "C" int pvq_matmul_q_batched_launch(const int8_t* x, const int8_t* w, const float* rho,
+                                           const float* a, int a_mode, int act, void* out,
+                                           int out_bf16, int e, int m, int k, int n, int G,
+                                           void* stream) {
+  if (a_mode != kPerRow && a_mode != kPerTile) return (int)cudaErrorInvalidValue;
+  return launch_q_stack(x, w, rho, a, a_mode, nullptr, act, out, out_bf16, e, m, k, n, G,
+                        (cudaStream_t)stream);
+}
+
+// Batched kernel v2 over E experts: x and out (E, m, k) / (E, m, n), f32
+// (x_bf16 = 0) or bf16 (x_bf16 = 1).
+extern "C" int pvq_matmul_batched_launch(const void* x, const int8_t* w, const float* rho,
+                                         int act, void* out, int x_bf16, int e, int m, int k,
+                                         int n, int G, void* stream) {
+  return launch_f(x, w, rho, nullptr, act, out, x_bf16, e, m, k, n, G, (cudaStream_t)stream);
+}

@@ -43,7 +43,7 @@ def _quantize_x(x, act_quant, group=None):
 
 
 # ---------------------------------------------------------------------------
-# matmuls (kernels v2 / v3)
+# matmuls (kernels v2 / v3 and their expert-batched forms)
 # ---------------------------------------------------------------------------
 
 
@@ -101,6 +101,58 @@ def packed_matmul(
         x, packed.pulses, packed.scales, group=packed.group, bias=bias,
         activation=activation, act_quant=act_quant,
     )
+
+
+def packed_matmul_stacked(
+    x: torch.Tensor,
+    packed,
+    *,
+    activation: str = "none",
+    act_quant=None,
+    act_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Batched ``act(x[e] @ dequant(packed[e]))`` over an expert-stacked
+    matmul-layout ``PackedPVQ`` (pulses ``(E, k_pad, n)``): the MoE
+    expert-bank contraction, one launch of the batched kernel.
+
+    ``x`` is ``(E, m, d_in | k_pad)``.  ``act_quant`` quantizes it here
+    (int8, batched v3); ``act_scale`` ``(E, m, 1)`` marks ``x`` as
+    already-quantized int8 (``moe_forward`` quantizes its dispatch buffer
+    once for the up and gate matmuls); neither runs batched v2 on float x.
+    ``x`` is zero-padded to ``k_pad`` BEFORE quantizing.
+    """
+    if packed.layout != "matmul":
+        raise ValueError(f"packed_matmul_stacked needs layout='matmul', got {packed.layout!r}")
+    if packed.pulses.ndim != 3:
+        raise ValueError(
+            f"packed_matmul_stacked takes one stacked expert bank; got pulses "
+            f"{tuple(packed.pulses.shape)} (expected (E, k_pad, n): slice any layer axis first)"
+        )
+    e, k_pad, _ = packed.pulses.shape
+    if x.ndim != 3 or x.shape[0] != e:
+        raise ValueError(f"x must be (E={e}, m, d_in) matching the expert axis, got {tuple(x.shape)}")
+    d_in = int(packed.shape[-2])
+    if x.shape[-1] not in (d_in, k_pad):
+        raise ValueError(
+            f"x feature dim {x.shape[-1]} matches neither the packed bank's "
+            f"logical d_in {d_in} nor its padded k_pad {k_pad}"
+        )
+    out_dtype = x.dtype if x.is_floating_point() else torch.float32
+    if x.shape[-1] != k_pad:
+        x = torch.nn.functional.pad(x, (0, k_pad - x.shape[-1]))
+    if act_scale is not None:
+        if x.dtype != torch.int8:
+            raise ValueError(f"pre-quantized dispatch (act_scale given) needs int8 x, got {x.dtype}")
+        act_scale = act_scale.to(torch.float32)
+    else:
+        x, act_scale = _quantize_x(x, act_quant, group=packed.group)
+    route = _route(x)
+    if act_scale is not None:
+        fn = mm.pvq_matmul_q_batched_cuda if route == "cuda" else mm.pvq_matmul_q_batched_plain
+        return fn(x, packed.pulses, packed.scales, act_scale, group=packed.group,
+                  activation=activation, out_dtype=out_dtype)
+    fn = mm.pvq_matmul_batched_cuda if route == "cuda" else mm.pvq_matmul_batched_plain
+    return fn(x, packed.pulses, packed.scales, group=packed.group, activation=activation)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,12 @@
 """PVQ matmuls and packed-KV attention decode (port of
 ``repro.kernels.pvq_matmul``): kernels v2 ``pvq_matmul``, v3
-``pvq_matmul_q`` and v4 ``pvq_attn_q``.
+``pvq_matmul_q``, their expert-batched forms ``pvq_matmul_batched`` and
+``pvq_matmul_q_batched``, and v4 ``pvq_attn_q``.
 
 For each kernel, ``*_cuda`` launches the hand-written Hopper kernel
-(``csrc/pvq_matmul.cu``, ``csrc/pvq_attn.cu``) and ``*_plain`` computes the
-same function in plain PyTorch.  Integer contractions in the plain versions
+(``csrc/pvq_matmul.cu``, ``csrc/pvq_matmul_batched.cu``,
+``csrc/pvq_attn.cu``) and ``*_plain`` computes the same function in plain
+PyTorch.  Integer contractions in the plain versions
 run as f32 matmuls of integer-valued tensors, exact while
 ``group * 127^2 < 2^24`` (``torch.mm`` on int8 wraps in int8); wider groups
 contract in int64.
@@ -127,13 +129,17 @@ def pvq_matmul_plain(
     x: torch.Tensor, w_pulses: torch.Tensor, scales: torch.Tensor,
     bias: Optional[torch.Tensor] = None, *, group: int, activation: str = "none",
 ) -> torch.Tensor:
-    """``act(sum_g (x_g @ W_g) * rho_g + bias)`` in x's float dtype."""
+    """``act(sum_g (x_g @ W_g) * rho_g + bias)`` in x's float dtype.  Each
+    group's dot is taken in f64 (every product exact) and rounded to f32
+    once, so its f32 value does not depend on the order of the sum; rho
+    and the f32 accumulator follow, as in kernel v2."""
     m, k, n = _check_matmul(x, w_pulses, scales, group, bias, activation)
-    xf = x.to(torch.float32)
+    xd = x.to(torch.float64)
     acc = torch.zeros((m, n), dtype=torch.float32, device=x.device)
     for g in range(k // group):
         sl = slice(g * group, (g + 1) * group)
-        acc = acc + (xf[:, sl] @ w_pulses[sl].to(torch.float32)) * scales[g].to(torch.float32)
+        dot = (xd[:, sl] @ w_pulses[sl].to(torch.float64)).to(torch.float32)
+        acc = acc + dot * scales[g].to(torch.float32)
     if bias is not None:
         acc = acc + bias.to(torch.float32)
     return _apply_activation(acc, activation).to(x.dtype)
@@ -217,6 +223,134 @@ def pvq_matmul_q_cuda(
     )
     build.check(status, "pvq_matmul_q")
     LAUNCHES["pvq_matmul_q"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# batched kernels v2 / v3: one launch over a stack of expert matrices
+# ---------------------------------------------------------------------------
+
+
+def _check_batched(x, w_pulses, scales, group, activation):
+    """Shapes of a batched call: ``x (E, m, k)``, pulses ``(E, k, n)`` int8,
+    scales ``(E, k // group, n)``; returns ``(e, m, k, n)``."""
+    if x.ndim != 3 or w_pulses.ndim != 3 or scales.ndim != 3:
+        raise ValueError(f"batched operands must be 3-D, got {tuple(x.shape)}, "
+                         f"{tuple(w_pulses.shape)}, {tuple(scales.shape)}")
+    e, m, k = x.shape
+    e2, k2, n = w_pulses.shape
+    if e != e2 or scales.shape[0] != e:
+        raise ValueError(f"expert axes differ: {e}, {e2}, {scales.shape[0]}")
+    if k != k2:
+        raise ValueError(f"contraction mismatch {k} vs {k2}")
+    if k % group:
+        raise ValueError(f"contraction dim {k} must be a group ({group}) multiple")
+    if w_pulses.dtype != torch.int8:
+        raise ValueError(f"pulses must be int8, got {w_pulses.dtype}")
+    if tuple(scales.shape) != (e, k // group, n):
+        raise ValueError(f"scales {tuple(scales.shape)} != {(e, k // group, n)}")
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"activation {activation!r} not in {ACTIVATIONS}")
+    return e, m, k, n
+
+
+def _batched_per_tile(act_scale, e, m, k, group) -> bool:
+    """Whether a batched v3 scale is per tile ``(E, m, k // group)``; else
+    it must be per row ``(E, m, 1)``."""
+    shape = tuple(act_scale.shape)
+    if shape == (e, m, k // group) and k > group:
+        return True
+    if shape == (e, m, 1):
+        return False
+    raise ValueError(f"act_scale {shape} fits neither {(e, m, 1)} nor {(e, m, k // group)}")
+
+
+def pvq_matmul_batched_plain(
+    x: torch.Tensor, w_pulses: torch.Tensor, scales: torch.Tensor, *,
+    group: int, activation: str = "none",
+) -> torch.Tensor:
+    """Kernel v2 per expert: ``act(sum_g (x[e]_g @ W[e]_g) * rho[e]_g)``;
+    each slice is :func:`pvq_matmul_plain`'s arithmetic in its order (the
+    group dot in f64, rounded to f32 once)."""
+    e, m, k, n = _check_batched(x, w_pulses, scales, group, activation)
+    xd = x.to(torch.float64)
+    acc = torch.zeros((e, m, n), dtype=torch.float32, device=x.device)
+    for g in range(k // group):
+        sl = slice(g * group, (g + 1) * group)
+        dot = (xd[:, :, sl] @ w_pulses[:, sl].to(torch.float64)).to(torch.float32)
+        acc = acc + dot * scales[:, g : g + 1].to(torch.float32)
+    return _apply_activation(acc, activation).to(x.dtype)
+
+
+def pvq_matmul_batched_cuda(
+    x: torch.Tensor, w_pulses: torch.Tensor, scales: torch.Tensor, *,
+    group: int, activation: str = "none",
+) -> torch.Tensor:
+    e, m, k, n = _check_batched(x, w_pulses, scales, group, activation)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"pvq_matmul_batched takes f32 or bf16 x, got {x.dtype}")
+    xc = _cuda_operand(x, x.dtype, "x")
+    wc = _cuda_operand(w_pulses, torch.int8, "w_pulses")
+    sc = _cuda_operand(scales, torch.float32, "scales")
+    out = torch.empty((e, m, n), dtype=x.dtype, device=x.device)
+    status = build.launcher("pvq_matmul_batched_launch")(
+        xc.data_ptr(), wc.data_ptr(), sc.data_ptr(), ACTIVATIONS.index(activation),
+        out.data_ptr(), int(x.dtype == torch.bfloat16), e, m, k, n, group, _stream(x),
+    )
+    build.check(status, "pvq_matmul_batched")
+    LAUNCHES["pvq_matmul_batched"] += 1
+    return out
+
+
+def pvq_matmul_q_batched_plain(
+    x_q: torch.Tensor, w_pulses: torch.Tensor, scales: torch.Tensor,
+    act_scale: torch.Tensor, *, group: int, activation: str = "none",
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Kernel v3 per expert: ``act(a[e] (.) sum_g rho[e]_g * int32(x_q[e]_g
+    @ W[e]_g))`` with a per-row ``(E, m, 1)`` or per-tile
+    ``(E, m, k // group)`` scale; each slice is
+    :func:`pvq_matmul_q_plain`'s arithmetic, bit for bit (the integer
+    contractions are exact)."""
+    e, m, k, n = _check_batched(x_q, w_pulses, scales, group, activation)
+    if x_q.dtype != torch.int8:
+        raise ValueError(f"x_q must be pre-quantized int8, got {x_q.dtype}")
+    per_tile = _batched_per_tile(act_scale, e, m, k, group)
+    a = act_scale.to(torch.float32)
+    acc = torch.zeros((e, m, n), dtype=torch.float32, device=x_q.device)
+    for g in range(k // group):
+        sl = slice(g * group, (g + 1) * group)
+        part = int_dot(x_q[:, :, sl], w_pulses[:, sl], group) * scales[:, g : g + 1].to(torch.float32)
+        if per_tile:
+            part = part * a[:, :, g : g + 1]
+        acc = acc + part
+    y = acc if per_tile else acc * a
+    return _apply_activation(y, activation).to(out_dtype)
+
+
+def pvq_matmul_q_batched_cuda(
+    x_q: torch.Tensor, w_pulses: torch.Tensor, scales: torch.Tensor,
+    act_scale: torch.Tensor, *, group: int, activation: str = "none",
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    e, m, k, n = _check_batched(x_q, w_pulses, scales, group, activation)
+    if x_q.dtype != torch.int8:
+        raise ValueError(f"x_q must be pre-quantized int8, got {x_q.dtype}")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"pvq_matmul_q_batched writes f32 or bf16, got {out_dtype}")
+    a_mode = 2 if _batched_per_tile(act_scale, e, m, k, group) else 0
+    xc = _cuda_operand(x_q, torch.int8, "x_q")
+    wc = _cuda_operand(w_pulses, torch.int8, "w_pulses")
+    sc = _cuda_operand(scales, torch.float32, "scales")
+    ac = _cuda_operand(act_scale, torch.float32, "act_scale")
+    out = torch.empty((e, m, n), dtype=out_dtype, device=x_q.device)
+    status = build.launcher("pvq_matmul_q_batched_launch")(
+        xc.data_ptr(), wc.data_ptr(), sc.data_ptr(), ac.data_ptr(), a_mode,
+        ACTIVATIONS.index(activation), out.data_ptr(), int(out_dtype == torch.bfloat16),
+        e, m, k, n, group, _stream(x_q),
+    )
+    build.check(status, "pvq_matmul_q_batched")
+    LAUNCHES["pvq_matmul_q_batched"] += 1
     return out
 
 

@@ -5,12 +5,15 @@ PVQ weights, int8 activations and a PVQ-compressed KV cache.
     python -m repro_torch.launch.serve --arch smollm-360m \\
         --batch 4 --prompt-len 128 --gen 32 --pvq --act-int8 --kv-pvq \\
         --agreement-min 0.99
+    python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b \\
+        --batch 4 --prompt-len 128 --gen 32 --pvq --act-int8 --agreement-min 0.99
 
 It runs on the CUDA card unless ``--device cpu`` is given, and never drops
 to the CPU by itself.  ``--agreement-min T`` also scores the same tokens on
 the reference leg (f32 activations, dense KV cache: kernel v2 on the packed
 weights) and exits 1 if teacher-forced top-1 agreement is below T.  The
-JSON report adds ``kernel_launches``: the CUDA launches of each kernel.
+JSON report adds ``kernel_launches`` (the CUDA launches of each kernel),
+the packed MoE expert banks' bytes, and on a card the peak device memory.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from typing import Optional
 import torch
 
 from ..configs import get_config
-from ..core.packed import _fit_group, packed_stats, quantize_params
+from ..core.packed import _fit_group, expert_leaves, packed_stats, quantize_params
 from ..core.quantize import (
     ActQuant,
     KVQuant,
@@ -53,6 +56,21 @@ def serving_policy(cfg, n_over_k: float = 1.0) -> QuantPolicy:
                ("kernel|experts", n_over_k, cfg.pvq.group)),
         scale_mode="ls",
     )
+
+
+def _expert_report(params) -> dict:
+    """Weight-bytes report for the packed MoE expert banks (if any)."""
+    ex = expert_leaves(params)
+    if not ex:
+        return {}
+    packed_bytes = sum(leaf.nbytes_packed for leaf in ex.values())
+    dense_bytes = sum(leaf.nbytes_dense for leaf in ex.values())
+    return {
+        "packed_expert_tensors": len(ex),
+        "packed_expert_bytes": packed_bytes,
+        "dense_expert_bytes": dense_bytes,
+        "expert_compression_ratio": round(dense_bytes / max(packed_bytes, 1), 3),
+    }
 
 
 def _decode_bucket() -> int:
@@ -205,6 +223,8 @@ def _serve(args):
     if args.reduced:
         cfg = cfg.reduced()
     model = build_model(cfg)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     params = model.init(args.seed, device=device)
     report = {"device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"}
     if args.metrics_out:
@@ -214,6 +234,7 @@ def _serve(args):
     if args.pvq:
         t0 = time.time()
         with obs.span("serve/pack"):
+            # each dense leaf is released as soon as it is packed
             params = quantize_params(params, serving_policy(cfg, args.n_over_k))
             _sync(device)
         st = packed_stats(params)
@@ -222,6 +243,7 @@ def _serve(args):
         report["packed_bytes"] = st["packed_bytes"]
         report["weight_compression_ratio"] = round(st["weight_compression_ratio"], 3)
         report["pvq_encode_s"] = round(time.time() - t0, 2)
+        report.update(_expert_report(params))
 
     if args.act_int8:
         set_default_act_quant(ActQuant(mode="per_row"))
@@ -281,6 +303,8 @@ def _serve(args):
             )
             rc = 1
     report["kernel_launches"] = launches()
+    if device.type == "cuda":
+        report["peak_device_memory_bytes"] = torch.cuda.max_memory_allocated(device)
     return report, rc, state
 
 

@@ -1,4 +1,5 @@
-"""Model API for the ported families (port of ``repro.nn.models``).
+"""Model API for the ported families, dense and MoE (port of
+``repro.nn.models``).
 
     model = Model(cfg)
     params = model.init(seed, device=...)
@@ -24,8 +25,8 @@ from .layers import Params
 
 class Model:
     def __init__(self, cfg: ModelConfig):
-        if not cfg.tie_embeddings or cfg.learned_positions or cfg.family != "dense":
-            raise NotImplementedError(f"{cfg.name}: only tied-embedding dense models are ported")
+        if cfg.learned_positions or cfg.family not in ("dense", "moe"):
+            raise NotImplementedError(f"{cfg.name}: only the dense and moe families are ported")
         self.cfg = cfg
         self.plan = T.segment_plan(cfg, "decoder")
 
@@ -43,13 +44,20 @@ class Model:
             f"seg{i}": T.init_segment(gen, cfg, seg, device) for i, seg in enumerate(self.plan)
         }
         params["final_norm"] = T._init_norm(cfg, dtype, device)
+        if not cfg.tie_embeddings:
+            params["lm_head"] = L.init_dense(gen, cfg.d_model, cfg.vocab_size, dtype=dtype,
+                                             device=device)
         return params
 
     def _embed_tokens(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
         return L.embed(params["embed"], tokens, dtype=getattr(torch, self.cfg.compute_dtype))
 
     def _head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
-        return L.unembed(params["embed"], x)
+        """Logits in f32: the tied unembed, or the untied ``lm_head`` dense
+        layer run on the f32 stream."""
+        if self.cfg.tie_embeddings:
+            return L.unembed(params["embed"], x)
+        return L.dense(params["lm_head"], x.to(torch.float32))
 
     def forward(self, params: Params, batch: Dict[str, torch.Tensor], *, mode: str = "prefill"):
         """Full-sequence forward: ``(logits, caches | None)``."""
@@ -66,7 +74,8 @@ class Model:
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor], cache_len: int = 0):
         """Run the prompt; return (last-position logits, decode cache).  The
         sequence-indexed cache tensors are zero-padded by ``cache_len - s``
-        (packed planes included; the tail ring keeps its block length)."""
+        (packed planes and the MLA latents included; the tail ring keeps
+        its block length)."""
         logits, caches = self.forward(params, batch, mode="prefill")
         s = batch["tokens"].shape[1]
         pad = cache_len - s if cache_len and cache_len > s else 0
@@ -74,6 +83,12 @@ class Model:
             for seg_cache in caches.values():
                 for layer in seg_cache:
                     for entry in layer.values():
+                        if "mla" in entry:  # (b, s, X) latents
+                            entry["mla"] = {
+                                n: torch.nn.functional.pad(t, (0, 0, 0, pad))
+                                for n, t in entry["mla"].items()
+                            }
+                            continue
                         kv = entry["kv"]
                         if is_packed_kv(kv):
                             entry["kv"] = kv.pad_seq(pad)

@@ -1,9 +1,14 @@
-"""Block assembly for the dense family (port of ``repro.nn.transformer``).
+"""Block assembly for the dense and MoE families (port of
+``repro.nn.transformer``).
 
-A model is a list of segments ``(repeats, pattern)``.  Per-segment
-parameters are stacked along a leading ``repeats`` axis, as in the
-reference; where the reference runs ``lax.scan`` over that axis, the port
-runs a Python loop over the stacked layer params.  Decode caches are a
+A model is a list of segments ``(repeats, pattern)``:
+
+    dense          -> [(L, (attn+ffn,))]
+    moe (DeepSeek) -> [(first_dense, (mla+dense0,)), (L-k, (mla+moe,))]
+
+Per-segment parameters are stacked along a leading ``repeats`` axis, as in
+the reference; where the reference runs ``lax.scan`` over that axis, the
+port runs a Python loop over the stacked layer params.  Decode caches are a
 list with one entry per layer.
 """
 
@@ -18,13 +23,15 @@ from ..configs.base import ModelConfig
 from ..core.packed import is_packed
 from . import attention as attn_lib
 from . import layers as L
+from . import mla as mla_lib
+from . import moe as moe_lib
 from .layers import Params
 
 
 @dataclasses.dataclass(frozen=True)
 class BlockSpec:
-    mixer: str  # 'attn' (the only mixer ported)
-    ffn: str  # 'dense'
+    mixer: str  # 'attn' | 'mla'
+    ffn: str  # 'dense' | 'dense0' | 'moe'
     causal: bool = True
     cross: bool = False
 
@@ -33,9 +40,16 @@ Segment = Tuple[int, Tuple[BlockSpec, ...]]
 
 
 def segment_plan(cfg: ModelConfig, role: str = "decoder") -> List[Segment]:
-    if cfg.family != "dense" or role != "decoder":
+    if cfg.family not in ("dense", "moe") or role != "decoder" or cfg.hybrid_period:
         raise NotImplementedError(f"{cfg.family}/{role} stacks are not ported yet")
-    return [(cfg.n_layers, (BlockSpec("attn", "dense"),))]
+    mixer = "mla" if cfg.mla is not None else "attn"
+    if cfg.moe is not None:
+        segs: List[Segment] = []
+        if cfg.first_dense:
+            segs.append((cfg.first_dense, (BlockSpec(mixer, "dense0"),)))
+        segs.append((cfg.n_layers - cfg.first_dense, (BlockSpec(mixer, "moe"),)))
+        return segs
+    return [(cfg.n_layers, (BlockSpec(mixer, "dense"),))]
 
 
 def _init_norm(cfg: ModelConfig, dtype, device) -> Params:
@@ -51,29 +65,52 @@ def _norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 def init_block(gen, cfg: ModelConfig, spec: BlockSpec, device) -> Params:
     dtype = getattr(torch, cfg.param_dtype)
     d = cfg.d_model
-    return {
-        "ln_mix": _init_norm(cfg, dtype, device),
-        "mixer": attn_lib.init_attention(
+    p: Params = {"ln_mix": _init_norm(cfg, dtype, device)}
+    if spec.mixer == "attn":
+        p["mixer"] = attn_lib.init_attention(
             gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, dtype=dtype, device=device
-        ),
-        "ln_ffn": _init_norm(cfg, dtype, device),
-        "ffn": L.init_ffn(gen, d, cfg.d_ff, cfg.ffn_activation, dtype=dtype, device=device),
-    }
+        )
+    elif spec.mixer == "mla":
+        p["mixer"] = mla_lib.init_mla(gen, d, cfg.n_heads, cfg.mla, dtype=dtype, device=device)
+    else:
+        raise ValueError(spec.mixer)
+    p["ln_ffn"] = _init_norm(cfg, dtype, device)
+    if spec.ffn == "dense":
+        p["ffn"] = L.init_ffn(gen, d, cfg.d_ff, cfg.ffn_activation, dtype=dtype, device=device)
+    elif spec.ffn == "dense0":
+        p["ffn"] = L.init_ffn(gen, d, cfg.d_ff_dense or cfg.d_ff, cfg.ffn_activation,
+                              dtype=dtype, device=device)
+    elif spec.ffn == "moe":
+        p["ffn"] = moe_lib.init_moe(gen, d, cfg.moe, dtype=dtype, device=device)
+    else:
+        raise ValueError(spec.ffn)
+    return p
 
 
-def _stack(trees: List[Any]) -> Any:
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _stack_into(stacked: Any, r: int, tree: Any, repeats: int) -> Any:
+    """Write layer ``r``'s params into the stacked tree (allocated on the
+    first layer), so a stack never needs a second copy of itself."""
+    if isinstance(tree, dict):
+        if stacked is None:
+            stacked = {}
+        for k, v in tree.items():
+            stacked[k] = _stack_into(stacked.get(k), r, v, repeats)
+        return stacked
+    if stacked is None:
+        stacked = torch.empty((repeats,) + tuple(tree.shape), dtype=tree.dtype, device=tree.device)
+    stacked[r] = tree
+    return stacked
 
 
 def init_segment(gen, cfg: ModelConfig, seg: Segment, device) -> Params:
+    """Layer params stacked along a leading ``repeats`` axis, initialized one
+    layer at a time in order."""
     repeats, pattern = seg
-    layers = [
-        {f"b{i}": init_block(gen, cfg, spec, device) for i, spec in enumerate(pattern)}
-        for _ in range(repeats)
-    ]
-    return _stack(layers)
+    stacked = None
+    for r in range(repeats):
+        layer = {f"b{i}": init_block(gen, cfg, spec, device) for i, spec in enumerate(pattern)}
+        stacked = _stack_into(stacked, r, layer, repeats)
+    return stacked
 
 
 def layer_params(seg_params: Any, r: int) -> Any:
@@ -85,38 +122,66 @@ def layer_params(seg_params: Any, r: int) -> Any:
     return seg_params[r]
 
 
+def _ffn(cfg, spec: BlockSpec, p: Params, h: torch.Tensor) -> torch.Tensor:
+    if spec.ffn in ("dense", "dense0"):
+        return L.ffn(p, h, cfg.ffn_activation)
+    if spec.ffn == "moe":
+        return moe_lib.moe_forward(p, h, cfg.moe)[0]
+    raise ValueError(spec.ffn)
+
+
 def block_forward(cfg, spec: BlockSpec, p: Params, x: torch.Tensor, *, mode: str):
     """Returns ``(x, cache_entry_or_None)``; mode is 'train' or 'prefill'."""
     cache: Dict[str, Any] = {}
     h = _norm(cfg, p["ln_mix"], x)
-    y, k, v = attn_lib.attention_forward(
-        p["mixer"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-        head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta, return_kv=True,
-    )
-    if mode == "prefill":
-        cache["kv"] = attn_lib.kv_cache_from_prefill(k, v)
+    if spec.mixer == "attn":
+        y, k, v = attn_lib.attention_forward(
+            p["mixer"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta, return_kv=True,
+        )
+        if mode == "prefill":
+            cache["kv"] = attn_lib.kv_cache_from_prefill(k, v)
+    elif spec.mixer == "mla":
+        y, mc = mla_lib.mla_forward(p["mixer"], h, n_heads=cfg.n_heads, cfg=cfg.mla,
+                                    return_cache=True)
+        if mode == "prefill":
+            cache["mla"] = mc
+    else:
+        raise ValueError(spec.mixer)
     x = x + y
     h = _norm(cfg, p["ln_ffn"], x)
-    x = x + L.ffn(p["ffn"], h, cfg.ffn_activation)
+    x = x + _ffn(cfg, spec, p["ffn"], h)
     return x, (cache if mode == "prefill" else None)
 
 
 def block_decode(cfg, spec: BlockSpec, p: Params, x: torch.Tensor, cache: Dict[str, Any], pos: int):
     new_cache = dict(cache)
     h = _norm(cfg, p["ln_mix"], x)
-    y, kv = attn_lib.attention_decode(
-        p["mixer"], h, cache["kv"], pos, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-        head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
-    )
-    new_cache["kv"] = kv
+    if spec.mixer == "attn":
+        y, new_cache["kv"] = attn_lib.attention_decode(
+            p["mixer"], h, cache["kv"], pos, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+        )
+    elif spec.mixer == "mla":
+        y, new_cache["mla"] = mla_lib.mla_decode(p["mixer"], h, cache["mla"], pos,
+                                                 n_heads=cfg.n_heads, cfg=cfg.mla)
+    else:
+        raise ValueError(spec.mixer)
     x = x + y
     h = _norm(cfg, p["ln_ffn"], x)
-    x = x + L.ffn(p["ffn"], h, cfg.ffn_activation)
+    x = x + _ffn(cfg, spec, p["ffn"], h)
     return x, new_cache
 
 
 def init_block_cache(cfg, spec: BlockSpec, batch: int, cache_len: int, device) -> Dict[str, Any]:
+    """Zero decode cache of one block: the attention KV cache (dense or
+    packed, by the process ``KVQuant``) or the dense MLA latent cache."""
     dtype = getattr(torch, cfg.compute_dtype)
+    if spec.mixer == "mla":
+        return {"mla": mla_lib.MLACache(
+            c_kv=torch.zeros((batch, cache_len, cfg.mla.kv_lora_rank), dtype=dtype, device=device),
+            k_rope=torch.zeros((batch, cache_len, cfg.mla.rope_head_dim), dtype=dtype, device=device),
+        )}
     return {
         "kv": attn_lib.init_kv_cache(
             batch, cache_len, cfg.n_kv_heads, cfg.resolved_head_dim, dtype, device=device

@@ -1,10 +1,12 @@
 """Where one decode step's time goes, on the card.
 
     python -m repro_torch.tools.profile_decode --batch 4 --prompt-len 128 --steps 4
+    python -m repro_torch.tools.profile_decode --arch deepseek-v2-lite-16b --steps 4
 
 Packs the model (as ``serve --pvq``), prefills with ``--act-int8 --kv-pvq``
-in effect, runs two warm-up decode steps, then traces ``--steps`` decode
-steps with ``torch.profiler`` (CPU + CUDA activity).  Prints one JSON
+in effect (an MLA model's latent cache stays dense), runs two warm-up
+decode steps, then traces ``--steps`` decode steps with ``torch.profiler``
+(CPU + CUDA activity).  Prints one JSON
 object: the host wall time per step, the device time per step summed over
 every CUDA kernel (ours included: CUPTI traces them by name), the device's
 idle share of the step, and the kernels with the most device time.

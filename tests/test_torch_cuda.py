@@ -6,10 +6,12 @@ dependencies:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Every test skips without a CUDA card.  Tolerances: the encoder, kernel v3
-(without the tanh-gelu epilogue) and kernel v4 are identical to their plain
-versions (same float operation order, no FMA contraction, the plain
-versions' fixed summation trees); kernel v2 and the gelu epilogue within
-``rtol=1e-5, atol=1e-5 * max|y|`` (f32 sums in another order, ``tanhf``).
+and its expert-batched form (without the tanh-gelu epilogue) and kernel v4
+are identical to their plain versions (same float operation order, no FMA
+contraction, the plain versions' fixed summation trees); kernel v2, its
+batched form and the gelu epilogue within ``rtol=1e-5, atol=1e-5 * max|y|``
+(v2's group sums run in f64 in another order, so a sum lying on an f32
+rounding boundary may round the other way; ``tanhf``).
 """
 
 import numpy as np
@@ -31,7 +33,9 @@ def _close(got, want, rtol=1e-5):
 
 
 @needs_cuda
-@pytest.mark.parametrize("m,k,n,group", [(4, 1024, 960, 256), (7, 96, 40, 32), (3, 64, 24, 16), (2, 12, 5, 6)])
+# m <= 8 stages the pulses through the ring, m > 8 reads them directly
+@pytest.mark.parametrize("m,k,n,group", [(4, 1024, 960, 256), (7, 96, 40, 32), (3, 64, 24, 16), (2, 12, 5, 6),
+                                         (20, 96, 40, 32), (11, 12, 5, 6)])
 def test_cuda_matmuls_match_plain(m, k, n, group):
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(m + k)
@@ -103,3 +107,62 @@ def test_ops_route_cuda_tensors_to_kernels():
     assert LAUNCHES["pvq_matmul"] == before["pvq_matmul"] + 1
     assert LAUNCHES["pvq_matmul_q"] == before["pvq_matmul_q"] + 1
     assert LAUNCHES["pvq_encode_batch"] == before["pvq_encode_batch"] + 1
+
+
+def _bank(gen, e, k, n, group, dev):
+    pulses = torch.randint(-9, 10, (e, k, n), generator=gen, dtype=torch.int8, device=dev)
+    scales = torch.rand(e, k // group, n, generator=gen, device=dev)
+    return pulses, scales
+
+
+@needs_cuda
+@pytest.mark.parametrize(
+    "e,m,k,n,group",
+    [
+        (64, 1, 2048, 1408, 256),   # up / gate at decode
+        (64, 60, 2048, 1408, 256),  # up / gate at prefill
+        (64, 1, 1536, 2048, 256),   # wo at decode
+        (64, 60, 1536, 2048, 256),  # wo at prefill
+        (5, 7, 96, 40, 32),         # ragged n, rows not 16-byte multiples: plain loads
+        (3, 9, 128, 48, 32),        # n % 32 != 0 on 16-byte rows: zero-filled copies
+        (2, 3, 12, 5, 6),           # a group not divisible by 4
+        (2, 10, 12, 5, 6),          # the same, m > 8: pulses read directly
+    ],
+)
+def test_cuda_batched_kernels_match_plain(e, m, k, n, group):
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(e + m + k)
+    pulses, scales = _bank(gen, e, k, n, group, dev)
+    x = torch.randn(e, m, k, generator=gen, device=dev)
+    x_q, a = port_q.quantize_activations(x)
+    for act in ("none", "silu"):
+        got = port_mm.pvq_matmul_q_batched_cuda(x_q, pulses, scales, a, group=group, activation=act)
+        want = port_mm.pvq_matmul_q_batched_plain(x_q, pulses, scales, a, group=group, activation=act)
+        assert torch.equal(got, want), act
+        _close(port_mm.pvq_matmul_batched_cuda(x, pulses, scales, group=group, activation=act),
+               port_mm.pvq_matmul_batched_plain(x, pulses, scales, group=group, activation=act))
+    if k > group:  # per-tile scales, applied beside rho
+        xt, at = port_q.quantize_activations(x, port_q.ActQuant("per_tile"), tile=group)
+        assert torch.equal(port_mm.pvq_matmul_q_batched_cuda(xt, pulses, scales, at, group=group),
+                           port_mm.pvq_matmul_q_batched_plain(xt, pulses, scales, at, group=group))
+    got = port_mm.pvq_matmul_q_batched_cuda(x_q, pulses, scales, a, group=group,
+                                            out_dtype=torch.bfloat16)
+    assert torch.equal(got, port_mm.pvq_matmul_q_batched_plain(
+        x_q, pulses, scales, a, group=group, out_dtype=torch.bfloat16))
+    xb = x.to(torch.bfloat16)
+    _close(port_mm.pvq_matmul_batched_cuda(xb, pulses, scales, group=group),
+           port_mm.pvq_matmul_batched_plain(xb, pulses, scales, group=group), rtol=1e-2)
+
+
+@needs_cuda
+def test_ops_route_stacked_banks_to_the_batched_kernels():
+    from repro_torch.core.packed import pack_matmul
+
+    dev = torch.device("cuda")
+    bank = pack_matmul(torch.randn(4, 96, 40, device=dev), group=64, k=64)
+    x = torch.randn(4, 3, 96, device=dev)
+    before = dict(LAUNCHES)
+    ops.packed_matmul_stacked(x, bank)
+    ops.packed_matmul_stacked(x, bank, act_quant=port_q.ActQuant())
+    assert LAUNCHES["pvq_matmul_batched"] == before["pvq_matmul_batched"] + 1
+    assert LAUNCHES["pvq_matmul_q_batched"] == before["pvq_matmul_q_batched"] + 1
