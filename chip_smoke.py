@@ -15,12 +15,15 @@ non-zero (printing no result) without either.  In order, it:
    encoder, v3, batched v3 and v4 must be identical, v2 and batched v2
    within ``rtol=1e-5``; it times the kernel, the plain version and one
    PyTorch yardstick call (CUDA events, median of runs, L2 flushed before
-   every timed launch, as the decode path finds it cold);
+   every timed launch, as the decode path finds it cold).  v3 at prefill
+   (one smollm layer's 7 matmuls and deepseek's lm_head at m 512, one MoE
+   layer's banks at m 60) must take its tensor-core body, and is timed
+   beside its direct (dp4a) body on the same inputs;
 4. serves full-width smollm-360m from random weights (``--pvq --act-int8
    --kv-pvq --agreement-min 0.99``, batch 4, prompt 128, 32 new tokens)
    with every kernel launch count set to 0 just before and read just after;
-   requires finite logits of the expected shape and every kernel of the
-   path launched; then runs the same tokens and packed weights through the
+   requires finite logits of the expected shape, every kernel of the
+   path launched and v3's tensor-core body among them; then runs the same tokens and packed weights through the
    plain versions on the card: the served leg's teacher-forced logits must
    be identical to the kernel path's, and the f32 leg (kernel v2) must
    agree with its plain path at CI's top-1 threshold (0.99);
@@ -96,6 +99,10 @@ GROUP = 256
 DECODE_M = 4
 AGREEMENT_MIN = 0.99  # CI's serve gate
 PREFILL_M = 512
+# deepseek-v2-lite-16b's untied lm_head (d 2048 -> vocab 102400), the widest
+# 2-D v3 call of a prefill
+LM_HEAD = (2048, 102400)
+MMA_SOURCE = "src/repro_torch/kernels/csrc/pvq_matmul_mma.cuh"
 
 
 def fail(msg: str) -> None:
@@ -146,9 +153,56 @@ def check_close(name, got, want, rtol):
     return max_err(got, want)
 
 
-def check_matmuls(torch, timer, mm, ops, quantize):
-    """Kernels v3 (int8 x) and v2 (f32 x) at one layer's decode shapes and
-    the prefill FFN shape; returns their kernel-line entries and details."""
+def _new_total():
+    return dict(ms=0.0, direct_ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0, err=0.0)
+
+
+def prefill_row(timer, kernels_mod, what, call, plain, library, nbytes, nops, times=1,
+                total=None):
+    """A v3 prefill shape: the body the rule picks must be the tensor-core
+    one and identical to the plain version; it is timed beside the direct
+    (dp4a) body on the same inputs, the plain version and the yardstick.
+    ``times`` adds the row that many times into ``total``."""
+    before = kernels_mod.v3_body_launches()
+    got = call(None)
+    body = [b for b, c in kernels_mod.v3_body_launches().items() if c != before[b]]
+    if body != ["mma"]:
+        fail(f"{what}: took the {body} body, not mma")
+    want = plain()
+    err = check_close(f"{what} (mma body)", got, want, 0.0)
+    check_close(f"{what} (direct body)", call("direct"), want, 0.0)
+    del got, want
+    t_k, t_d = timer(lambda: call(None)), timer(lambda: call("direct"))
+    t_p, t_lib = timer(plain), timer(library)
+    b_ms, b_by = bound_ms(nbytes, nops, INT8_OPS_PER_S)
+    row = {"ms": t_k, "direct_ms": t_d, "plain_ms": t_p, "library_ms": t_lib, "bound_ms": b_ms,
+           "bound_by": b_by, "max_abs_err": err, "faster_than_direct": t_k < t_d}
+    if total is not None:
+        for key, v in (("ms", t_k), ("direct_ms", t_d), ("plain_ms", t_p), ("library_ms", t_lib),
+                       ("bytes", nbytes), ("ops", nops)):
+            total[key] += times * v
+        total["err"] = max(total["err"], err)
+    return row
+
+
+def prefill_entry(total, shape):
+    b_ms, b_by = bound_ms(total["bytes"], total["ops"], INT8_OPS_PER_S)
+    return {"shape": shape, "source": MMA_SOURCE, "ms": total["ms"],
+            "direct_ms": total["direct_ms"], "plain_ms": total["plain_ms"],
+            "library_ms": total["library_ms"], "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err": total["err"], "faster_than_direct": total["ms"] < total["direct_ms"]}
+
+
+def v3_bytes(m, k, n, e=1):
+    """Bytes v3 must move: int8 x and pulses, f32 rho, per-row a, f32 out."""
+    return e * (m * k + k * n + 4 * (k // GROUP) * n + 4 * m + 4 * m * n)
+
+
+def check_matmuls(torch, timer, mm, ops, quantize, kernels_mod):
+    """Kernels v3 (int8 x) and v2 (f32 x) at one layer's decode shapes, v2
+    at the prefill FFN shape, and v3 at prefill: one layer's 7 matmuls and
+    deepseek's lm_head at m 512, each against its direct body too; returns
+    their kernel-line entries and details."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     layer = []
     for k, n in LAYER_SHAPES:
@@ -165,11 +219,12 @@ def check_matmuls(torch, timer, mm, ops, quantize):
         x = torch.randn(m, k, generator=gen, device="cuda")
         x_q, a = quantize(x)
         w_deq = pulses.float() * torch.repeat_interleave(scales, GROUP, dim=0)
-        for name in ("pvq_matmul_q", "pvq_matmul"):
+        # v3 at prefill has its own rows below
+        for name in (("pvq_matmul_q", "pvq_matmul") if m == DECODE_M else ("pvq_matmul",)):
             if name == "pvq_matmul_q":
                 def kern(): return mm.pvq_matmul_q_cuda(x_q, pulses, scales, a, group=GROUP)
                 def plain(): return mm.pvq_matmul_q_plain(x_q, pulses, scales, a, group=GROUP)
-                nbytes = m * k + k * n + 4 * (k // GROUP) * n + 4 * m + 4 * m * n
+                nbytes = v3_bytes(m, k, n)
                 nops, rate = 2.0 * m * k * n, INT8_OPS_PER_S
             else:
                 def kern(): return mm.pvq_matmul_cuda(x, pulses, scales, group=GROUP)
@@ -195,6 +250,25 @@ def check_matmuls(torch, timer, mm, ops, quantize):
                 tot["bytes"] += nbytes
                 tot["ops"] += nops
                 tot["err"] = max(tot["err"], err)
+    # v3 at prefill: one layer's 7 matmuls, then deepseek's lm_head
+    prefill = {"smollm_layer_m512": _new_total(), "deepseek_lm_head_m512": _new_total()}
+    lm_pulses = torch.randint(-9, 10, LM_HEAD, generator=gen, device="cuda", dtype=torch.int8)
+    lm_scales = torch.rand(LM_HEAD[0] // GROUP, LM_HEAD[1], generator=gen, device="cuda") * 0.01
+    shapes = [("smollm_layer_m512", k, n, layer[i]) for i, (k, n) in enumerate(LAYER_SHAPES)]
+    shapes.append(("deepseek_lm_head_m512", *LM_HEAD, (lm_pulses, lm_scales)))
+    m = PREFILL_M
+    for key, k, n, (pulses, scales) in shapes:
+        x = torch.randn(m, k, generator=gen, device="cuda")
+        x_q, a = quantize(x)
+        w_deq = pulses.float() * torch.repeat_interleave(scales, GROUP, dim=0)
+        def call(body): return mm.pvq_matmul_q_cuda(x_q, pulses, scales, a, group=GROUP, _body=body)
+        def plain(): return mm.pvq_matmul_q_plain(x_q, pulses, scales, a, group=GROUP)
+        row = prefill_row(timer, kernels_mod, f"pvq_matmul_q m{m} k{k} n{n}", call, plain,
+                          lambda: torch.matmul(x, w_deq), v3_bytes(m, k, n), 2.0 * m * k * n,
+                          total=prefill[key])
+        rows.append({"kernel": "pvq_matmul_q", "m": m, "k": k, "n": n, **row})
+        del w_deq
+    del lm_pulses, lm_scales
     entries = {}
     for name, tot in totals.items():
         rate = INT8_OPS_PER_S if name == "pvq_matmul_q" else F32_FLOPS_PER_S
@@ -207,6 +281,14 @@ def check_matmuls(torch, timer, mm, ops, quantize):
             "max_abs_err": tot["err"], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": tot["library_ms"],
         }
+    entries["pvq_matmul_q"]["prefill"] = {
+        "smollm_layer_m512": prefill_entry(
+            prefill["smollm_layer_m512"],
+            f"one decoder layer's 7 matmuls, m={PREFILL_M}, group {GROUP}"),
+        "deepseek_lm_head_m512": prefill_entry(
+            prefill["deepseek_lm_head_m512"],
+            f"lm_head k {LM_HEAD[0]} n {LM_HEAD[1]}, m={PREFILL_M}, group {GROUP}"),
+    }
     return entries, rows
 
 
@@ -254,15 +336,17 @@ def check_attention(torch, timer, mm, quant):
     }
 
 
-def check_batched(torch, timer, mm, quantize):
+def check_batched(torch, timer, mm, quantize, kernels_mod):
     """Batched kernels v3 and v2 at one MoE layer's expert-bank shapes, at
     decode and prefill; the entries total one decode step's MoE layer (up,
-    gate and wo: the up/gate shape counts twice).  The yardstick is
-    ``torch.bmm`` on the dequantized f32 banks."""
+    gate and wo: the up/gate shape counts twice), and batched v3's
+    ``prefill`` the same layer at prefill, against its direct body too.  The
+    yardstick is ``torch.bmm`` on the dequantized f32 banks."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     rows = []
     totals = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0, err=0.0)
               for name in ("pvq_matmul_q_batched", "pvq_matmul_batched")}
+    prefill = _new_total()
     banks = {}
     for what, k, n in BANK_SHAPES:
         pulses = torch.randint(-9, 10, (EXPERTS, k, n), generator=gen, device="cuda",
@@ -276,11 +360,23 @@ def check_batched(torch, timer, mm, quantize):
             x_q, a = quantize(x)
             w_deq = pulses.float() * torch.repeat_interleave(scales, GROUP, dim=1)
             e = EXPERTS
-            for name in ("pvq_matmul_q_batched", "pvq_matmul_batched"):
+            times = 2 if what == "up/gate" else 1
+            if m == MOE_PREFILL_M:
+                def call(body): return mm.pvq_matmul_q_batched_cuda(x_q, pulses, scales, a,
+                                                                    group=GROUP, _body=body)
+                def plain(): return mm.pvq_matmul_q_batched_plain(x_q, pulses, scales, a, group=GROUP)
+                row = prefill_row(timer, kernels_mod,
+                                  f"pvq_matmul_q_batched E{e} m{m} k{k} n{n}", call, plain,
+                                  lambda: torch.bmm(x, w_deq), v3_bytes(m, k, n, e),
+                                  2.0 * e * m * k * n, times=times, total=prefill)
+                rows.append({"kernel": "pvq_matmul_q_batched", "bank": what, "experts": e,
+                             "m": m, "k": k, "n": n, **row})
+            for name in (("pvq_matmul_q_batched", "pvq_matmul_batched") if m == MOE_DECODE_M
+                         else ("pvq_matmul_batched",)):
                 if name == "pvq_matmul_q_batched":
                     def kern(): return mm.pvq_matmul_q_batched_cuda(x_q, pulses, scales, a, group=GROUP)
                     def plain(): return mm.pvq_matmul_q_batched_plain(x_q, pulses, scales, a, group=GROUP)
-                    nbytes = e * (m * k + k * n + 4 * (k // GROUP) * n + 4 * m + 4 * m * n)
+                    nbytes = v3_bytes(m, k, n, e)
                     nops, rate = 2.0 * e * m * k * n, INT8_OPS_PER_S
                 else:
                     def kern(): return mm.pvq_matmul_batched_cuda(x, pulses, scales, group=GROUP)
@@ -297,7 +393,6 @@ def check_batched(torch, timer, mm, quantize):
                              "bound_by": b_by, "max_abs_err": err})
                 if m == MOE_DECODE_M:
                     tot = totals[name]
-                    times = 2 if what == "up/gate" else 1
                     tot["ms"] += times * t_k
                     tot["plain_ms"] += times * t_p
                     tot["library_ms"] += times * t_lib
@@ -321,6 +416,9 @@ def check_batched(torch, timer, mm, quantize):
             "max_abs_err": tot["err"], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": tot["library_ms"],
         }
+    entries["pvq_matmul_q_batched"]["prefill"] = {"moe_layer_m60": prefill_entry(
+        prefill, f"one MoE layer's expert banks (up, gate, wo), {EXPERTS} experts, "
+                 f"m={MOE_PREFILL_M}, group {GROUP}")}
     return entries, rows
 
 
@@ -433,6 +531,7 @@ def serve_full(torch, serve, kernels_mod, mm, enc, quant, routing, argv, *, kvq,
     with routing.recording():
         report, rc, state = serve.run(argv, return_state=True)
     counts = kernels_mod.launches()
+    bodies = kernels_mod.v3_body_launches()
     report["phase_wall_s"] = round(time.time() - t0, 2)
     print(json.dumps({"serve": "full", **report}), flush=True)
     if not state:
@@ -442,6 +541,9 @@ def serve_full(torch, serve, kernels_mod, mm, enc, quant, routing, argv, *, kvq,
     missing = [name for name in expect if counts[name] <= 0]
     if missing:
         fail(f"full serve never launched {missing}: {counts}")
+    # prefill and the teacher-forced legs run v3 at m > 8: the tensor cores
+    if bodies["mma"] <= 0:
+        fail(f"full serve never launched v3's mma body: {bodies}")
     if rc != 0 and "agreement_fail" not in report:
         fail(f"full serve exited {rc}: {report}")
     kernel_routes = list(routing.calls)
@@ -495,7 +597,7 @@ def serve_full(torch, serve, kernels_mod, mm, enc, quant, routing, argv, *, kvq,
     # holds it
     if legs["f32"]["agreement"] < AGREEMENT_MIN:
         fail(f"full-width f32 leg: kernel path vs plain path agreement {legs['f32']}")
-    return counts
+    return counts, bodies
 
 
 def serve_reduced(serve, argv):
@@ -539,10 +641,10 @@ def main() -> int:
     print(json.dumps({"phase": "build", "seconds": round(time.time() - t0, 2)}), flush=True)
 
     timer = Timer(torch)
-    entries, rows = check_matmuls(torch, timer, mm, ops, quantize_activations)
+    entries, rows = check_matmuls(torch, timer, mm, ops, quantize_activations, kernels_mod)
     entries["pvq_attn_q"] = check_attention(torch, timer, mm, quantize_activations)
     entries["pvq_encode_batch"], enc_rows = check_encode(torch, timer, enc)
-    batched, batched_rows = check_batched(torch, timer, mm, quantize_activations)
+    batched, batched_rows = check_batched(torch, timer, mm, quantize_activations, kernels_mod)
     entries.update(batched)
     for row in rows + enc_rows + batched_rows:
         print(json.dumps({"kernel_check": row}), flush=True)
@@ -551,13 +653,14 @@ def main() -> int:
         return 0
 
     routing = RoutingLog(moe)
-    counts = {
-        "smollm-360m": serve_full(torch, serve, kernels_mod, mm, enc, quant, routing, FULL_SERVE,
-                                  kvq=quant.KVQuant(KV_BLOCK, KV_GROUP), expect=SMOLLM_KERNELS),
-    }
+    counts, bodies = {}, {}
+    counts["smollm-360m"], bodies["smollm-360m"] = serve_full(
+        torch, serve, kernels_mod, mm, enc, quant, routing, FULL_SERVE,
+        kvq=quant.KVQuant(KV_BLOCK, KV_GROUP), expect=SMOLLM_KERNELS)
     torch.cuda.empty_cache()  # the smollm model is gone: the card is free for deepseek
-    counts[MOE_ARCH] = serve_full(torch, serve, kernels_mod, mm, enc, quant, routing,
-                                  MOE_FULL_SERVE, kvq=None, expect=MOE_KERNELS)
+    counts[MOE_ARCH], bodies[MOE_ARCH] = serve_full(
+        torch, serve, kernels_mod, mm, enc, quant, routing, MOE_FULL_SERVE, kvq=None,
+        expect=MOE_KERNELS)
     routing.close()
     torch.cuda.empty_cache()
     serve_reduced(serve, REDUCED_SERVE)
@@ -573,6 +676,9 @@ def main() -> int:
         e = dict(entries[name])
         e["launches"] = counts[path][name]
         e["launches_by_path"] = {p: c[name] for p, c in counts.items()}
+        if name in ("pvq_matmul_q", "pvq_matmul_q_batched"):
+            # the 2-D and batched routes' launches together, by body
+            e["v3_body_launches_by_path"] = bodies
         line.append(e)
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,10 @@
 
 ``LAUNCHES`` counts the CUDA launches of each kernel wrapper; a wrapper adds
 one where it launches its kernel and nowhere else, so a run can show that
-its main path went through the kernels.
+its main path went through the kernels.  ``V3_BODY_LAUNCHES`` splits kernel
+v3's launches (2-D and batched together) by the body that ran:
+``"ring"`` (m <= 8), ``"mma"`` (int8 tensor cores, m > 8) or ``"direct"``
+(the ragged rest); see ``pvq_matmul._v3_body``.
 """
 
 from typing import Dict
@@ -17,10 +20,18 @@ LAUNCHES: Dict[str, int] = {
 }
 
 
+V3_BODY_LAUNCHES: Dict[str, int] = {"ring": 0, "direct": 0, "mma": 0}
+
+
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, V3_BODY_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def launches() -> Dict[str, int]:
     return dict(LAUNCHES)
+
+
+def v3_body_launches() -> Dict[str, int]:
+    return dict(V3_BODY_LAUNCHES)

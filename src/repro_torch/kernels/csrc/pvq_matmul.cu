@@ -16,33 +16,39 @@
 //
 // What bounds it: at decode shapes (m = batch rows) the pulse plane is read
 // once and each byte feeds only m multiply-adds, so it is bound by the
-// bytes of W (k * n int8).  At prefill shapes (m = 512) it is bound by the
-// integer multiply-adds.  This first version is simple (both bodies, the
-// CTA shape and the epilogue are in pvq_matmul_common.cuh): a CTA owns 32
-// output columns (one per lane) and 8 output rows; its 8 warps split the
-// contraction of each group in 4-row chunks (int8 x int8 through __dp4a on
-// the v3 path, f64 FMAs of exact products on the v2 path).  The per-warp
-// partials of a group are summed exactly (int32; on v2 in f64, rounded to
-// f32 once) in shared memory BEFORE the group's single rho multiply, so a
-// group is never split across two rho products.  No tensor cores or TMA
-// yet; v2 reads W straight from global memory with one byte per lane per
-// k row (32-byte coalesced rows).  Every float multiply and add after a
-// group's contraction is a separately rounded __fmul_rn / __fadd_rn in the
-// plain version's order, so v3 agrees with it bit for bit and v2 does too
-// unless a group's f64 sum lies within its own rounding error of an f32
-// rounding boundary.
+// bytes of W (k * n int8).  At the prefill shapes it still is: at m 512,
+// k 1024, n 2560 the call moves 8.4 MB, mostly its f32 output (2.5 us at
+// the card's memory rate), against 1.4 us of int8 tensor-core operations.
+// v3 has three bodies, all exact in their int32 group sums, chosen per call
+// by the wrapper (kernels/pvq_matmul.py:_v3_body): at m <= 8 the ring body
+// (pvq_matmul_common.cuh, pvq_matmul_q_kernel: a CTA owns 32 columns and 8
+// rows, its 8 warps split each group's contraction in 4-row __dp4a chunks,
+// the pulse tiles staged through a cp.async ring); at m > 8 the int8
+// tensor-core body (pvq_matmul_mma.cuh: mma.sync m16n8k32 on 64 x 128
+// tiles) when G % 32 == 0, n % 16 == 0 and the rows are 16-byte aligned;
+// the same __dp4a body reading W straight from global memory otherwise.
+// v2 (pvq_matmul_common.cuh) uses no tensor cores: 8 x 32 CTAs, f64 FMAs of
+// exact products, W read from global memory with one byte per lane per k
+// row (32-byte coalesced rows).  The partials of a group are summed exactly
+// (int32; on v2 in f64, rounded to f32 once) BEFORE the group's single rho
+// multiply, so a group is never split across two rho products.  Every float
+// multiply and add after a group's contraction is a separately rounded
+// __fmul_rn / __fadd_rn in the plain version's order, so v3 agrees with it
+// bit for bit and v2 does too unless a group's f64 sum lies within its own
+// rounding error of an f32 rounding boundary.
 
-#include "pvq_matmul_common.cuh"
+#include "pvq_matmul_mma.cuh"
 
 using namespace pvq;
 
 // out_bf16: 0 -> f32 output, 1 -> bf16 output.
+// body: 0 -> ring, 1 -> direct, 2 -> mma (pvq_matmul_mma.cuh, Body).
 extern "C" int pvq_matmul_q_launch(const int8_t* x, const int8_t* w,
                                    const float* rho, const float* a, int a_mode,
                                    const float* bias, int act, void* out,
                                    int out_bf16, int m, int k, int n, int G,
-                                   void* stream) {
-  return launch_q_stack(x, w, rho, a, a_mode, bias, act, out, out_bf16, 1, m, k, n, G,
+                                   int body, void* stream) {
+  return launch_q_stack(x, w, rho, a, a_mode, bias, act, out, out_bf16, 1, m, k, n, G, body,
                         (cudaStream_t)stream);
 }
 

@@ -21,14 +21,17 @@
 //
 // Design: the scan over experts becomes the grid's z axis (blockIdx.z is
 // the expert; its base pointers come from the strides), so one launch
-// fills the card with (ceil(n/32), ceil(m/8), E) CTAs.  Both bodies are
-// the 2-D kernels' own (pvq_matmul_common.cuh), launched over the stack:
-// v3 stages each group's pulse tile through a 2-stage cp.async ring, which
-// stands in for the DMA body's streaming, and is bit-identical to
-// pvq_matmul_q_batched_plain; v2 reads the pulses straight from global
-// memory.  No tensor cores or TMA yet.
+// covers every expert.  Both kernels are the 2-D ones, launched over the
+// stack.  v3 takes the body the wrapper picks (kernels/pvq_matmul.py:
+// _v3_body): at decode (m <= 8) the __dp4a body whose 2-stage cp.async ring
+// of pulse tiles stands in for the DMA body's streaming; at prefill the
+// int8 tensor-core body (pvq_matmul_mma.cuh), whose 64-row tiles hold an
+// expert's 60 dispatch rows in one row block, so each pulse byte is read
+// from device memory once.  Every body is bit-identical to
+// pvq_matmul_q_batched_plain.  v2 reads the pulses straight from global
+// memory, without tensor cores.
 
-#include "pvq_matmul_common.cuh"
+#include "pvq_matmul_mma.cuh"
 
 using namespace pvq;
 
@@ -39,9 +42,9 @@ using namespace pvq;
 extern "C" int pvq_matmul_q_batched_launch(const int8_t* x, const int8_t* w, const float* rho,
                                            const float* a, int a_mode, int act, void* out,
                                            int out_bf16, int e, int m, int k, int n, int G,
-                                           void* stream) {
+                                           int body, void* stream) {
   if (a_mode != kPerRow && a_mode != kPerTile) return (int)cudaErrorInvalidValue;
-  return launch_q_stack(x, w, rho, a, a_mode, nullptr, act, out, out_bf16, e, m, k, n, G,
+  return launch_q_stack(x, w, rho, a, a_mode, nullptr, act, out, out_bf16, e, m, k, n, G, body,
                         (cudaStream_t)stream);
 }
 

@@ -197,9 +197,11 @@ inline int launch_f(const void* x, const int8_t* w, const float* rho, const floa
 //     fails above).
 //   * kDirect: each lane reads its column's pulse bytes straight from
 //     global memory (32-byte coalesced rows).
-// The launcher takes the ring when one CTA covers every row (m <= 8: each
-// tile is read by one CTA, decode) and kDirect otherwise (prefill), where
-// the ring measured slower (PERF.md).
+// The wrapper (kernels/pvq_matmul.py:_v3_body) takes the ring when one CTA
+// covers every row (m <= 8: each tile is read by one CTA, decode), the
+// tensor-core body of pvq_matmul_mma.cuh at m > 8 when the shape allows it
+// (prefill), and kDirect for the ragged rest, where the ring measured
+// slower (PERF.md).
 
 enum WPath { kDirect = 0, kRingAsync = 1, kRingBytes = 2 };
 
@@ -343,11 +345,13 @@ int launch_q(const int8_t* x, const int8_t* w, const float* rho, const float* a,
   return (int)cudaGetLastError();
 }
 
+// The ring (direct = false) or the direct body of pvq_matmul_q_kernel; the
+// ring fills by cp.async when the pulse rows allow 16-byte copies.
 template <typename OutT>
 int dispatch_q(const int8_t* x, const int8_t* w, const float* rho, const float* a, int a_mode,
                const float* bias, int act, OutT* out, int e, int m, int k, int n, int G,
-               cudaStream_t s) {
-  const int path = m > kRows ? kDirect
+               bool direct, cudaStream_t s) {
+  const int path = direct ? kDirect
                    : n % 16 == 0 && ((uintptr_t)w & 15) == 0 ? kRingAsync : kRingBytes;
 #define PVQ_LAUNCH_Q(W)                                                                  \
   return G % 4 == 0 ? launch_q<W, true>(x, w, rho, a, a_mode, bias, act, out, e, m, k, n, G, s) \
@@ -356,23 +360,6 @@ int dispatch_q(const int8_t* x, const int8_t* w, const float* rho, const float* 
   if (path == kRingAsync) PVQ_LAUNCH_Q(kRingAsync);
   PVQ_LAUNCH_Q(kRingBytes);
 #undef PVQ_LAUNCH_Q
-}
-
-// Launch kernel v3 over `stack` matrices of (m, k) x (k, n), packed one
-// after another: a is per row (a_mode 0, m values per matrix), per tile
-// (a_mode 2, m * k/G per matrix) or one scalar shared by all (a_mode 1);
-// bias (n) is shared; out is f32 (out_bf16 = 0) or bf16 (out_bf16 = 1).
-inline int launch_q_stack(const int8_t* x, const int8_t* w, const float* rho, const float* a,
-                          int a_mode, const float* bias, int act, void* out, int out_bf16,
-                          int stack, int m, int k, int n, int G, cudaStream_t s) {
-  if (stack <= 0 || m <= 0 || n <= 0) return 0;
-  if (G <= 0 || k % G || (a_mode != kPerRow && a_mode != kScalar && a_mode != kPerTile))
-    return (int)cudaErrorInvalidValue;
-  if (out_bf16)
-    return dispatch_q(x, w, rho, a, a_mode, bias, act, static_cast<__nv_bfloat16*>(out),
-                      stack, m, k, n, G, s);
-  return dispatch_q(x, w, rho, a, a_mode, bias, act, static_cast<float*>(out), stack, m, k, n,
-                    G, s);
 }
 
 }  // namespace pvq

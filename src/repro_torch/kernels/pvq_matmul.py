@@ -18,10 +18,12 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import LAUNCHES
+from . import LAUNCHES, V3_BODY_LAUNCHES
 from . import build
 
 ACTIVATIONS = ("none", "relu", "relu2", "gelu", "silu")
+#: kernel v3's bodies, in the C launchers' numbering
+V3_BODIES = ("ring", "direct", "mma")
 
 #: finite attention mask value (a fully masked block merges out with weight 0)
 ATTN_NEG_INF = -1e30
@@ -198,10 +200,44 @@ def pvq_matmul_q_plain(
     return _apply_activation(y, activation).to(out_dtype)
 
 
+def _mma_fits(k: int, n: int, group: int, x_ptr: int, w_ptr: int) -> bool:
+    """Whether the tensor-core body takes the operands: 32-deep k steps that
+    never straddle a group, and 16-byte aligned x and pulse rows."""
+    return (group % 32 == 0 and k % 16 == 0 and n % 16 == 0
+            and x_ptr % 16 == 0 and w_ptr % 16 == 0)
+
+
+def _v3_body(m: int, k: int, n: int, group: int, x_ptr: int, w_ptr: int) -> str:
+    """Which body of kernel v3 contracts ``m`` rows (per expert) of ``(m, k)
+    x (k, n)``: ``"ring"`` when one 8-row CTA covers every row (m <= 8,
+    decode: the pulses streamed through a ``cp.async`` ring), ``"mma"``
+    (int8 tensor cores on 64 x 128 tiles) above that when the operands fit
+    it, ``"direct"`` (``__dp4a`` reading the pulses from global memory)
+    otherwise.  Every body is bit-identical to the plain version."""
+    if m <= 8:
+        return "ring"
+    return "mma" if _mma_fits(k, n, group, x_ptr, w_ptr) else "direct"
+
+
+def _pick_body(body: Optional[str], m, k, n, group, xc, wc) -> str:
+    """The rule's body, or ``body`` where a caller names one (the checks
+    that compare bodies on the card); the mma body is refused where the
+    operands do not fit it."""
+    if body is None:
+        return _v3_body(m, k, n, group, xc.data_ptr(), wc.data_ptr())
+    if body not in V3_BODIES:
+        raise ValueError(f"unknown v3 body {body!r}; expected one of {V3_BODIES}")
+    if body == "mma" and not _mma_fits(k, n, group, xc.data_ptr(), wc.data_ptr()):
+        raise ValueError(f"the mma body needs group % 32 == 0 and n % 16 == 0 "
+                         f"(k {k}, n {n}, group {group})")
+    return body
+
+
 def pvq_matmul_q_cuda(
     x_q: torch.Tensor, w_pulses: torch.Tensor, scales: torch.Tensor,
     act_scale: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
     group: int, activation: str = "none", out_dtype: torch.dtype = torch.float32,
+    _body: Optional[str] = None,
 ) -> torch.Tensor:
     m, k, n = _check_matmul(x_q, w_pulses, scales, group, bias, activation)
     if x_q.dtype != torch.int8:
@@ -215,14 +251,17 @@ def pvq_matmul_q_cuda(
     sc = _cuda_operand(scales, torch.float32, "scales")
     ac = _cuda_operand(act_scale, torch.float32, "act_scale")
     bc = None if bias is None else _cuda_operand(bias, torch.float32, "bias")
+    body = _pick_body(_body, m, k, n, group, xc, wc)
     out = torch.empty((m, n), dtype=out_dtype, device=x_q.device)
     status = build.launcher("pvq_matmul_q_launch")(
         xc.data_ptr(), wc.data_ptr(), sc.data_ptr(), ac.data_ptr(), a_mode,
         None if bc is None else bc.data_ptr(), ACTIVATIONS.index(activation),
-        out.data_ptr(), int(out_dtype == torch.bfloat16), m, k, n, group, _stream(x_q),
+        out.data_ptr(), int(out_dtype == torch.bfloat16), m, k, n, group,
+        V3_BODIES.index(body), _stream(x_q),
     )
-    build.check(status, "pvq_matmul_q")
+    build.check(status, f"pvq_matmul_q ({body} body)")
     LAUNCHES["pvq_matmul_q"] += 1
+    V3_BODY_LAUNCHES[body] += 1
     return out
 
 
@@ -331,7 +370,7 @@ def pvq_matmul_q_batched_plain(
 def pvq_matmul_q_batched_cuda(
     x_q: torch.Tensor, w_pulses: torch.Tensor, scales: torch.Tensor,
     act_scale: torch.Tensor, *, group: int, activation: str = "none",
-    out_dtype: torch.dtype = torch.float32,
+    out_dtype: torch.dtype = torch.float32, _body: Optional[str] = None,
 ) -> torch.Tensor:
     e, m, k, n = _check_batched(x_q, w_pulses, scales, group, activation)
     if x_q.dtype != torch.int8:
@@ -343,14 +382,16 @@ def pvq_matmul_q_batched_cuda(
     wc = _cuda_operand(w_pulses, torch.int8, "w_pulses")
     sc = _cuda_operand(scales, torch.float32, "scales")
     ac = _cuda_operand(act_scale, torch.float32, "act_scale")
+    body = _pick_body(_body, m, k, n, group, xc, wc)
     out = torch.empty((e, m, n), dtype=out_dtype, device=x_q.device)
     status = build.launcher("pvq_matmul_q_batched_launch")(
         xc.data_ptr(), wc.data_ptr(), sc.data_ptr(), ac.data_ptr(), a_mode,
         ACTIVATIONS.index(activation), out.data_ptr(), int(out_dtype == torch.bfloat16),
-        e, m, k, n, group, _stream(x_q),
+        e, m, k, n, group, V3_BODIES.index(body), _stream(x_q),
     )
-    build.check(status, "pvq_matmul_q_batched")
+    build.check(status, f"pvq_matmul_q_batched ({body} body)")
     LAUNCHES["pvq_matmul_q_batched"] += 1
+    V3_BODY_LAUNCHES[body] += 1
     return out
 
 

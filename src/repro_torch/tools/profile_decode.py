@@ -1,15 +1,17 @@
-"""Where one decode step's time goes, on the card.
+"""Where one decode step's (or one prefill's) time goes, on the card.
 
     python -m repro_torch.tools.profile_decode --batch 4 --prompt-len 128 --steps 4
     python -m repro_torch.tools.profile_decode --arch deepseek-v2-lite-16b --steps 4
+    python -m repro_torch.tools.profile_decode --arch deepseek-v2-lite-16b --prefill
 
 Packs the model (as ``serve --pvq``), prefills with ``--act-int8 --kv-pvq``
 in effect (an MLA model's latent cache stays dense), runs two warm-up
 decode steps, then traces ``--steps`` decode steps with ``torch.profiler``
-(CPU + CUDA activity).  Prints one JSON
-object: the host wall time per step, the device time per step summed over
-every CUDA kernel (ours included: CUPTI traces them by name), the device's
-idle share of the step, and the kernels with the most device time.
+(CPU + CUDA activity).  With ``--prefill`` it traces one prefill of the
+batch instead, after a warm one.  Prints one JSON object: the host wall
+time per step (or prefill), the device time summed over every CUDA kernel
+(ours included: CUPTI traces them by name), the device's idle share, the
+launch count, and the kernels with the most device time.
 """
 
 from __future__ import annotations
@@ -36,6 +38,8 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--prefill", action="store_true",
+                    help="trace one prefill (after a warm one) instead of decode steps")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_decode measures the card: no CUDA device")
@@ -53,6 +57,16 @@ def main(argv=None) -> int:
     with act_quant_scope(ActQuant()), kv_quant_scope(kvq):
         cache_len = bucket_len(args.prompt_len + warm + args.steps, kvq.block)
         logits, cache = model.prefill(params, {"tokens": tokens}, cache_len=cache_len)
+        if args.prefill:
+            del logits, cache
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                logits, cache = model.prefill(params, {"tokens": tokens}, cache_len=cache_len)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            print(json.dumps(_report(prof, wall, 1, args, cfg, "prefill")))
+            return 0
         tok = torch.argmax(logits[:, -1], -1)[:, None]
         pos = args.prompt_len
         for _ in range(warm):
@@ -68,7 +82,13 @@ def main(argv=None) -> int:
                 pos += 1
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+    print(json.dumps(_report(prof, wall, args.steps, args, cfg, "step")))
+    return 0
 
+
+def _report(prof, wall: float, units: int, args, cfg, unit: str) -> dict:
+    """Device time by kernel name, launches and idle share over ``units``
+    traced steps (or one prefill), per ``unit``."""
     kernels = {}
     for evt in prof.events():
         if getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA:
@@ -77,23 +97,27 @@ def main(argv=None) -> int:
             entry[0] += us
             entry[1] += 1
     device_us = sum(v[0] for v in kernels.values())
+    # kernel v3 (2-D and batched, every body), and its tensor-core body alone
+    v3_us = sum(v[0] for name, v in kernels.items() if "pvq_matmul_q_" in name)
+    mma_us = sum(v[0] for name, v in kernels.items() if "pvq_matmul_q_mma" in name)
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[: args.top]
-    step_ms = 1e3 * wall / args.steps
-    report = {
+    unit_ms = 1e3 * wall / units
+    device_ms = device_us / 1e3 / units
+    return {
         "arch": cfg.name, "device": torch.cuda.get_device_name(0), "batch": args.batch,
-        "prompt_len": args.prompt_len, "steps": args.steps,
-        "wall_ms_per_step": step_ms,
-        "device_ms_per_step": device_us / 1e3 / args.steps,
-        "device_idle_share": (max(1.0 - device_us / 1e3 / args.steps / step_ms, 0.0)
-                              if device_us else None),
-        "kernel_launches_per_step": sum(v[1] for v in kernels.values()) / args.steps,
+        "prompt_len": args.prompt_len, "traced": unit, f"{unit}s": units,
+        f"wall_ms_per_{unit}": unit_ms,
+        f"device_ms_per_{unit}": device_ms,
+        "device_idle_share": max(1.0 - device_ms / unit_ms, 0.0) if device_us else None,
+        f"kernel_launches_per_{unit}": sum(v[1] for v in kernels.values()) / units,
+        f"v3_ms_per_{unit}": v3_us / 1e3 / units,
+        f"v3_mma_ms_per_{unit}": mma_us / 1e3 / units,
+        "v3_share_of_device_time": v3_us / device_us if device_us else None,
         "top_kernels": [
-            {"name": name[:80], "ms_per_step": us / 1e3 / args.steps, "calls_per_step": n / args.steps}
+            {"name": name[:80], f"ms_per_{unit}": us / 1e3 / units, f"calls_per_{unit}": n / units}
             for name, (us, n) in top
         ],
     }
-    print(json.dumps(report))
-    return 0
 
 
 if __name__ == "__main__":

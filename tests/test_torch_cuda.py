@@ -6,7 +6,8 @@ dependencies:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Every test skips without a CUDA card.  Tolerances: the encoder, kernel v3
-and its expert-batched form (without the tanh-gelu epilogue) and kernel v4
+(each of its three bodies: ring, direct, mma) and its expert-batched form
+(without the tanh-gelu epilogue) and kernel v4
 are identical to their plain versions (same float operation order, no FMA
 contraction, the plain versions' fixed summation trees); kernel v2, its
 batched form and the gelu epilogue within ``rtol=1e-5, atol=1e-5 * max|y|``
@@ -19,7 +20,7 @@ import pytest
 import torch
 
 from repro_torch.core import quantize as port_q
-from repro_torch.kernels import LAUNCHES, ops
+from repro_torch.kernels import LAUNCHES, V3_BODY_LAUNCHES, ops
 from repro_torch.kernels import pvq_encode as port_enc
 from repro_torch.kernels import pvq_matmul as port_mm
 
@@ -32,11 +33,17 @@ def _close(got, want, rtol=1e-5):
     np.testing.assert_allclose(got, want, rtol=rtol, atol=rtol * scale)
 
 
+def _body_launches_since(before):
+    return {body: V3_BODY_LAUNCHES[body] - before[body] for body in V3_BODY_LAUNCHES}
+
+
 @needs_cuda
-# m <= 8 stages the pulses through the ring, m > 8 reads them directly
-@pytest.mark.parametrize("m,k,n,group", [(4, 1024, 960, 256), (7, 96, 40, 32), (3, 64, 24, 16), (2, 12, 5, 6),
-                                         (20, 96, 40, 32), (11, 12, 5, 6)])
-def test_cuda_matmuls_match_plain(m, k, n, group):
+# m <= 8 stages the pulses through the ring; m > 8 with n % 16 != 0 or a
+# group not divisible by 32 reads them directly (the dp4a body)
+@pytest.mark.parametrize("m,k,n,group,body", [(4, 1024, 960, 256, "ring"), (7, 96, 40, 32, "ring"),
+                                              (3, 64, 24, 16, "ring"), (2, 12, 5, 6, "ring"),
+                                              (20, 96, 40, 32, "direct"), (11, 12, 5, 6, "direct")])
+def test_cuda_matmuls_match_plain(m, k, n, group, body):
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(m + k)
     pulses = torch.randint(-9, 10, (k, n), generator=gen, dtype=torch.int8).to(dev)
@@ -50,6 +57,7 @@ def test_cuda_matmuls_match_plain(m, k, n, group):
     xb = x.to(torch.bfloat16)
     _close(port_mm.pvq_matmul_cuda(xb, pulses, scales, group=group),
            port_mm.pvq_matmul_plain(xb, pulses, scales, group=group), rtol=1e-2)
+    before = dict(V3_BODY_LAUNCHES)
     for mode in ("per_row", "per_tile", "per_tensor"):
         xq, a = ops._quantize_x(x, port_q.ActQuant(mode), group)
         for act in ("none", "relu", "gelu"):
@@ -59,6 +67,52 @@ def test_cuda_matmuls_match_plain(m, k, n, group):
                 _close(got, want)
             else:
                 assert torch.equal(got, want), (mode, act)
+    assert _body_launches_since(before) == {b: 9 if b == body else 0 for b in V3_BODY_LAUNCHES}
+
+
+def _v3_cases(m, k, n, group, gen, dev):
+    """Pulses over the whole int8 range, rho, bias and x for a v3 check."""
+    pulses = torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8).to(dev)
+    scales = torch.rand(k // group, n, generator=gen).to(dev)
+    bias = torch.randn(n, generator=gen).to(dev)
+    x = torch.randn(m, k, generator=gen).to(dev)
+    return pulses, scales, bias, x
+
+
+@needs_cuda
+@pytest.mark.parametrize("group", [32, 64, 256])
+@pytest.mark.parametrize("n", [16, 48, 320, 2560])
+@pytest.mark.parametrize("k", [256, 1024])
+@pytest.mark.parametrize("m", [9, 16, 60, 64, 65, 512, 513])
+def test_cuda_mma_body_matches_plain(m, k, n, group):
+    """The tensor-core body (every m > 8 shape here) is identical to the
+    plain version: per-row, scalar and per-tile scales, bias, each
+    activation, f32 and bf16 output; tanh-gelu within rtol 1e-5."""
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(m * 7 + k + n + group)
+    pulses, scales, bias, x = _v3_cases(m, k, n, group, gen, dev)
+    xq, a_row = ops._quantize_x(x, port_q.ActQuant("per_row"), group)
+    xt, a_tile = ops._quantize_x(x, port_q.ActQuant("per_tile"), group)
+    a_scalar = a_row.amax().reshape(1, 1)
+    cases = [(xq, a_row), (xq, a_scalar)] + ([(xt, a_tile)] if k > group else [])
+    before = dict(V3_BODY_LAUNCHES)
+    calls = 0
+    for xin, a in cases:
+        for act in port_mm.ACTIVATIONS:
+            got = port_mm.pvq_matmul_q_cuda(xin, pulses, scales, a, bias, group=group, activation=act)
+            want = port_mm.pvq_matmul_q_plain(xin, pulses, scales, a, bias, group=group, activation=act)
+            calls += 1
+            if act == "gelu":
+                _close(got, want)
+            else:
+                assert torch.equal(got, want), (tuple(a.shape), act)
+        for b in (None, bias):
+            got = port_mm.pvq_matmul_q_cuda(xin, pulses, scales, a, b, group=group,
+                                            out_dtype=torch.bfloat16)
+            assert torch.equal(got, port_mm.pvq_matmul_q_plain(
+                xin, pulses, scales, a, b, group=group, out_dtype=torch.bfloat16)), tuple(a.shape)
+            calls += 1
+    assert _body_launches_since(before) == {"ring": 0, "direct": 0, "mma": calls}
 
 
 @needs_cuda
@@ -124,7 +178,7 @@ def _bank(gen, e, k, n, group, dev):
         (64, 1, 1536, 2048, 256),   # wo at decode
         (64, 60, 1536, 2048, 256),  # wo at prefill
         (5, 7, 96, 40, 32),         # ragged n, rows not 16-byte multiples: plain loads
-        (3, 9, 128, 48, 32),        # n % 32 != 0 on 16-byte rows: zero-filled copies
+        (3, 9, 128, 48, 32),        # n % 32 != 0 on 16-byte rows, m > 8: the mma body
         (2, 3, 12, 5, 6),           # a group not divisible by 4
         (2, 10, 12, 5, 6),          # the same, m > 8: pulses read directly
     ],
@@ -133,6 +187,8 @@ def test_cuda_batched_kernels_match_plain(e, m, k, n, group):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(e + m + k)
     pulses, scales = _bank(gen, e, k, n, group, dev)
+    body = "ring" if m <= 8 else "mma" if group % 32 == 0 and n % 16 == 0 else "direct"
+    before = dict(V3_BODY_LAUNCHES)
     x = torch.randn(e, m, k, generator=gen, device=dev)
     x_q, a = port_q.quantize_activations(x)
     for act in ("none", "silu"):
@@ -152,6 +208,63 @@ def test_cuda_batched_kernels_match_plain(e, m, k, n, group):
     xb = x.to(torch.bfloat16)
     _close(port_mm.pvq_matmul_batched_cuda(xb, pulses, scales, group=group),
            port_mm.pvq_matmul_batched_plain(xb, pulses, scales, group=group), rtol=1e-2)
+    launched = _body_launches_since(before)
+    assert launched[body] > 0 and sum(launched.values()) == launched[body], launched
+
+
+@needs_cuda
+@pytest.mark.parametrize(
+    "e,m,k,n,group",
+    [
+        (64, 60, 2048, 1408, 256),  # up / gate at prefill
+        (64, 60, 1536, 2048, 256),  # wo at prefill
+        (3, 17, 512, 48, 32),       # ragged rows and columns inside one tile
+    ],
+)
+def test_cuda_batched_mma_body_matches_plain(e, m, k, n, group):
+    """Batched v3 at m > 8 takes the tensor-core body and is identical to
+    its plain version: per-row and per-tile scales, each activation (tanh-
+    gelu within rtol 1e-5), f32 and bf16 output."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(e + m + k + n)
+    pulses = torch.randint(-127, 128, (e, k, n), generator=gen, dtype=torch.int8, device=dev)
+    scales = torch.rand(e, k // group, n, generator=gen, device=dev)
+    x = torch.randn(e, m, k, generator=gen, device=dev)
+    before = dict(V3_BODY_LAUNCHES)
+    calls = 0
+    for mode in ("per_row", "per_tile"):
+        xq, a = port_q.quantize_activations(x, port_q.ActQuant(mode), tile=group)
+        for act in port_mm.ACTIVATIONS:
+            got = port_mm.pvq_matmul_q_batched_cuda(xq, pulses, scales, a, group=group, activation=act)
+            want = port_mm.pvq_matmul_q_batched_plain(xq, pulses, scales, a, group=group, activation=act)
+            calls += 1
+            if act == "gelu":
+                _close(got, want)
+            else:
+                assert torch.equal(got, want), (mode, act)
+        got = port_mm.pvq_matmul_q_batched_cuda(xq, pulses, scales, a, group=group, activation="silu",
+                                                out_dtype=torch.bfloat16)
+        assert torch.equal(got, port_mm.pvq_matmul_q_batched_plain(
+            xq, pulses, scales, a, group=group, activation="silu", out_dtype=torch.bfloat16)), mode
+        calls += 1
+    assert _body_launches_since(before) == {"ring": 0, "direct": 0, "mma": calls}
+
+
+@needs_cuda
+def test_forced_bodies_agree_and_mma_refuses_what_it_cannot_take():
+    """The private body argument runs each body on one shape (all identical),
+    and the mma body raises on a shape outside its preconditions."""
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(5)
+    pulses, scales, bias, x = _v3_cases(40, 512, 96, 64, gen, dev)
+    xq, a = ops._quantize_x(x, port_q.ActQuant(), 64)
+    want = port_mm.pvq_matmul_q_plain(xq, pulses, scales, a, bias, group=64)
+    for body in port_mm.V3_BODIES:
+        assert torch.equal(port_mm.pvq_matmul_q_cuda(xq, pulses, scales, a, bias, group=64,
+                                                     _body=body), want), body
+    with pytest.raises(ValueError, match="mma body"):
+        port_mm.pvq_matmul_q_cuda(xq[:, :96], pulses[:96, :40], scales[:1, :40],
+                                  a, None, group=96, _body="mma")
 
 
 @needs_cuda

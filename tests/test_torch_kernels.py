@@ -23,7 +23,7 @@ from repro.core import quantize as ref_q
 from repro.kernels import ops as ref_ops
 from repro.kernels.pvq_matmul import pvq_attn_q as ref_attn_q
 from repro_torch.core import quantize as port_q
-from repro_torch.kernels import LAUNCHES, ops
+from repro_torch.kernels import LAUNCHES, V3_BODY_LAUNCHES, ops
 from repro_torch.kernels import pvq_encode as port_enc
 from repro_torch.kernels import pvq_matmul as port_mm
 
@@ -254,14 +254,41 @@ def test_attn_decode_dispatch_matches_reference():
 # ---------------------------------------------------------------------------
 
 
+# the main path's prefill: group 256, k a multiple of 256, n a multiple of
+# 16, operands 16-byte aligned
+_MMA_OK = dict(m=512, k=1024, n=2560, group=256, x_ptr=4096, w_ptr=8192)
+
+
+@pytest.mark.parametrize("m", [1, 4, 8])
+def test_v3_body_is_the_ring_up_to_eight_rows(m):
+    assert port_mm._v3_body(**{**_MMA_OK, "m": m}) == "ring"
+    # whatever else fails: the ring takes ragged shapes too
+    assert port_mm._v3_body(m, 12, 5, 6, 3, 5) == "ring"
+
+
+@pytest.mark.parametrize("m,k,n", [(9, 256, 16), (60, 2048, 1408), (60, 1536, 2048),
+                                   (512, 1024, 2560), (640, 2048, 102400)])
+def test_v3_body_takes_the_tensor_cores_when_every_precondition_holds(m, k, n):
+    assert port_mm._v3_body(**{**_MMA_OK, "m": m, "k": k, "n": n}) == "mma"
+    assert port_mm._v3_body(m, 96, 48, 32, 16, 32) == "mma"
+
+
+@pytest.mark.parametrize("failing", [dict(group=48, k=960), dict(group=16, k=1024),
+                                     dict(n=40), dict(n=2568), dict(x_ptr=4100),
+                                     dict(w_ptr=8200)])
+def test_v3_body_is_direct_when_a_precondition_fails(failing):
+    assert port_mm._v3_body(**{**_MMA_OK, **failing}) == "direct"
+
+
 def test_cpu_route_launches_no_kernel():
-    before = dict(LAUNCHES)
+    before, before_bodies = dict(LAUNCHES), dict(V3_BODY_LAUNCHES)
     x = torch.randn(2, 64)
     pulses = torch.randint(-3, 4, (64, 8), dtype=torch.int8)
     ops.pvq_matmul(x, pulses, torch.ones(1, 8), group=64)
     ops.pvq_matmul(x, pulses, torch.ones(1, 8), group=64, act_quant=port_q.ActQuant())
     ops.pvq_encode(torch.randn(3, 16), k_pulses=8)
     assert dict(LAUNCHES) == before
+    assert dict(V3_BODY_LAUNCHES) == before_bodies
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
