@@ -15,15 +15,18 @@ non-zero (printing no result) without either.  In order, it:
    encoder, v3, batched v3 and v4 must be identical, v2 and batched v2
    within ``rtol=1e-5``; it times the kernel, the plain version and one
    PyTorch yardstick call (CUDA events, median of runs, L2 flushed before
-   every timed launch, as the decode path finds it cold).  v3 at prefill
-   (one smollm layer's 7 matmuls and deepseek's lm_head at m 512, one MoE
-   layer's banks at m 60) must take its tensor-core body, and is timed
-   beside its direct (dp4a) body on the same inputs;
+   every timed launch, as the decode path finds it cold).  v3 and v2 at
+   prefill (one smollm layer's 7 matmuls and deepseek's lm_head at m 512,
+   one MoE layer's banks at m 60; v2's banks in f32 and bf16 x) must take
+   their tensor-core bodies (int8 for v3, f64 for v2), and are timed beside
+   their direct bodies on the same inputs;
 4. serves full-width smollm-360m from random weights (``--pvq --act-int8
    --kv-pvq --agreement-min 0.99``, batch 4, prompt 128, 32 new tokens)
    with every kernel launch count set to 0 just before and read just after;
    requires finite logits of the expected shape, every kernel of the
-   path launched and v3's tensor-core body among them; then runs the same tokens and packed weights through the
+   path launched, v3's and v2's tensor-core bodies among them (v2's in the
+   f32 leg's prefill) and no v2 call above 8 rows on v2's direct body; then
+   runs the same tokens and packed weights through the
    plain versions on the card: the served leg's teacher-forced logits must
    be identical to the kernel path's, and the f32 leg (kernel v2) must
    agree with its plain path at CI's top-1 threshold (0.99);
@@ -59,6 +62,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 INT8_OPS_PER_S = 1979e12    # dense int8 tensor-core peak
 F32_FLOPS_PER_S = 67e12     # f32 outside the tensor cores
+F64_TC_FLOPS_PER_S = 67e12  # f64 tensor-core peak (kernel v2's contraction)
 
 BATCH, PROMPT, GEN, KV_BLOCK, KV_GROUP = 4, 128, 32, 32, 32
 FULL_SERVE = [
@@ -103,6 +107,7 @@ PREFILL_M = 512
 # 2-D v3 call of a prefill
 LM_HEAD = (2048, 102400)
 MMA_SOURCE = "src/repro_torch/kernels/csrc/pvq_matmul_mma.cuh"
+F_MMA_SOURCE = "src/repro_torch/kernels/csrc/pvq_matmul_f_mma.cuh"
 
 
 def fail(msg: str) -> None:
@@ -157,24 +162,25 @@ def _new_total():
     return dict(ms=0.0, direct_ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0, err=0.0)
 
 
-def prefill_row(timer, kernels_mod, what, call, plain, library, nbytes, nops, times=1,
-                total=None):
-    """A v3 prefill shape: the body the rule picks must be the tensor-core
-    one and identical to the plain version; it is timed beside the direct
-    (dp4a) body on the same inputs, the plain version and the yardstick.
-    ``times`` adds the row that many times into ``total``."""
-    before = kernels_mod.v3_body_launches()
+def prefill_row(timer, body_launches, what, call, plain, library, nbytes, nops, *, rtol=0.0,
+                rate=INT8_OPS_PER_S, times=1, total=None):
+    """A v3 or v2 prefill shape (``body_launches`` reads the kernel's body
+    counts): the body the rule picks must be the tensor-core one and agree
+    with the plain version within ``rtol`` (v3: identical); it is timed
+    beside the direct body on the same inputs, the plain version and the
+    yardstick.  ``times`` adds the row that many times into ``total``."""
+    before = body_launches()
     got = call(None)
-    body = [b for b, c in kernels_mod.v3_body_launches().items() if c != before[b]]
+    body = [b for b, c in body_launches().items() if c != before[b]]
     if body != ["mma"]:
         fail(f"{what}: took the {body} body, not mma")
     want = plain()
-    err = check_close(f"{what} (mma body)", got, want, 0.0)
-    check_close(f"{what} (direct body)", call("direct"), want, 0.0)
+    err = check_close(f"{what} (mma body)", got, want, rtol)
+    check_close(f"{what} (direct body)", call("direct"), want, rtol)
     del got, want
     t_k, t_d = timer(lambda: call(None)), timer(lambda: call("direct"))
     t_p, t_lib = timer(plain), timer(library)
-    b_ms, b_by = bound_ms(nbytes, nops, INT8_OPS_PER_S)
+    b_ms, b_by = bound_ms(nbytes, nops, rate)
     row = {"ms": t_k, "direct_ms": t_d, "plain_ms": t_p, "library_ms": t_lib, "bound_ms": b_ms,
            "bound_by": b_by, "max_abs_err": err, "faster_than_direct": t_k < t_d}
     if total is not None:
@@ -185,9 +191,9 @@ def prefill_row(timer, kernels_mod, what, call, plain, library, nbytes, nops, ti
     return row
 
 
-def prefill_entry(total, shape):
-    b_ms, b_by = bound_ms(total["bytes"], total["ops"], INT8_OPS_PER_S)
-    return {"shape": shape, "source": MMA_SOURCE, "ms": total["ms"],
+def prefill_entry(total, shape, source=MMA_SOURCE, rate=INT8_OPS_PER_S):
+    b_ms, b_by = bound_ms(total["bytes"], total["ops"], rate)
+    return {"shape": shape, "source": source, "ms": total["ms"],
             "direct_ms": total["direct_ms"], "plain_ms": total["plain_ms"],
             "library_ms": total["library_ms"], "bound_ms": b_ms, "bound_by": b_by,
             "max_abs_err": total["err"], "faster_than_direct": total["ms"] < total["direct_ms"]}
@@ -198,11 +204,16 @@ def v3_bytes(m, k, n, e=1):
     return e * (m * k + k * n + 4 * (k // GROUP) * n + 4 * m + 4 * m * n)
 
 
+def v2_bytes(m, k, n, e=1, itemsize=4):
+    """Bytes v2 must move: x and out in x's dtype, int8 pulses, f32 rho."""
+    return e * (itemsize * m * k + k * n + 4 * (k // GROUP) * n + itemsize * m * n)
+
+
 def check_matmuls(torch, timer, mm, ops, quantize, kernels_mod):
     """Kernels v3 (int8 x) and v2 (f32 x) at one layer's decode shapes, v2
-    at the prefill FFN shape, and v3 at prefill: one layer's 7 matmuls and
-    deepseek's lm_head at m 512, each against its direct body too; returns
-    their kernel-line entries and details."""
+    at the prefill FFN shape, and v3 and v2 at prefill: one layer's 7
+    matmuls and deepseek's lm_head at m 512, each against its direct body
+    too; returns their kernel-line entries and details."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     layer = []
     for k, n in LAYER_SHAPES:
@@ -229,8 +240,8 @@ def check_matmuls(torch, timer, mm, ops, quantize, kernels_mod):
             else:
                 def kern(): return mm.pvq_matmul_cuda(x, pulses, scales, group=GROUP)
                 def plain(): return mm.pvq_matmul_plain(x, pulses, scales, group=GROUP)
-                nbytes = 4 * m * k + k * n + 4 * (k // GROUP) * n + 4 * m * n
-                nops, rate = 2.0 * m * k * n, F32_FLOPS_PER_S
+                nbytes = v2_bytes(m, k, n)
+                nops, rate = 2.0 * m * k * n, F64_TC_FLOPS_PER_S
             # v3 is identical to its plain version by construction; v2's f64
             # group sums run in another order (the same f32 value unless a
             # sum lies on an f32 rounding boundary)
@@ -250,8 +261,9 @@ def check_matmuls(torch, timer, mm, ops, quantize, kernels_mod):
                 tot["bytes"] += nbytes
                 tot["ops"] += nops
                 tot["err"] = max(tot["err"], err)
-    # v3 at prefill: one layer's 7 matmuls, then deepseek's lm_head
+    # v3 and v2 at prefill: one layer's 7 matmuls, then deepseek's lm_head
     prefill = {"smollm_layer_m512": _new_total(), "deepseek_lm_head_m512": _new_total()}
+    v2_prefill = {"smollm_layer_m512": _new_total(), "deepseek_lm_head_m512": _new_total()}
     lm_pulses = torch.randint(-9, 10, LM_HEAD, generator=gen, device="cuda", dtype=torch.int8)
     lm_scales = torch.rand(LM_HEAD[0] // GROUP, LM_HEAD[1], generator=gen, device="cuda") * 0.01
     shapes = [("smollm_layer_m512", k, n, layer[i]) for i, (k, n) in enumerate(LAYER_SHAPES)]
@@ -263,15 +275,23 @@ def check_matmuls(torch, timer, mm, ops, quantize, kernels_mod):
         w_deq = pulses.float() * torch.repeat_interleave(scales, GROUP, dim=0)
         def call(body): return mm.pvq_matmul_q_cuda(x_q, pulses, scales, a, group=GROUP, _body=body)
         def plain(): return mm.pvq_matmul_q_plain(x_q, pulses, scales, a, group=GROUP)
-        row = prefill_row(timer, kernels_mod, f"pvq_matmul_q m{m} k{k} n{n}", call, plain,
-                          lambda: torch.matmul(x, w_deq), v3_bytes(m, k, n), 2.0 * m * k * n,
-                          total=prefill[key])
+        row = prefill_row(timer, kernels_mod.v3_body_launches, f"pvq_matmul_q m{m} k{k} n{n}",
+                          call, plain, lambda: torch.matmul(x, w_deq), v3_bytes(m, k, n),
+                          2.0 * m * k * n, total=prefill[key])
         rows.append({"kernel": "pvq_matmul_q", "m": m, "k": k, "n": n, **row})
+        # v2 (the f32 leg) on the same f32 x: within rtol 1e-5 of plain
+        def call_f(body): return mm.pvq_matmul_cuda(x, pulses, scales, group=GROUP, _body=body)
+        def plain_f(): return mm.pvq_matmul_plain(x, pulses, scales, group=GROUP)
+        row = prefill_row(timer, kernels_mod.v2_body_launches, f"pvq_matmul m{m} k{k} n{n}",
+                          call_f, plain_f, lambda: torch.matmul(x, w_deq), v2_bytes(m, k, n),
+                          2.0 * m * k * n, rtol=1e-5, rate=F64_TC_FLOPS_PER_S,
+                          total=v2_prefill[key])
+        rows.append({"kernel": "pvq_matmul", "m": m, "k": k, "n": n, **row})
         del w_deq
     del lm_pulses, lm_scales
     entries = {}
     for name, tot in totals.items():
-        rate = INT8_OPS_PER_S if name == "pvq_matmul_q" else F32_FLOPS_PER_S
+        rate = INT8_OPS_PER_S if name == "pvq_matmul_q" else F64_TC_FLOPS_PER_S
         b_ms, b_by = bound_ms(tot["bytes"], tot["ops"], rate)
         entries[name] = {
             "name": name, "route": "cuda", "source": "src/repro_torch/kernels/csrc/pvq_matmul.cu",
@@ -288,6 +308,12 @@ def check_matmuls(torch, timer, mm, ops, quantize, kernels_mod):
         "deepseek_lm_head_m512": prefill_entry(
             prefill["deepseek_lm_head_m512"],
             f"lm_head k {LM_HEAD[0]} n {LM_HEAD[1]}, m={PREFILL_M}, group {GROUP}"),
+    }
+    entries["pvq_matmul"]["prefill"] = {
+        key: prefill_entry(v2_prefill[key], f"{shape}, m={PREFILL_M}, group {GROUP}, f32 x",
+                           F_MMA_SOURCE, F64_TC_FLOPS_PER_S)
+        for key, shape in (("smollm_layer_m512", "one decoder layer's 7 matmuls"),
+                           ("deepseek_lm_head_m512", f"lm_head k {LM_HEAD[0]} n {LM_HEAD[1]}"))
     }
     return entries, rows
 
@@ -339,14 +365,16 @@ def check_attention(torch, timer, mm, quant):
 def check_batched(torch, timer, mm, quantize, kernels_mod):
     """Batched kernels v3 and v2 at one MoE layer's expert-bank shapes, at
     decode and prefill; the entries total one decode step's MoE layer (up,
-    gate and wo: the up/gate shape counts twice), and batched v3's
-    ``prefill`` the same layer at prefill, against its direct body too.  The
-    yardstick is ``torch.bmm`` on the dequantized f32 banks."""
+    gate and wo: the up/gate shape counts twice), and their ``prefill`` the
+    same layer at prefill (v2 in f32 and bf16 x), against the direct body
+    too.  The yardstick is ``torch.bmm`` of the f32 x (for bf16 x, its
+    values in f32) and the dequantized f32 banks."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     rows = []
     totals = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0, err=0.0)
               for name in ("pvq_matmul_q_batched", "pvq_matmul_batched")}
     prefill = _new_total()
+    v2_prefill = {dtype: _new_total() for dtype in (torch.float32, torch.bfloat16)}
     banks = {}
     for what, k, n in BANK_SHAPES:
         pulses = torch.randint(-9, 10, (EXPERTS, k, n), generator=gen, device="cuda",
@@ -365,14 +393,28 @@ def check_batched(torch, timer, mm, quantize, kernels_mod):
                 def call(body): return mm.pvq_matmul_q_batched_cuda(x_q, pulses, scales, a,
                                                                     group=GROUP, _body=body)
                 def plain(): return mm.pvq_matmul_q_batched_plain(x_q, pulses, scales, a, group=GROUP)
-                row = prefill_row(timer, kernels_mod,
+                row = prefill_row(timer, kernels_mod.v3_body_launches,
                                   f"pvq_matmul_q_batched E{e} m{m} k{k} n{n}", call, plain,
                                   lambda: torch.bmm(x, w_deq), v3_bytes(m, k, n, e),
                                   2.0 * e * m * k * n, times=times, total=prefill)
                 rows.append({"kernel": "pvq_matmul_q_batched", "bank": what, "experts": e,
                              "m": m, "k": k, "n": n, **row})
-            for name in (("pvq_matmul_q_batched", "pvq_matmul_batched") if m == MOE_DECODE_M
-                         else ("pvq_matmul_batched",)):
+                for dtype, tot in v2_prefill.items():
+                    xd = x.to(dtype)
+                    x32 = xd.float()
+                    def call_f(body): return mm.pvq_matmul_batched_cuda(xd, pulses, scales,
+                                                                        group=GROUP, _body=body)
+                    def plain_f(): return mm.pvq_matmul_batched_plain(xd, pulses, scales, group=GROUP)
+                    row = prefill_row(timer, kernels_mod.v2_body_launches,
+                                      f"pvq_matmul_batched E{e} m{m} k{k} n{n} {dtype}", call_f,
+                                      plain_f, lambda: torch.bmm(x32, w_deq),
+                                      v2_bytes(m, k, n, e, xd.element_size()), 2.0 * e * m * k * n,
+                                      rtol=1e-5, rate=F64_TC_FLOPS_PER_S, times=times, total=tot)
+                    rows.append({"kernel": "pvq_matmul_batched", "bank": what, "experts": e,
+                                 "x": str(dtype), "m": m, "k": k, "n": n, **row})
+                del w_deq
+                continue
+            for name in ("pvq_matmul_q_batched", "pvq_matmul_batched"):
                 if name == "pvq_matmul_q_batched":
                     def kern(): return mm.pvq_matmul_q_batched_cuda(x_q, pulses, scales, a, group=GROUP)
                     def plain(): return mm.pvq_matmul_q_batched_plain(x_q, pulses, scales, a, group=GROUP)
@@ -381,8 +423,8 @@ def check_batched(torch, timer, mm, quantize, kernels_mod):
                 else:
                     def kern(): return mm.pvq_matmul_batched_cuda(x, pulses, scales, group=GROUP)
                     def plain(): return mm.pvq_matmul_batched_plain(x, pulses, scales, group=GROUP)
-                    nbytes = e * (4 * m * k + k * n + 4 * (k // GROUP) * n + 4 * m * n)
-                    nops, rate = 2.0 * e * m * k * n, F32_FLOPS_PER_S
+                    nbytes = v2_bytes(m, k, n, e)
+                    nops, rate = 2.0 * e * m * k * n, F64_TC_FLOPS_PER_S
                 tol = 0.0 if name == "pvq_matmul_q_batched" else 1e-5
                 err = check_close(f"{name} E{e} m{m} k{k} n{n}", kern(), plain(), tol)
                 t_k, t_p = timer(kern), timer(plain)
@@ -391,18 +433,17 @@ def check_batched(torch, timer, mm, quantize, kernels_mod):
                 rows.append({"kernel": name, "bank": what, "experts": e, "m": m, "k": k, "n": n,
                              "ms": t_k, "plain_ms": t_p, "library_ms": t_lib, "bound_ms": b_ms,
                              "bound_by": b_by, "max_abs_err": err})
-                if m == MOE_DECODE_M:
-                    tot = totals[name]
-                    tot["ms"] += times * t_k
-                    tot["plain_ms"] += times * t_p
-                    tot["library_ms"] += times * t_lib
-                    tot["bytes"] += times * nbytes
-                    tot["ops"] += times * nops
-                    tot["err"] = max(tot["err"], err)
+                tot = totals[name]
+                tot["ms"] += times * t_k
+                tot["plain_ms"] += times * t_p
+                tot["library_ms"] += times * t_lib
+                tot["bytes"] += times * nbytes
+                tot["ops"] += times * nops
+                tot["err"] = max(tot["err"], err)
             del w_deq
     entries = {}
     for name, tot in totals.items():
-        rate = INT8_OPS_PER_S if name == "pvq_matmul_q_batched" else F32_FLOPS_PER_S
+        rate = INT8_OPS_PER_S if name == "pvq_matmul_q_batched" else F64_TC_FLOPS_PER_S
         b_ms, b_by = bound_ms(tot["bytes"], tot["ops"], rate)
         entries[name] = {
             "name": name, "route": "cuda",
@@ -416,9 +457,14 @@ def check_batched(torch, timer, mm, quantize, kernels_mod):
             "max_abs_err": tot["err"], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": tot["library_ms"],
         }
-    entries["pvq_matmul_q_batched"]["prefill"] = {"moe_layer_m60": prefill_entry(
-        prefill, f"one MoE layer's expert banks (up, gate, wo), {EXPERTS} experts, "
-                 f"m={MOE_PREFILL_M}, group {GROUP}")}
+    banks_m60 = (f"one MoE layer's expert banks (up, gate, wo), {EXPERTS} experts, "
+                 f"m={MOE_PREFILL_M}, group {GROUP}")
+    entries["pvq_matmul_q_batched"]["prefill"] = {"moe_layer_m60": prefill_entry(prefill, banks_m60)}
+    entries["pvq_matmul_batched"]["prefill"] = {
+        f"moe_layer_m60_{name}": prefill_entry(v2_prefill[dtype], f"{banks_m60}, {name} x",
+                                               F_MMA_SOURCE, F64_TC_FLOPS_PER_S)
+        for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16))
+    }
     return entries, rows
 
 
@@ -488,6 +534,27 @@ def plain_versions(mm, enc):
             setattr(mod, name + "_cuda", fn)
 
 
+@contextlib.contextmanager
+def v2_direct_above_eight(mm):
+    """Counts the kernel v2 calls of more than 8 rows that the body rule
+    sends to the direct body while active (a harness-only wrapper of
+    ``pvq_matmul._v2_body``, which the wrappers look up at each call)."""
+    inner, log = mm._v2_body, {"calls": 0, "shapes": set()}
+
+    def logged(m, k, n, group, *rest):
+        body = inner(m, k, n, group, *rest)
+        if m > 8 and body == "direct":
+            log["calls"] += 1
+            log["shapes"].add((m, k, n, group))
+        return body
+
+    mm._v2_body = logged
+    try:
+        yield log
+    finally:
+        mm._v2_body = inner
+
+
 class RoutingLog:
     """Records the top-k expert indices of every MoE routing call while
     ``active`` (a harness-only wrapper of ``nn.moe._topk_argmax``), so the
@@ -522,16 +589,18 @@ def serve_full(torch, serve, kernels_mod, mm, enc, quant, routing, argv, *, kvq,
     """The main path at full width, then the same teacher-forced tokens and
     packed parameters through the plain versions on the card.  ``kvq`` is
     the served leg's KV contract (None: dense cache); ``expect`` names the
-    kernels the path must launch.  Returns the launch counts."""
+    kernels the path must launch.  Returns the launch counts, kernel v3's by
+    body and kernel v2's by body."""
     batch, prompt, gen = (int(argv[argv.index(f) + 1]) for f in ("--batch", "--prompt-len", "--gen"))
     torch.cuda.reset_peak_memory_stats()
     routing.calls.clear()
     kernels_mod.reset_launches()
     t0 = time.time()
-    with routing.recording():
+    with routing.recording(), v2_direct_above_eight(mm) as v2_direct:
         report, rc, state = serve.run(argv, return_state=True)
     counts = kernels_mod.launches()
     bodies = kernels_mod.v3_body_launches()
+    v2_bodies = kernels_mod.v2_body_launches()
     report["phase_wall_s"] = round(time.time() - t0, 2)
     print(json.dumps({"serve": "full", **report}), flush=True)
     if not state:
@@ -544,6 +613,12 @@ def serve_full(torch, serve, kernels_mod, mm, enc, quant, routing, argv, *, kvq,
     # prefill and the teacher-forced legs run v3 at m > 8: the tensor cores
     if bodies["mma"] <= 0:
         fail(f"full serve never launched v3's mma body: {bodies}")
+    # the f32 leg's prefill runs v2 at m > 8: the f64 tensor cores
+    if v2_bodies["mma"] <= 0:
+        fail(f"full serve never launched v2's mma body: {v2_bodies}")
+    if v2_direct["calls"]:
+        fail(f"full serve ran {v2_direct['calls']} v2 calls above 8 rows on the direct body: "
+             f"{sorted(v2_direct['shapes'])}")
     if rc != 0 and "agreement_fail" not in report:
         fail(f"full serve exited {rc}: {report}")
     kernel_routes = list(routing.calls)
@@ -597,7 +672,7 @@ def serve_full(torch, serve, kernels_mod, mm, enc, quant, routing, argv, *, kvq,
     # holds it
     if legs["f32"]["agreement"] < AGREEMENT_MIN:
         fail(f"full-width f32 leg: kernel path vs plain path agreement {legs['f32']}")
-    return counts, bodies
+    return counts, bodies, v2_bodies
 
 
 def serve_reduced(serve, argv):
@@ -653,12 +728,12 @@ def main() -> int:
         return 0
 
     routing = RoutingLog(moe)
-    counts, bodies = {}, {}
-    counts["smollm-360m"], bodies["smollm-360m"] = serve_full(
+    counts, bodies, v2_bodies = {}, {}, {}
+    counts["smollm-360m"], bodies["smollm-360m"], v2_bodies["smollm-360m"] = serve_full(
         torch, serve, kernels_mod, mm, enc, quant, routing, FULL_SERVE,
         kvq=quant.KVQuant(KV_BLOCK, KV_GROUP), expect=SMOLLM_KERNELS)
     torch.cuda.empty_cache()  # the smollm model is gone: the card is free for deepseek
-    counts[MOE_ARCH], bodies[MOE_ARCH] = serve_full(
+    counts[MOE_ARCH], bodies[MOE_ARCH], v2_bodies[MOE_ARCH] = serve_full(
         torch, serve, kernels_mod, mm, enc, quant, routing, MOE_FULL_SERVE, kvq=None,
         expect=MOE_KERNELS)
     routing.close()
@@ -676,9 +751,11 @@ def main() -> int:
         e = dict(entries[name])
         e["launches"] = counts[path][name]
         e["launches_by_path"] = {p: c[name] for p, c in counts.items()}
+        # the 2-D and batched routes' launches together, by body
         if name in ("pvq_matmul_q", "pvq_matmul_q_batched"):
-            # the 2-D and batched routes' launches together, by body
             e["v3_body_launches_by_path"] = bodies
+        if name in ("pvq_matmul", "pvq_matmul_batched"):
+            e["v2_body_launches_by_path"] = v2_bodies
         line.append(e)
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {

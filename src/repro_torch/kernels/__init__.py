@@ -5,7 +5,10 @@ one where it launches its kernel and nowhere else, so a run can show that
 its main path went through the kernels.  ``V3_BODY_LAUNCHES`` splits kernel
 v3's launches (2-D and batched together) by the body that ran:
 ``"ring"`` (m <= 8), ``"mma"`` (int8 tensor cores, m > 8) or ``"direct"``
-(the ragged rest); see ``pvq_matmul._v3_body``.
+(the ragged rest); see ``pvq_matmul._v3_body``.  ``V2_BODY_LAUNCHES`` does
+the same for kernel v2: ``"mma"`` (f64 tensor cores, m > 8) or ``"direct"``
+(f64 FMAs on the CUDA cores: m <= 8 and the ragged rest); see
+``pvq_matmul._v2_body``.
 """
 
 from typing import Dict
@@ -21,10 +24,11 @@ LAUNCHES: Dict[str, int] = {
 
 
 V3_BODY_LAUNCHES: Dict[str, int] = {"ring": 0, "direct": 0, "mma": 0}
+V2_BODY_LAUNCHES: Dict[str, int] = {"direct": 0, "mma": 0}
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, V3_BODY_LAUNCHES):
+    for counts in (LAUNCHES, V3_BODY_LAUNCHES, V2_BODY_LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -35,3 +39,7 @@ def launches() -> Dict[str, int]:
 
 def v3_body_launches() -> Dict[str, int]:
     return dict(V3_BODY_LAUNCHES)
+
+
+def v2_body_launches() -> Dict[str, int]:
+    return dict(V2_BODY_LAUNCHES)

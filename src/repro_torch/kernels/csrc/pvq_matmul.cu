@@ -27,9 +27,13 @@
 // tensor-core body (pvq_matmul_mma.cuh: mma.sync m16n8k32 on 64 x 128
 // tiles) when G % 32 == 0, n % 16 == 0 and the rows are 16-byte aligned;
 // the same __dp4a body reading W straight from global memory otherwise.
-// v2 (pvq_matmul_common.cuh) uses no tensor cores: 8 x 32 CTAs, f64 FMAs of
-// exact products, W read from global memory with one byte per lane per k
-// row (32-byte coalesced rows).  The partials of a group are summed exactly
+// v2 has two bodies, chosen per call by the wrapper (kernels/pvq_matmul.py:
+// _v2_body): at m > 8 the f64 tensor-core body (pvq_matmul_f_mma.cuh:
+// mma.sync m16n8k4 .f64 on 64 x 64 tiles) when G % 16 == 0, n % 16 == 0
+// and the rows are 16-byte aligned; otherwise, and at every m <= 8, the
+// direct body (pvq_matmul_common.cuh): 8 x 32 CTAs, f64 FMAs of exact
+// products on the CUDA cores, W read from global memory with one byte per
+// lane per k row (32-byte coalesced rows).  The partials of a group are summed exactly
 // (int32; on v2 in f64, rounded to f32 once) BEFORE the group's single rho
 // multiply, so a group is never split across two rho products.  Every float
 // multiply and add after a group's contraction is a separately rounded
@@ -37,6 +41,7 @@
 // bit for bit and v2 does too unless a group's f64 sum lies within its own
 // rounding error of an f32 rounding boundary.
 
+#include "pvq_matmul_f_mma.cuh"
 #include "pvq_matmul_mma.cuh"
 
 using namespace pvq;
@@ -53,9 +58,11 @@ extern "C" int pvq_matmul_q_launch(const int8_t* x, const int8_t* w,
 }
 
 // x_bf16: 0 -> x and out are f32, 1 -> x and out are bf16.
+// body: 0 -> direct, 1 -> mma (pvq_matmul_f_mma.cuh, FBody).
 extern "C" int pvq_matmul_launch(const void* x, const int8_t* w, const float* rho,
                                  const float* bias, int act, void* out,
                                  int x_bf16, int m, int k, int n, int G,
-                                 void* stream) {
-  return launch_f(x, w, rho, bias, act, out, x_bf16, 1, m, k, n, G, (cudaStream_t)stream);
+                                 int body, void* stream) {
+  return launch_f_stack(x, w, rho, bias, act, out, x_bf16, 1, m, k, n, G, body,
+                        (cudaStream_t)stream);
 }

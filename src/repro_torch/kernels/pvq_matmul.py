@@ -18,12 +18,14 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import LAUNCHES, V3_BODY_LAUNCHES
+from . import LAUNCHES, V2_BODY_LAUNCHES, V3_BODY_LAUNCHES
 from . import build
 
 ACTIVATIONS = ("none", "relu", "relu2", "gelu", "silu")
 #: kernel v3's bodies, in the C launchers' numbering
 V3_BODIES = ("ring", "direct", "mma")
+#: kernel v2's bodies, in the C launchers' numbering
+V2_BODIES = ("direct", "mma")
 
 #: finite attention mask value (a fully masked block merges out with weight 0)
 ATTN_NEG_INF = -1e30
@@ -147,9 +149,45 @@ def pvq_matmul_plain(
     return _apply_activation(acc, activation).to(x.dtype)
 
 
+def _v2_mma_fits(k: int, n: int, group: int, x_ptr: int, w_ptr: int,
+                 x_dtype: torch.dtype) -> bool:
+    """Whether v2's tensor-core body takes the operands: 16- or 32-deep
+    stages that never straddle a group, and 16-byte aligned x and pulse
+    rows for x's dtype."""
+    return (group % 16 == 0 and n % 16 == 0 and (k * x_dtype.itemsize) % 16 == 0
+            and x_ptr % 16 == 0 and w_ptr % 16 == 0)
+
+
+def _v2_body(m: int, k: int, n: int, group: int, x_ptr: int, w_ptr: int,
+             x_dtype: torch.dtype) -> str:
+    """Which body of kernel v2 contracts ``m`` rows (per expert) of ``(m, k)
+    x (k, n)``: ``"mma"`` (f64 tensor cores on 64 x 64 tiles) above 8 rows
+    when the operands fit it, ``"direct"`` (f64 FMAs on the CUDA cores, 8 x
+    32 CTAs) otherwise and at every m <= 8 (decode).  Both take each group's
+    dot in f64 and round it to f32 once, as the plain version does."""
+    if m <= 8:
+        return "direct"
+    return "mma" if _v2_mma_fits(k, n, group, x_ptr, w_ptr, x_dtype) else "direct"
+
+
+def _pick_v2_body(body: Optional[str], m, k, n, group, xc, wc) -> str:
+    """The rule's body, or ``body`` where a caller names one (the checks
+    that compare bodies on the card); the mma body is refused where the
+    operands do not fit it."""
+    if body is None:
+        return _v2_body(m, k, n, group, xc.data_ptr(), wc.data_ptr(), xc.dtype)
+    if body not in V2_BODIES:
+        raise ValueError(f"unknown v2 body {body!r}; expected one of {V2_BODIES}")
+    if body == "mma" and not _v2_mma_fits(k, n, group, xc.data_ptr(), wc.data_ptr(), xc.dtype):
+        raise ValueError(f"the v2 mma body needs group % 16 == 0, n % 16 == 0 and 16-byte "
+                         f"aligned rows (k {k}, n {n}, group {group}, {xc.dtype})")
+    return body
+
+
 def pvq_matmul_cuda(
     x: torch.Tensor, w_pulses: torch.Tensor, scales: torch.Tensor,
     bias: Optional[torch.Tensor] = None, *, group: int, activation: str = "none",
+    _body: Optional[str] = None,
 ) -> torch.Tensor:
     m, k, n = _check_matmul(x, w_pulses, scales, group, bias, activation)
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -158,14 +196,17 @@ def pvq_matmul_cuda(
     wc = _cuda_operand(w_pulses, torch.int8, "w_pulses")
     sc = _cuda_operand(scales, torch.float32, "scales")
     bc = None if bias is None else _cuda_operand(bias, torch.float32, "bias")
+    body = _pick_v2_body(_body, m, k, n, group, xc, wc)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     status = build.launcher("pvq_matmul_launch")(
         xc.data_ptr(), wc.data_ptr(), sc.data_ptr(),
         None if bc is None else bc.data_ptr(), ACTIVATIONS.index(activation),
-        out.data_ptr(), int(x.dtype == torch.bfloat16), m, k, n, group, _stream(x),
+        out.data_ptr(), int(x.dtype == torch.bfloat16), m, k, n, group,
+        V2_BODIES.index(body), _stream(x),
     )
-    build.check(status, "pvq_matmul")
+    build.check(status, f"pvq_matmul ({body} body)")
     LAUNCHES["pvq_matmul"] += 1
+    V2_BODY_LAUNCHES[body] += 1
     return out
 
 
@@ -323,7 +364,7 @@ def pvq_matmul_batched_plain(
 
 def pvq_matmul_batched_cuda(
     x: torch.Tensor, w_pulses: torch.Tensor, scales: torch.Tensor, *,
-    group: int, activation: str = "none",
+    group: int, activation: str = "none", _body: Optional[str] = None,
 ) -> torch.Tensor:
     e, m, k, n = _check_batched(x, w_pulses, scales, group, activation)
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -331,13 +372,16 @@ def pvq_matmul_batched_cuda(
     xc = _cuda_operand(x, x.dtype, "x")
     wc = _cuda_operand(w_pulses, torch.int8, "w_pulses")
     sc = _cuda_operand(scales, torch.float32, "scales")
+    body = _pick_v2_body(_body, m, k, n, group, xc, wc)
     out = torch.empty((e, m, n), dtype=x.dtype, device=x.device)
     status = build.launcher("pvq_matmul_batched_launch")(
         xc.data_ptr(), wc.data_ptr(), sc.data_ptr(), ACTIVATIONS.index(activation),
-        out.data_ptr(), int(x.dtype == torch.bfloat16), e, m, k, n, group, _stream(x),
+        out.data_ptr(), int(x.dtype == torch.bfloat16), e, m, k, n, group,
+        V2_BODIES.index(body), _stream(x),
     )
-    build.check(status, "pvq_matmul_batched")
+    build.check(status, f"pvq_matmul_batched ({body} body)")
     LAUNCHES["pvq_matmul_batched"] += 1
+    V2_BODY_LAUNCHES[body] += 1
     return out
 
 

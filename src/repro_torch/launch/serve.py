@@ -13,7 +13,9 @@ to the CPU by itself.  ``--agreement-min T`` also scores the same tokens on
 the reference leg (f32 activations, dense KV cache: kernel v2 on the packed
 weights) and exits 1 if teacher-forced top-1 agreement is below T.  The
 JSON report adds ``kernel_launches`` (the CUDA launches of each kernel),
-``v3_body_launches`` (kernel v3's launches by body: ring, direct, mma), the packed MoE expert banks' bytes, and on a card the peak device memory.
+``v3_body_launches`` (kernel v3's launches by body: ring, direct, mma),
+``v2_body_launches`` (kernel v2's, the f32 leg's: direct, mma), the packed
+MoE expert banks' bytes, and on a card the peak device memory.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from ..core.quantize import (
     set_default_act_quant,
     set_default_kv_quant,
 )
-from ..kernels import launches, reset_launches, v3_body_launches
+from ..kernels import launches, reset_launches, v2_body_launches, v3_body_launches
 from ..nn.models import build_model
 from ..runtime import obs
 
@@ -304,6 +306,7 @@ def _serve(args):
             rc = 1
     report["kernel_launches"] = launches()
     report["v3_body_launches"] = v3_body_launches()
+    report["v2_body_launches"] = v2_body_launches()
     if device.type == "cuda":
         report["peak_device_memory_bytes"] = torch.cuda.max_memory_allocated(device)
     return report, rc, state

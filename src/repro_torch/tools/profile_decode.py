@@ -3,15 +3,19 @@
     python -m repro_torch.tools.profile_decode --batch 4 --prompt-len 128 --steps 4
     python -m repro_torch.tools.profile_decode --arch deepseek-v2-lite-16b --steps 4
     python -m repro_torch.tools.profile_decode --arch deepseek-v2-lite-16b --prefill
+    python -m repro_torch.tools.profile_decode --arch deepseek-v2-lite-16b --prefill --f32
 
 Packs the model (as ``serve --pvq``), prefills with ``--act-int8 --kv-pvq``
 in effect (an MLA model's latent cache stays dense), runs two warm-up
 decode steps, then traces ``--steps`` decode steps with ``torch.profiler``
 (CPU + CUDA activity).  With ``--prefill`` it traces one prefill of the
-batch instead, after a warm one.  Prints one JSON object: the host wall
-time per step (or prefill), the device time summed over every CUDA kernel
-(ours included: CUPTI traces them by name), the device's idle share, the
-launch count, and the kernels with the most device time.
+batch instead, after a warm one; ``--f32`` makes that the f32 leg of
+``serve --agreement-min`` (f32 activations and a dense cache, kernel v2 on
+the packed weights).  Prints one JSON object: the host wall time per step
+(or prefill), the device time summed over every CUDA kernel (ours
+included: CUPTI traces them by name), the device's idle share, the launch
+count, kernels v3's and v2's device time, calls and share, and the kernels
+with the most device time.
 """
 
 from __future__ import annotations
@@ -40,7 +44,11 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--prefill", action="store_true",
                     help="trace one prefill (after a warm one) instead of decode steps")
+    ap.add_argument("--f32", action="store_true",
+                    help="with --prefill: the f32 leg (f32 activations, dense cache)")
     args = ap.parse_args(argv)
+    if args.f32 and not args.prefill:
+        ap.error("--f32 traces the f32 leg's prefill: it needs --prefill")
     if not torch.cuda.is_available():
         raise RuntimeError("profile_decode measures the card: no CUDA device")
     from torch.profiler import ProfilerActivity, profile
@@ -52,10 +60,11 @@ def main(argv=None) -> int:
     params = quantize_params(model.init(args.seed, device="cuda"), serving_policy(cfg))
     gen = torch.Generator().manual_seed(args.seed + 1)
     tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len), generator=gen).cuda()
-    kvq = KVQuant(block=32, group=32)
+    kv_block = 32
+    kvq = None if args.f32 else KVQuant(block=kv_block, group=32)
     warm = 2
-    with act_quant_scope(ActQuant()), kv_quant_scope(kvq):
-        cache_len = bucket_len(args.prompt_len + warm + args.steps, kvq.block)
+    with act_quant_scope(None if args.f32 else ActQuant()), kv_quant_scope(kvq):
+        cache_len = bucket_len(args.prompt_len + warm + args.steps, kv_block)
         logits, cache = model.prefill(params, {"tokens": tokens}, cache_len=cache_len)
         if args.prefill:
             del logits, cache
@@ -97,9 +106,14 @@ def _report(prof, wall: float, units: int, args, cfg, unit: str) -> dict:
             entry[0] += us
             entry[1] += 1
     device_us = sum(v[0] for v in kernels.values())
-    # kernel v3 (2-D and batched, every body), and its tensor-core body alone
-    v3_us = sum(v[0] for name, v in kernels.items() if "pvq_matmul_q_" in name)
-    mma_us = sum(v[0] for name, v in kernels.items() if "pvq_matmul_q_mma" in name)
+    # kernels v3 and v2 (2-D and batched, every body), and their tensor-core
+    # bodies alone
+    def by_name(part):
+        hits = [v for name, v in kernels.items() if part in name]
+        return sum(v[0] for v in hits), sum(v[1] for v in hits)
+
+    (v3_us, _), (mma_us, _) = by_name("pvq_matmul_q_"), by_name("pvq_matmul_q_mma")
+    (v2_us, v2_calls), (v2_mma_us, v2_mma_calls) = by_name("pvq_matmul_f_"), by_name("pvq_matmul_f_mma")
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[: args.top]
     unit_ms = 1e3 * wall / units
     device_ms = device_us / 1e3 / units
@@ -113,6 +127,12 @@ def _report(prof, wall: float, units: int, args, cfg, unit: str) -> dict:
         f"v3_ms_per_{unit}": v3_us / 1e3 / units,
         f"v3_mma_ms_per_{unit}": mma_us / 1e3 / units,
         "v3_share_of_device_time": v3_us / device_us if device_us else None,
+        f"v2_ms_per_{unit}": v2_us / 1e3 / units,
+        f"v2_calls_per_{unit}": v2_calls / units,
+        f"v2_mma_ms_per_{unit}": v2_mma_us / 1e3 / units,
+        f"v2_mma_calls_per_{unit}": v2_mma_calls / units,
+        "v2_share_of_device_time": v2_us / device_us if device_us else None,
+        "leg": "f32" if args.f32 else "served",
         "top_kernels": [
             {"name": name[:80], f"ms_per_{unit}": us / 1e3 / units, f"calls_per_{unit}": n / units}
             for name, (us, n) in top

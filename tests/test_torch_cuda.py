@@ -9,10 +9,13 @@ Every test skips without a CUDA card.  Tolerances: the encoder, kernel v3
 (each of its three bodies: ring, direct, mma) and its expert-batched form
 (without the tanh-gelu epilogue) and kernel v4
 are identical to their plain versions (same float operation order, no FMA
-contraction, the plain versions' fixed summation trees); kernel v2, its
-batched form and the gelu epilogue within ``rtol=1e-5, atol=1e-5 * max|y|``
-(v2's group sums run in f64 in another order, so a sum lying on an f32
-rounding boundary may round the other way; ``tanhf``).
+contraction, the plain versions' fixed summation trees); kernel v2 (each
+of its two bodies: direct, mma), its batched form and the gelu epilogue
+within ``rtol=1e-5, atol=1e-5 * max|y|`` (v2's group sums run in f64 in
+another order, so a sum lying on an f32 rounding boundary may round the
+other way; ``tanhf``); v2's bf16 output after a gelu or silu epilogue
+within ``rtol=1e-2`` (``tanhf``/``expf`` differ from PyTorch's in the last
+f32 bits, which moves a bf16 rounding by one bf16 ulp, 2^-8 relative).
 """
 
 import numpy as np
@@ -20,7 +23,7 @@ import pytest
 import torch
 
 from repro_torch.core import quantize as port_q
-from repro_torch.kernels import LAUNCHES, V3_BODY_LAUNCHES, ops
+from repro_torch.kernels import LAUNCHES, V2_BODY_LAUNCHES, V3_BODY_LAUNCHES, ops
 from repro_torch.kernels import pvq_encode as port_enc
 from repro_torch.kernels import pvq_matmul as port_mm
 
@@ -279,3 +282,71 @@ def test_ops_route_stacked_banks_to_the_batched_kernels():
     ops.packed_matmul_stacked(x, bank, act_quant=port_q.ActQuant())
     assert LAUNCHES["pvq_matmul_batched"] == before["pvq_matmul_batched"] + 1
     assert LAUNCHES["pvq_matmul_q_batched"] == before["pvq_matmul_q_batched"] + 1
+
+
+def _v2_launches_since(before):
+    return {body: V2_BODY_LAUNCHES[body] - before[body] for body in V2_BODY_LAUNCHES}
+
+
+def _v2_tol(dtype, act):
+    return 1e-2 if dtype == torch.bfloat16 and act in ("gelu", "silu") else 1e-5
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group", [32, 64, 256])
+@pytest.mark.parametrize("m", [9, 60, 65, 512])
+def test_cuda_v2_mma_body_matches_plain(m, group, dtype):
+    """Kernel v2 at m > 8 takes the f64 tensor-core body, 2-D and batched
+    over 3 experts, and agrees with its plain version: f32 and bf16 x, with
+    and without bias, each activation; n 80 leaves a part-filled column
+    block, m 65 a part-filled row block."""
+    dev = torch.device("cuda")
+    k, n, e = 512, 80, 3
+    gen = torch.Generator(device=dev).manual_seed(m * 31 + group)
+    pulses = torch.randint(-127, 128, (e, k, n), generator=gen, dtype=torch.int8, device=dev)
+    scales = torch.rand(e, k // group, n, generator=gen, device=dev)
+    bias = torch.randn(n, generator=gen, device=dev)
+    x = torch.randn(e, m, k, generator=gen, device=dev).to(dtype)
+    before = dict(V2_BODY_LAUNCHES)
+    calls = 0
+    for act in port_mm.ACTIVATIONS:
+        for b in (None, bias):
+            got = port_mm.pvq_matmul_cuda(x[0], pulses[0], scales[0], b, group=group, activation=act)
+            want = port_mm.pvq_matmul_plain(x[0], pulses[0], scales[0], b, group=group,
+                                            activation=act)
+            assert got.dtype == dtype
+            _close(got, want, rtol=_v2_tol(dtype, act))
+            calls += 1
+        got = port_mm.pvq_matmul_batched_cuda(x, pulses, scales, group=group, activation=act)
+        want = port_mm.pvq_matmul_batched_plain(x, pulses, scales, group=group, activation=act)
+        _close(got, want, rtol=_v2_tol(dtype, act))
+        calls += 1
+    assert _v2_launches_since(before) == {"direct": 0, "mma": calls}
+
+
+@needs_cuda
+def test_forced_v2_bodies_agree_and_mma_refuses_what_it_cannot_take():
+    """The private body argument runs each v2 body on one shape (both agree
+    with the plain version), and the mma body raises on operands outside its
+    preconditions instead of running the direct body."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    k, n, group = 512, 96, 64
+    pulses = torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8, device=dev)
+    scales = torch.rand(k // group, n, generator=gen, device=dev)
+    x = torch.randn(40, k, generator=gen, device=dev)
+    want = port_mm.pvq_matmul_plain(x, pulses, scales, group=group)
+    before = dict(V2_BODY_LAUNCHES)
+    for body in port_mm.V2_BODIES:
+        _close(port_mm.pvq_matmul_cuda(x, pulses, scales, group=group, _body=body), want)
+    assert _v2_launches_since(before) == {"direct": 1, "mma": 1}
+    before = dict(V2_BODY_LAUNCHES)
+    with pytest.raises(ValueError, match="v2 mma body"):  # n % 16 != 0
+        port_mm.pvq_matmul_cuda(x, pulses[:, :40], scales[:, :40], group=group, _body="mma")
+    with pytest.raises(ValueError, match="v2 mma body"):  # a group not a multiple of 16
+        port_mm.pvq_matmul_cuda(x[:, :96], pulses[:96], scales[:4], group=24, _body="mma")
+    with pytest.raises(ValueError, match="v2 mma body"):
+        port_mm.pvq_matmul_batched_cuda(x[None, :, :96], pulses[None, :96], scales[None, :4],
+                                        group=24, _body="mma")
+    assert _v2_launches_since(before) == {"direct": 0, "mma": 0}

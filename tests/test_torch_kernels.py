@@ -23,7 +23,7 @@ from repro.core import quantize as ref_q
 from repro.kernels import ops as ref_ops
 from repro.kernels.pvq_matmul import pvq_attn_q as ref_attn_q
 from repro_torch.core import quantize as port_q
-from repro_torch.kernels import LAUNCHES, V3_BODY_LAUNCHES, ops
+from repro_torch.kernels import LAUNCHES, V2_BODY_LAUNCHES, V3_BODY_LAUNCHES, ops
 from repro_torch.kernels import pvq_encode as port_enc
 from repro_torch.kernels import pvq_matmul as port_mm
 
@@ -278,6 +278,57 @@ def test_v3_body_takes_the_tensor_cores_when_every_precondition_holds(m, k, n):
                                      dict(w_ptr=8200)])
 def test_v3_body_is_direct_when_a_precondition_fails(failing):
     assert port_mm._v3_body(**{**_MMA_OK, **failing}) == "direct"
+
+
+# the full-width main paths' v2 calls (the f32 leg): (k_pad, n) of
+# smollm-360m's 7 layer matmuls (wq, wk, wv, wo, wi_gate, wi_up, ffn wo);
+# deepseek-v2-lite-16b's 2-D matrices (MLA wq, wkv_a, wk_rope, wo; layer 0's
+# dense FFN up/gate and down, 10944 padded to 11008; the shared experts' up/
+# gate and down; the untied lm_head) and its two expert-bank shapes (up/
+# gate, wo with 1408 padded to 1536); group 256 throughout
+V2_MAIN_PATH = [
+    (1024, 960), (1024, 320), (1024, 2560), (2560, 960),
+    (2048, 3072), (2048, 512), (2048, 64), (2048, 2048), (2048, 10944), (11008, 2048),
+    (2048, 2816), (2816, 2048), (2048, 102400),
+    (2048, 1408), (1536, 2048),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n", V2_MAIN_PATH)
+def test_v2_body_on_the_main_paths_shapes(k, n, dtype):
+    """Decode (m 4 on the 2-D matrices, m 1 per expert) takes the direct
+    body; prefill (m 512, m 60 per expert) the f64 tensor cores."""
+    for m in (1, 4, 8):
+        assert port_mm._v2_body(m, k, n, 256, 4096, 8192, dtype) == "direct"
+    for m in (9, 60, 512):
+        assert port_mm._v2_body(m, k, n, 256, 4096, 8192, dtype) == "mma"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("failing", [dict(group=8, k=1024), dict(group=24, k=960),
+                                     dict(n=40), dict(n=2568), dict(x_ptr=4100),
+                                     dict(x_ptr=4104), dict(w_ptr=8200)])
+def test_v2_body_is_direct_on_ragged_or_misaligned_operands(failing, dtype):
+    call = {**dict(m=512, k=1024, n=2560, group=256, x_ptr=4096, w_ptr=8192), **failing}
+    assert port_mm._v2_body(**call, x_dtype=dtype) == "direct"
+    assert port_mm._v2_body(**{**call, "m": 60}, x_dtype=dtype) == "direct"
+
+
+def test_cpu_route_leaves_v2_body_counts_alone():
+    """CPU tensors take the plain versions at every m, 2-D and batched: no
+    v2 launch, of either body, is counted."""
+    from repro_torch.core.packed import pack_matmul
+
+    before, before_bodies = dict(LAUNCHES), dict(V2_BODY_LAUNCHES)
+    pulses = torch.randint(-3, 4, (64, 16), dtype=torch.int8)
+    for m in (4, 60):
+        ops.pvq_matmul(torch.randn(m, 64), pulses, torch.ones(1, 16), group=64)
+        ops.pvq_matmul(torch.randn(m, 64).to(torch.bfloat16), pulses, torch.ones(1, 16), group=64)
+    bank = pack_matmul(torch.randn(2, 64, 16), group=64, k=64)
+    ops.packed_matmul_stacked(torch.randn(2, 60, 64), bank)
+    assert dict(LAUNCHES) == before
+    assert dict(V2_BODY_LAUNCHES) == before_bodies
 
 
 def test_cpu_route_launches_no_kernel():
