@@ -3,19 +3,31 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only   # phases 1-3 only (no result line)
+    python3 chip_smoke.py --kernels-only --tree DIR   # the same rows on DIR's kernels
 
 Needs one CUDA card and the repository checkout around this file; exits
-non-zero (printing no result) without either.  In order, it:
+non-zero (printing no result) without either.  ``--tree DIR`` (with
+``--kernels-only``) runs phases 1-3 on the kernels of another checkout
+DIR, e.g. a parent commit unpacked with ``git archive``, so one call can
+time two trees' bodies with the same rows (parent, new, new, parent).  In
+order, it:
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds every hand-written kernel from ``src/repro_torch/kernels/csrc``;
+2. builds every hand-written kernel from ``src/repro_torch/kernels/csrc``,
+   and prints what ``nvcc -Xptxas -v`` reports for kernel v3's decode body
+   (registers, spills);
 3. holds each kernel against its plain PyTorch version on the card at the
    full-width main-path shapes (smollm-360m for the encoder, v2, v3 and v4;
-   deepseek-v2-lite-16b's expert banks for the batched v2 and v3): the
+   deepseek-v2-lite-16b's 2-D decode matrices for v3 too, and its expert
+   banks for the batched v2 and v3): the
    encoder, v3, batched v3 and v4 must be identical, v2 and batched v2
    within ``rtol=1e-5``; it times the kernel, the plain version and one
    PyTorch yardstick call (CUDA events, median of runs, L2 flushed before
-   every timed launch, as the decode path finds it cold).  v3 and v2 at
+   every timed launch, as the decode path finds it cold).  Each decode row
+   (v3, v2, v4 and their batched forms) also gives ``device_ms`` beside
+   ``ms`` for the kernel and its yardstick: the mean device time of the
+   call's kernels under ``torch.profiler`` over 20 launches, each after an
+   L2 flush, without the wrapper's host time that ``ms`` holds.  v3 and v2 at
    prefill (one smollm layer's 7 matmuls and deepseek's lm_head at m 512,
    one MoE layer's banks at m 60; v2's banks in f32 and bf16 x) must take
    their tensor-core bodies (int8 for v3, f64 for v2), and are timed beside
@@ -24,8 +36,10 @@ non-zero (printing no result) without either.  In order, it:
    --kv-pvq --agreement-min 0.99``, batch 4, prompt 128, 32 new tokens)
    with every kernel launch count set to 0 just before and read just after;
    requires finite logits of the expected shape, every kernel of the
-   path launched, v3's and v2's tensor-core bodies among them (v2's in the
-   f32 leg's prefill) and no v2 call above 8 rows on v2's direct body; then
+   path launched, v3's splitk (decode) and tensor-core bodies and v2's
+   tensor-core body among them (v2's in the f32 leg's prefill), no v3 call
+   of at most 8 rows on v3's direct body where the splitk body fits it, and
+   no v2 call above 8 rows on v2's direct body; then
    runs the same tokens and packed weights through the
    plain versions on the card: the served leg's teacher-forced logits must
    be identical to the kernel path's, and the f32 leg (kernel v2) must
@@ -51,6 +65,9 @@ from __future__ import annotations
 
 import contextlib
 import json
+from functools import partial
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -106,8 +123,15 @@ PREFILL_M = 512
 # deepseek-v2-lite-16b's untied lm_head (d 2048 -> vocab 102400), the widest
 # 2-D v3 call of a prefill
 LM_HEAD = (2048, 102400)
+# deepseek-v2-lite-16b's 2-D v3 matrices at decode (m 4): (what, k_pad, n)
+DEEPSEEK_DECODE_SHAPES = [("mla wq", 2048, 3072), ("shared up/gate", 2048, 2816),
+                          ("shared down", 2816, 2048), ("dense ffn up/gate", 2048, 10944),
+                          ("dense ffn down", 11008, 2048), ("lm_head", *LM_HEAD)]
 MMA_SOURCE = "src/repro_torch/kernels/csrc/pvq_matmul_mma.cuh"
 F_MMA_SOURCE = "src/repro_torch/kernels/csrc/pvq_matmul_f_mma.cuh"
+SPLITK_SOURCE = "src/repro_torch/kernels/csrc/pvq_matmul_splitk.cuh"
+DEVICE_MS_BY = ("torch.profiler: mean device time of the call's kernels over 20 launches, "
+                "the L2 flushed before each (the flush's kernel left out)")
 
 
 def fail(msg: str) -> None:
@@ -121,11 +145,14 @@ def bound_ms(nbytes: float, ops: float, ops_rate: float):
 
 
 class Timer:
-    """Median CUDA-event time of a call, the L2 flushed before each launch."""
+    """Median CUDA-event time of a call, the L2 flushed before each launch
+    (``__call__``); ``device_later`` queues a call whose device time alone
+    ``measure_device`` fills in afterwards."""
 
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")
+        self.queued = []  # (fn, [(target dict, key, weight)])
 
     def __call__(self, fn, reps: int = 15, warmup: int = 2) -> float:
         torch = self.torch
@@ -142,6 +169,51 @@ class Timer:
             end.synchronize()
             times.append(start.elapsed_time(end))
         return statistics.median(times)
+
+    def device_later(self, fn, *targets) -> None:
+        """Queues ``fn`` (already warm; its tensors bound, e.g. by
+        ``functools.partial``): ``measure_device`` adds weight times its
+        device ms to ``target[key]`` for each ``(target, key, weight)``."""
+        self.queued.append((fn, targets))
+
+    def measure_device(self, reps: int = 20) -> None:
+        """Device time of every queued call (``DEVICE_MS_BY``), in one
+        ``torch.profiler`` trace: a lone flush first (its kernel's name
+        marks the flushes), then for each call ``reps`` times a flush and the
+        call; the kernels between two flushes, in device order, are one
+        launch's."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            self.flush.zero_()
+            torch.cuda.synchronize()
+            for fn, _ in self.queued:
+                for _ in range(reps):
+                    self.flush.zero_()
+                    fn()
+            torch.cuda.synchronize()
+        kernels = sorted((evt.time_range.start, evt.name, float(evt.device_time_total))
+                         for evt in prof.events()
+                         if getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA)
+        if not kernels:
+            fail("torch.profiler recorded no device activity")
+        flush_name = kernels[0][1]
+        launches = []
+        for _, name, us in kernels[1:]:
+            if name == flush_name:
+                launches.append(0.0)
+            elif launches:
+                launches[-1] += us
+        if len(launches) != reps * len(self.queued) or min(launches, default=0.0) <= 0.0:
+            fail(f"torch.profiler: {len(launches)} flushed launches for {len(self.queued)} calls "
+                 f"x {reps}, or a launch with no kernel")
+        for i, (_, targets) in enumerate(self.queued):
+            ms = sum(launches[i * reps:(i + 1) * reps]) / reps / 1e3
+            for target, key, weight in targets:
+                target[key] = target.get(key, 0.0) + weight * ms
+        self.queued.clear()
 
 
 def max_err(got, want) -> float:
@@ -160,6 +232,53 @@ def check_close(name, got, want, rtol):
 
 def _new_total():
     return dict(ms=0.0, direct_ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0, err=0.0)
+
+
+def _decode_total():
+    return dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0, library_device_ms=0.0,
+                bytes=0.0, ops=0.0, err=0.0)
+
+
+def decode_row(timer, head, kern, plain, library, nbytes, nops, rate, *, tol=0.0,
+               body_launches=None, times=1, total=None):
+    """A decode shape (``head`` names it): the kernel against its plain
+    version within ``tol`` (v3 and v4: identical), timed by events (``ms``)
+    beside the plain version and its yardstick; the device time of kernel
+    and yardstick (``device_ms``, ``library_device_ms``) is queued on the
+    timer.  With ``body_launches`` the v3 or v2 body that ran.  ``times``
+    adds the row that many times into ``total``.  ``kern`` and ``library``
+    must hold their tensors (``functools.partial``)."""
+    what = json.dumps(head)
+    before = body_launches() if body_launches else None
+    err = check_close(what, kern(), plain(), tol)
+    row = dict(head)
+    if body_launches:
+        row["body"] = [b for b, c in body_launches().items() if c != before[b]]
+    b_ms, b_by = bound_ms(nbytes, nops, rate)
+    row.update({"ms": timer(kern), "plain_ms": timer(plain), "library_ms": timer(library),
+                "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err})
+    for fn, key in ((kern, "device_ms"), (library, "library_device_ms")):
+        targets = [(row, key, 1)] + ([(total, key, times)] if total is not None else [])
+        timer.device_later(fn, *targets)
+    if total is not None:
+        for key in ("ms", "plain_ms", "library_ms"):
+            total[key] += times * row[key]
+        total["bytes"] += times * nbytes
+        total["ops"] += times * nops
+        total["err"] = max(total["err"], err)
+    return row
+
+
+def decode_entry(total, rate, **head):
+    """``total`` turned, in place, into a kernels-line entry led by ``head``
+    (its device times arrive with ``Timer.measure_device``)."""
+    err = total.pop("err")
+    b_ms, b_by = bound_ms(total.pop("bytes"), total.pop("ops"), rate)
+    numbers = dict(total)
+    total.clear()
+    total.update(head)
+    total.update(numbers, max_abs_err=err, bound_ms=b_ms, bound_by=b_by, device_ms_by=DEVICE_MS_BY)
+    return total
 
 
 def prefill_row(timer, body_launches, what, call, plain, library, nbytes, nops, *, rtol=0.0,
@@ -221,46 +340,55 @@ def check_matmuls(torch, timer, mm, ops, quantize, kernels_mod):
         pulses, scales, _ = ops.encode_weight_matrix(w, group=GROUP, k_pulses=GROUP)
         layer.append((pulses, scales))
     rows = []
-    totals = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0, err=0.0)
-              for name in ("pvq_matmul_q", "pvq_matmul")}
-    cases = [(DECODE_M, i) for i in range(len(LAYER_SHAPES))] + [(PREFILL_M, 4)]
-    for m, i in cases:
-        k, n = LAYER_SHAPES[i]
-        pulses, scales = layer[i]
+    totals = {name: _decode_total() for name in ("pvq_matmul_q", "pvq_matmul")}
+    m = DECODE_M
+    for (k, n), (pulses, scales) in zip(LAYER_SHAPES, layer):
         x = torch.randn(m, k, generator=gen, device="cuda")
         x_q, a = quantize(x)
         w_deq = pulses.float() * torch.repeat_interleave(scales, GROUP, dim=0)
-        # v3 at prefill has its own rows below
-        for name in (("pvq_matmul_q", "pvq_matmul") if m == DECODE_M else ("pvq_matmul",)):
-            if name == "pvq_matmul_q":
-                def kern(): return mm.pvq_matmul_q_cuda(x_q, pulses, scales, a, group=GROUP)
-                def plain(): return mm.pvq_matmul_q_plain(x_q, pulses, scales, a, group=GROUP)
-                nbytes = v3_bytes(m, k, n)
-                nops, rate = 2.0 * m * k * n, INT8_OPS_PER_S
-            else:
-                def kern(): return mm.pvq_matmul_cuda(x, pulses, scales, group=GROUP)
-                def plain(): return mm.pvq_matmul_plain(x, pulses, scales, group=GROUP)
-                nbytes = v2_bytes(m, k, n)
-                nops, rate = 2.0 * m * k * n, F64_TC_FLOPS_PER_S
-            # v3 is identical to its plain version by construction; v2's f64
-            # group sums run in another order (the same f32 value unless a
-            # sum lies on an f32 rounding boundary)
-            tol = 0.0 if name == "pvq_matmul_q" else 1e-5
-            err = check_close(f"{name} m{m} k{k} n{n}", kern(), plain(), tol)
-            t_k, t_p = timer(kern), timer(plain)
-            t_lib = timer(lambda: torch.matmul(x, w_deq))
-            b_ms, b_by = bound_ms(nbytes, nops, rate)
-            rows.append({"kernel": name, "m": m, "k": k, "n": n, "ms": t_k, "plain_ms": t_p,
-                         "library_ms": t_lib, "bound_ms": b_ms, "bound_by": b_by,
-                         "max_abs_err": err})
-            if m == DECODE_M:
-                tot = totals[name]
-                tot["ms"] += t_k
-                tot["plain_ms"] += t_p
-                tot["library_ms"] += t_lib
-                tot["bytes"] += nbytes
-                tot["ops"] += nops
-                tot["err"] = max(tot["err"], err)
+        # v3 is identical to its plain version by construction; v2's f64
+        # group sums run in another order (the same f32 value unless a sum
+        # lies on an f32 rounding boundary)
+        for name, kern, plain, nbytes, rate, tol, bodies in (
+            ("pvq_matmul_q", partial(mm.pvq_matmul_q_cuda, x_q, pulses, scales, a, group=GROUP),
+             partial(mm.pvq_matmul_q_plain, x_q, pulses, scales, a, group=GROUP),
+             v3_bytes(m, k, n), INT8_OPS_PER_S, 0.0, kernels_mod.v3_body_launches),
+            ("pvq_matmul", partial(mm.pvq_matmul_cuda, x, pulses, scales, group=GROUP),
+             partial(mm.pvq_matmul_plain, x, pulses, scales, group=GROUP),
+             v2_bytes(m, k, n), F64_TC_FLOPS_PER_S, 1e-5, kernels_mod.v2_body_launches),
+        ):
+            rows.append(decode_row(timer, {"kernel": name, "m": m, "k": k, "n": n}, kern, plain,
+                                   partial(torch.matmul, x, w_deq), nbytes, 2.0 * m * k * n,
+                                   rate, tol=tol, body_launches=bodies, total=totals[name]))
+    # v2 at the prefill FFN shape (v3's prefill rows are below)
+    k, n = LAYER_SHAPES[4]
+    pulses, scales = layer[4]
+    m = PREFILL_M
+    x = torch.randn(m, k, generator=gen, device="cuda")
+    w_deq = pulses.float() * torch.repeat_interleave(scales, GROUP, dim=0)
+    def kern(): return mm.pvq_matmul_cuda(x, pulses, scales, group=GROUP)
+    def plain(): return mm.pvq_matmul_plain(x, pulses, scales, group=GROUP)
+    err = check_close(f"pvq_matmul m{m} k{k} n{n}", kern(), plain(), 1e-5)
+    b_ms, b_by = bound_ms(v2_bytes(m, k, n), 2.0 * m * k * n, F64_TC_FLOPS_PER_S)
+    rows.append({"kernel": "pvq_matmul", "m": m, "k": k, "n": n, "ms": timer(kern),
+                 "plain_ms": timer(plain), "library_ms": timer(lambda: torch.matmul(x, w_deq)),
+                 "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err})
+    del w_deq
+    # v3 at deepseek's 2-D decode shapes, m 4
+    ds_decode = _decode_total()
+    m = DECODE_M
+    for what, k, n in DEEPSEEK_DECODE_SHAPES:
+        pulses = torch.randint(-9, 10, (k, n), generator=gen, device="cuda", dtype=torch.int8)
+        scales = torch.rand(k // GROUP, n, generator=gen, device="cuda") * 0.01
+        x = torch.randn(m, k, generator=gen, device="cuda")
+        x_q, a = quantize(x)
+        w_deq = pulses.float() * torch.repeat_interleave(scales, GROUP, dim=0)
+        rows.append(decode_row(
+            timer, {"kernel": "pvq_matmul_q", "matrix": f"deepseek {what}", "m": m, "k": k, "n": n},
+            partial(mm.pvq_matmul_q_cuda, x_q, pulses, scales, a, group=GROUP),
+            partial(mm.pvq_matmul_q_plain, x_q, pulses, scales, a, group=GROUP),
+            partial(torch.matmul, x, w_deq), v3_bytes(m, k, n), 2.0 * m * k * n, INT8_OPS_PER_S,
+            body_launches=kernels_mod.v3_body_launches, total=ds_decode))
     # v3 and v2 at prefill: one layer's 7 matmuls, then deepseek's lm_head
     prefill = {"smollm_layer_m512": _new_total(), "deepseek_lm_head_m512": _new_total()}
     v2_prefill = {"smollm_layer_m512": _new_total(), "deepseek_lm_head_m512": _new_total()}
@@ -291,16 +419,16 @@ def check_matmuls(torch, timer, mm, ops, quantize, kernels_mod):
     del lm_pulses, lm_scales
     entries = {}
     for name, tot in totals.items():
-        rate = INT8_OPS_PER_S if name == "pvq_matmul_q" else F64_TC_FLOPS_PER_S
-        b_ms, b_by = bound_ms(tot["bytes"], tot["ops"], rate)
-        entries[name] = {
-            "name": name, "route": "cuda", "source": "src/repro_torch/kernels/csrc/pvq_matmul.cu",
-            "replaces": ("src/repro/kernels/pvq_matmul.py:596" if name == "pvq_matmul_q"
-                         else "src/repro/kernels/pvq_matmul.py:229"),
-            "shape": f"one decoder layer's 7 matmuls, m={DECODE_M}, group {GROUP}",
-            "max_abs_err": tot["err"], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": tot["library_ms"],
-        }
+        v3 = name == "pvq_matmul_q"
+        entries[name] = decode_entry(
+            tot, INT8_OPS_PER_S if v3 else F64_TC_FLOPS_PER_S, name=name, route="cuda",
+            source=SPLITK_SOURCE if v3 else "src/repro_torch/kernels/csrc/pvq_matmul.cu",
+            replaces=("src/repro/kernels/pvq_matmul.py:596" if v3
+                      else "src/repro/kernels/pvq_matmul.py:229"),
+            shape=f"one decoder layer's 7 matmuls, m={DECODE_M}, group {GROUP}")
+    entries["pvq_matmul_q"]["decode"] = {"deepseek_2d_m4": decode_entry(
+        ds_decode, INT8_OPS_PER_S, shape="deepseek's 2-D decode matrices: " + ", ".join(
+            f"{what} {k} x {n}" for what, k, n in DEEPSEEK_DECODE_SHAPES) + f", m={DECODE_M}")}
     entries["pvq_matmul_q"]["prefill"] = {
         "smollm_layer_m512": prefill_entry(
             prefill["smollm_layer_m512"],
@@ -334,8 +462,8 @@ def check_attention(torch, timer, mm, quant):
     scale = hd ** -0.5
     args = (q_i8, a, kp, ks, vp, vs, kv_len)
 
-    def kern(): return mm.pvq_attn_q_cuda(*args, group=group, sm_scale=scale)
-    def plain(): return mm.pvq_attn_q_plain(*args, group=group, sm_scale=scale)
+    kern = partial(mm.pvq_attn_q_cuda, *args, group=group, sm_scale=scale)
+    plain = partial(mm.pvq_attn_q_plain, *args, group=group, sm_scale=scale)
 
     err = 0.0
     for name, got, want in zip(("acc", "m", "l"), kern(), plain()):
@@ -347,19 +475,22 @@ def check_attention(torch, timer, mm, quant):
     kd = rows(kp).float() * torch.repeat_interleave(rows(ks), group, dim=-1)
     vd = rows(vp).float() * torch.repeat_interleave(rows(vs), group, dim=-1)
     qf = (q_i8.float() * a)[:, None]
-    t_lib = timer(lambda: torch.nn.functional.scaled_dot_product_attention(qf, kd, vd, scale=scale))
+    library = partial(torch.nn.functional.scaled_dot_product_attention, qf, kd, vd, scale=scale)
     nbytes = bh * m * hd + 4 * bh * m + 2 * bh * s * hd + 2 * 4 * bh * s * ng + 4 * bh \
         + 4 * bh * m * hd + 2 * 4 * bh * m
     nops = 2.0 * 2 * bh * m * s * hd
     b_ms, b_by = bound_ms(nbytes, nops, INT8_OPS_PER_S)
-    return {
+    entry = {
         "name": "pvq_attn_q", "route": "cuda", "source": "src/repro_torch/kernels/csrc/pvq_attn.cu",
         "replaces": "src/repro/kernels/pvq_matmul.py:813",
         "shape": f"BH {bh} (batch {b} x {n_kv} kv heads, cache layout), m {m}, hd {hd}, "
                  f"group {group}, S {s}",
-        "max_abs_err": err, "ms": timer(kern), "plain_ms": timer(plain),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": t_lib,
+        "max_abs_err": err, "ms": timer(kern), "plain_ms": timer(plain), "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": timer(library), "device_ms_by": DEVICE_MS_BY,
     }
+    timer.device_later(kern, (entry, "device_ms", 1))
+    timer.device_later(library, (entry, "library_device_ms", 1))
+    return entry
 
 
 def check_batched(torch, timer, mm, quantize, kernels_mod):
@@ -371,8 +502,7 @@ def check_batched(torch, timer, mm, quantize, kernels_mod):
     values in f32) and the dequantized f32 banks."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     rows = []
-    totals = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0, err=0.0)
-              for name in ("pvq_matmul_q_batched", "pvq_matmul_batched")}
+    totals = {name: _decode_total() for name in ("pvq_matmul_q_batched", "pvq_matmul_batched")}
     prefill = _new_total()
     v2_prefill = {dtype: _new_total() for dtype in (torch.float32, torch.bfloat16)}
     banks = {}
@@ -414,49 +544,31 @@ def check_batched(torch, timer, mm, quantize, kernels_mod):
                                  "x": str(dtype), "m": m, "k": k, "n": n, **row})
                 del w_deq
                 continue
-            for name in ("pvq_matmul_q_batched", "pvq_matmul_batched"):
-                if name == "pvq_matmul_q_batched":
-                    def kern(): return mm.pvq_matmul_q_batched_cuda(x_q, pulses, scales, a, group=GROUP)
-                    def plain(): return mm.pvq_matmul_q_batched_plain(x_q, pulses, scales, a, group=GROUP)
-                    nbytes = v3_bytes(m, k, n, e)
-                    nops, rate = 2.0 * e * m * k * n, INT8_OPS_PER_S
-                else:
-                    def kern(): return mm.pvq_matmul_batched_cuda(x, pulses, scales, group=GROUP)
-                    def plain(): return mm.pvq_matmul_batched_plain(x, pulses, scales, group=GROUP)
-                    nbytes = v2_bytes(m, k, n, e)
-                    nops, rate = 2.0 * e * m * k * n, F64_TC_FLOPS_PER_S
-                tol = 0.0 if name == "pvq_matmul_q_batched" else 1e-5
-                err = check_close(f"{name} E{e} m{m} k{k} n{n}", kern(), plain(), tol)
-                t_k, t_p = timer(kern), timer(plain)
-                t_lib = timer(lambda: torch.bmm(x, w_deq))
-                b_ms, b_by = bound_ms(nbytes, nops, rate)
-                rows.append({"kernel": name, "bank": what, "experts": e, "m": m, "k": k, "n": n,
-                             "ms": t_k, "plain_ms": t_p, "library_ms": t_lib, "bound_ms": b_ms,
-                             "bound_by": b_by, "max_abs_err": err})
-                tot = totals[name]
-                tot["ms"] += times * t_k
-                tot["plain_ms"] += times * t_p
-                tot["library_ms"] += times * t_lib
-                tot["bytes"] += times * nbytes
-                tot["ops"] += times * nops
-                tot["err"] = max(tot["err"], err)
-            del w_deq
+            for name, kern, plain, nbytes, rate, tol, bodies in (
+                ("pvq_matmul_q_batched",
+                 partial(mm.pvq_matmul_q_batched_cuda, x_q, pulses, scales, a, group=GROUP),
+                 partial(mm.pvq_matmul_q_batched_plain, x_q, pulses, scales, a, group=GROUP),
+                 v3_bytes(m, k, n, e), INT8_OPS_PER_S, 0.0, kernels_mod.v3_body_launches),
+                ("pvq_matmul_batched",
+                 partial(mm.pvq_matmul_batched_cuda, x, pulses, scales, group=GROUP),
+                 partial(mm.pvq_matmul_batched_plain, x, pulses, scales, group=GROUP),
+                 v2_bytes(m, k, n, e), F64_TC_FLOPS_PER_S, 1e-5, kernels_mod.v2_body_launches),
+            ):
+                rows.append(decode_row(
+                    timer, {"kernel": name, "bank": what, "experts": e, "m": m, "k": k, "n": n},
+                    kern, plain, partial(torch.bmm, x, w_deq), nbytes, 2.0 * e * m * k * n, rate,
+                    tol=tol, body_launches=bodies, times=times, total=totals[name]))
     entries = {}
     for name, tot in totals.items():
-        rate = INT8_OPS_PER_S if name == "pvq_matmul_q_batched" else F64_TC_FLOPS_PER_S
-        b_ms, b_by = bound_ms(tot["bytes"], tot["ops"], rate)
-        entries[name] = {
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/pvq_matmul_batched.cu",
-            "replaces": ("src/repro/kernels/pvq_matmul.py:619 (pvq_matmul_q_batched), "
-                         "src/repro/kernels/pvq_matmul.py:555 (_kernel_q_dma)"
-                         if name == "pvq_matmul_q_batched"
-                         else "src/repro/kernels/pvq_matmul.py:250"),
-            "shape": f"one MoE layer's expert banks (up, gate, wo), {EXPERTS} experts, "
-                     f"m={MOE_DECODE_M}, group {GROUP}",
-            "max_abs_err": tot["err"], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": tot["library_ms"],
-        }
+        v3 = name == "pvq_matmul_q_batched"
+        entries[name] = decode_entry(
+            tot, INT8_OPS_PER_S if v3 else F64_TC_FLOPS_PER_S, name=name, route="cuda",
+            source=SPLITK_SOURCE if v3 else "src/repro_torch/kernels/csrc/pvq_matmul_batched.cu",
+            replaces=("src/repro/kernels/pvq_matmul.py:619 (pvq_matmul_q_batched), "
+                      "src/repro/kernels/pvq_matmul.py:555 (_kernel_q_dma)"
+                      if v3 else "src/repro/kernels/pvq_matmul.py:250"),
+            shape=f"one MoE layer's expert banks (up, gate, wo), {EXPERTS} experts, "
+                  f"m={MOE_DECODE_M}, group {GROUP}")
     banks_m60 = (f"one MoE layer's expert banks (up, gate, wo), {EXPERTS} experts, "
                  f"m={MOE_PREFILL_M}, group {GROUP}")
     entries["pvq_matmul_q_batched"]["prefill"] = {"moe_layer_m60": prefill_entry(prefill, banks_m60)}
@@ -555,6 +667,27 @@ def v2_direct_above_eight(mm):
         mm._v2_body = inner
 
 
+@contextlib.contextmanager
+def v3_direct_where_splitk_fits(mm):
+    """Counts the kernel v3 calls of at most 8 rows that the body rule sends
+    to the direct body although the splitk body takes their operands (a
+    harness-only wrapper of ``pvq_matmul._v3_body``)."""
+    inner, log = mm._v3_body, {"calls": 0, "shapes": set()}
+
+    def logged(m, k, n, group, x_ptr, w_ptr):
+        body = inner(m, k, n, group, x_ptr, w_ptr)
+        if m <= 8 and body == "direct" and mm._splitk_fits(k, n, group, x_ptr, w_ptr):
+            log["calls"] += 1
+            log["shapes"].add((m, k, n, group))
+        return body
+
+    mm._v3_body = logged
+    try:
+        yield log
+    finally:
+        mm._v3_body = inner
+
+
 class RoutingLog:
     """Records the top-k expert indices of every MoE routing call while
     ``active`` (a harness-only wrapper of ``nn.moe._topk_argmax``), so the
@@ -596,7 +729,8 @@ def serve_full(torch, serve, kernels_mod, mm, enc, quant, routing, argv, *, kvq,
     routing.calls.clear()
     kernels_mod.reset_launches()
     t0 = time.time()
-    with routing.recording(), v2_direct_above_eight(mm) as v2_direct:
+    with routing.recording(), v2_direct_above_eight(mm) as v2_direct, \
+            v3_direct_where_splitk_fits(mm) as v3_direct:
         report, rc, state = serve.run(argv, return_state=True)
     counts = kernels_mod.launches()
     bodies = kernels_mod.v3_body_launches()
@@ -613,6 +747,12 @@ def serve_full(torch, serve, kernels_mod, mm, enc, quant, routing, argv, *, kvq,
     # prefill and the teacher-forced legs run v3 at m > 8: the tensor cores
     if bodies["mma"] <= 0:
         fail(f"full serve never launched v3's mma body: {bodies}")
+    # decode runs v3 at m <= 8: the contraction split over CTAs
+    if bodies["splitk"] <= 0:
+        fail(f"full serve never launched v3's splitk body: {bodies}")
+    if v3_direct["calls"]:
+        fail(f"full serve ran {v3_direct['calls']} v3 calls of at most 8 rows on the direct "
+             f"body where the splitk body fits: {sorted(v3_direct['shapes'])}")
     # the f32 leg's prefill runs v2 at m > 8: the f64 tensor cores
     if v2_bodies["mma"] <= 0:
         fail(f"full serve never launched v2's mma body: {v2_bodies}")
@@ -682,6 +822,49 @@ def serve_reduced(serve, argv):
         fail(f"reduced serve exited {rc}: {report.get('agreement_fail') or report}")
 
 
+def start_ptxas_report(build, nvcc_flags=()):
+    """Starts ``nvcc -Xptxas -v`` on the 2-D kernels' source (a cubin under
+    the build directory), beside the library builds."""
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cmd = [build.nvcc_path(), *build._ARCH, "-std=c++17", "-O3", "-cubin", "-Xptxas", "-v",
+           *nvcc_flags, "-o", str(build.BUILD_DIR / "ptxas_report.cubin"),
+           str(build.CSRC / "pvq_matmul.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def ptxas_report(proc, part="splitk"):
+    """Registers, spills and stack of each kernel whose name holds ``part``,
+    from the ``-Xptxas -v`` lines of ``proc``."""
+    text, _ = proc.communicate()
+    if proc.returncode != 0:
+        fail(f"nvcc -Xptxas -v exited {proc.returncode}:\n{text}")
+    found, name = [], None
+    for line in text.splitlines():
+        hit = re.search(r"Compiling entry function '(\S+)'", line)
+        if hit:
+            name = hit.group(1) if part in hit.group(1) else None
+            if name:
+                found.append({"kernel": name})
+            continue
+        if not name:
+            continue
+        spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            found[-1].update(stack_bytes=int(spill.group(1)), spill_stores=int(spill.group(2)),
+                             spill_loads=int(spill.group(3)))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            found[-1]["registers"] = int(regs.group(1))
+    filt = shutil.which("c++filt")
+    if filt and found:
+        names = subprocess.run([filt], input="\n".join(f["kernel"] for f in found),
+                               capture_output=True, text=True, timeout=60).stdout.splitlines()
+        if len(names) == len(found):
+            for f, demangled in zip(found, names):
+                f["kernel"] = demangled.split("(")[0]
+    return found
+
+
 def main() -> int:
     try:
         import torch
@@ -691,10 +874,18 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
         return 2
-    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+    args = sys.argv[1:]
+    kernels_only = "--kernels-only" in args
+    tree = ROOT
+    if "--tree" in args:
+        if not kernels_only or args.index("--tree") + 1 >= len(args):
+            print("chip_smoke: --tree DIR goes with --kernels-only", file=sys.stderr)
+            return 2
+        tree = Path(args[args.index("--tree") + 1]).resolve()
+    if not (tree / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(tree / "src"))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -712,8 +903,11 @@ def main() -> int:
     from repro_torch.nn import moe
 
     t0 = time.time()
+    ptxas = start_ptxas_report(build)
     build.build_all()
-    print(json.dumps({"phase": "build", "seconds": round(time.time() - t0, 2)}), flush=True)
+    print(json.dumps({"phase": "build", "tree": str(tree), "seconds": round(time.time() - t0, 2)}),
+          flush=True)
+    print(json.dumps({"ptxas_v3_decode_body": ptxas_report(ptxas)}), flush=True)
 
     timer = Timer(torch)
     entries, rows = check_matmuls(torch, timer, mm, ops, quantize_activations, kernels_mod)
@@ -721,10 +915,12 @@ def main() -> int:
     entries["pvq_encode_batch"], enc_rows = check_encode(torch, timer, enc)
     batched, batched_rows = check_batched(torch, timer, mm, quantize_activations, kernels_mod)
     entries.update(batched)
+    timer.measure_device()
     for row in rows + enc_rows + batched_rows:
         print(json.dumps({"kernel_check": row}), flush=True)
     del timer
-    if "--kernels-only" in sys.argv[1:]:
+    if kernels_only:  # the kernels' numbers, without main-path launches
+        print(json.dumps({"kernel_entries": list(entries.values())}), flush=True)
         return 0
 
     routing = RoutingLog(moe)

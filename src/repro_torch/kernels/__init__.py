@@ -4,8 +4,9 @@
 one where it launches its kernel and nowhere else, so a run can show that
 its main path went through the kernels.  ``V3_BODY_LAUNCHES`` splits kernel
 v3's launches (2-D and batched together) by the body that ran:
-``"ring"`` (m <= 8), ``"mma"`` (int8 tensor cores, m > 8) or ``"direct"``
-(the ragged rest); see ``pvq_matmul._v3_body``.  ``V2_BODY_LAUNCHES`` does
+``"splitk"`` (m <= 8: the contraction split over CTAs), ``"mma"`` (int8
+tensor cores, m > 8) or ``"direct"`` (the ragged rest); see
+``pvq_matmul._v3_body``.  ``V2_BODY_LAUNCHES`` does
 the same for kernel v2: ``"mma"`` (f64 tensor cores, m > 8) or ``"direct"``
 (f64 FMAs on the CUDA cores: m <= 8 and the ragged rest); see
 ``pvq_matmul._v2_body``.
@@ -23,7 +24,7 @@ LAUNCHES: Dict[str, int] = {
 }
 
 
-V3_BODY_LAUNCHES: Dict[str, int] = {"ring": 0, "direct": 0, "mma": 0}
+V3_BODY_LAUNCHES: Dict[str, int] = {"splitk": 0, "direct": 0, "mma": 0}
 V2_BODY_LAUNCHES: Dict[str, int] = {"direct": 0, "mma": 0}
 
 

@@ -42,11 +42,13 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "pvq_matmul": {
         "pvq_matmul_launch": ([_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P], _I),
-        "pvq_matmul_q_launch": ([_P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P], _I),
+        "pvq_matmul_q_launch": ([_P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+                                 _I, _I, _I, _P, _P, _P], _I),
     },
     "pvq_matmul_batched": {
         "pvq_matmul_batched_launch": ([_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
-        "pvq_matmul_q_batched_launch": ([_P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+        "pvq_matmul_q_batched_launch": ([_P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I,
+                                         _I, _I, _I, _P, _P, _P], _I),
     },
     "pvq_attn": {
         "pvq_attn_q_smem_bytes": ([_I, _I, _I], ctypes.c_size_t),

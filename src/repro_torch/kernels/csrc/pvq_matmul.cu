@@ -4,9 +4,9 @@
 //   * src/repro/kernels/pvq_matmul.py:pvq_matmul_q (kernel v3: _kernel_q /
 //     _kernel_q_bias with _contract_int8_q and _q_epilogue).  Its TPU-only
 //     DMA body _kernel_q_dma streams the pulse operand through a 2-slot
-//     VMEM ring; the body v3 shares with the batched v3
-//     (pvq_matmul_common.cuh, pvq_matmul_q_kernel) carries that streaming
-//     as a 2-stage cp.async ring, so the 2-D route streams its pulses too;
+//     VMEM ring; the decode body v3 shares with the batched v3
+//     (pvq_matmul_splitk.cuh) requests each CTA's pulse tile up front with
+//     cp.async, so the 2-D route streams its pulses too;
 //   * src/repro/kernels/pvq_matmul.py:pvq_matmul (kernel v2: _kernel /
 //     _kernel_bias with _accumulate_int8); its body is shared with the
 //     batched v2 in pvq_matmul_common.cuh.
@@ -20,13 +20,16 @@
 // k 1024, n 2560 the call moves 8.4 MB, mostly its f32 output (2.5 us at
 // the card's memory rate), against 1.4 us of int8 tensor-core operations.
 // v3 has three bodies, all exact in their int32 group sums, chosen per call
-// by the wrapper (kernels/pvq_matmul.py:_v3_body): at m <= 8 the ring body
-// (pvq_matmul_common.cuh, pvq_matmul_q_kernel: a CTA owns 32 columns and 8
-// rows, its 8 warps split each group's contraction in 4-row __dp4a chunks,
-// the pulse tiles staged through a cp.async ring); at m > 8 the int8
+// by the wrapper (kernels/pvq_matmul.py:_v3_body): at m <= 8 the splitk
+// body (pvq_matmul_splitk.cuh: the contraction split over CTAs of 64
+// columns x a k chunk, int32 partials summed by the last CTA of each column
+// block, __dp4a on operands transposed in registers) when G % 4 == 0,
+// n % 16 == 0 and the pulses are 16-byte aligned; at m > 8 the int8
 // tensor-core body (pvq_matmul_mma.cuh: mma.sync m16n8k32 on 64 x 128
 // tiles) when G % 32 == 0, n % 16 == 0 and the rows are 16-byte aligned;
-// the same __dp4a body reading W straight from global memory otherwise.
+// the direct body (pvq_matmul_common.cuh: 8 rows x 32 columns a CTA, 8
+// warps splitting each group in 4-row __dp4a chunks, W read straight from
+// global memory) otherwise.
 // v2 has two bodies, chosen per call by the wrapper (kernels/pvq_matmul.py:
 // _v2_body): at m > 8 the f64 tensor-core body (pvq_matmul_f_mma.cuh:
 // mma.sync m16n8k4 .f64 on 64 x 64 tiles) when G % 16 == 0, n % 16 == 0
@@ -47,14 +50,18 @@
 using namespace pvq;
 
 // out_bf16: 0 -> f32 output, 1 -> bf16 output.
-// body: 0 -> ring, 1 -> direct, 2 -> mma (pvq_matmul_mma.cuh, Body).
+// body: 0 -> splitk, 1 -> direct, 2 -> mma (pvq_matmul_mma.cuh, Body);
+// cols, chunk, splits, part and counters: the splitk body's plan, int32
+// scratch and arrival counters (ignored by the others).
 extern "C" int pvq_matmul_q_launch(const int8_t* x, const int8_t* w,
                                    const float* rho, const float* a, int a_mode,
                                    const float* bias, int act, void* out,
                                    int out_bf16, int m, int k, int n, int G,
-                                   int body, void* stream) {
-  return launch_q_stack(x, w, rho, a, a_mode, bias, act, out, out_bf16, 1, m, k, n, G, body,
-                        (cudaStream_t)stream);
+                                   int body, int cols, int chunk, int splits, int* part,
+                                   unsigned* counters, void* stream) {
+  return launch_q_stack<OneMatrix>(x, w, rho, a, a_mode, bias, act, out, out_bf16, 1, m, k, n,
+                                   G, body, cols, chunk, splits, part, counters,
+                                   (cudaStream_t)stream);
 }
 
 // x_bf16: 0 -> x and out are f32, 1 -> x and out are bf16.

@@ -23,8 +23,10 @@
 // the expert; its base pointers come from the strides), so one launch
 // covers every expert.  Both kernels are the 2-D ones, launched over the
 // stack.  v3 takes the body the wrapper picks (kernels/pvq_matmul.py:
-// _v3_body): at decode (m <= 8) the __dp4a body whose 2-stage cp.async ring
-// of pulse tiles stands in for the DMA body's streaming; at prefill the
+// _v3_body): at decode (m <= 8) the splitk body (pvq_matmul_splitk.cuh),
+// whose up-front cp.async requests of each CTA's pulse tile stand in for
+// the DMA body's streaming (at 64 experts the column blocks fill the card,
+// so the plan does not split k); at prefill the
 // int8 tensor-core body (pvq_matmul_mma.cuh), whose 64-row tiles hold an
 // expert's 60 dispatch rows in one row block, so each pulse byte is read
 // from device memory once.  Every body is bit-identical to
@@ -46,10 +48,12 @@ using namespace pvq;
 extern "C" int pvq_matmul_q_batched_launch(const int8_t* x, const int8_t* w, const float* rho,
                                            const float* a, int a_mode, int act, void* out,
                                            int out_bf16, int e, int m, int k, int n, int G,
-                                           int body, void* stream) {
+                                           int body, int cols, int chunk, int splits, int* part,
+                                           unsigned* counters, void* stream) {
   if (a_mode != kPerRow && a_mode != kPerTile) return (int)cudaErrorInvalidValue;
-  return launch_q_stack(x, w, rho, a, a_mode, nullptr, act, out, out_bf16, e, m, k, n, G, body,
-                        (cudaStream_t)stream);
+  return launch_q_stack<ExpertStack>(x, w, rho, a, a_mode, nullptr, act, out, out_bf16, e, m, k,
+                                     n, G, body, cols, chunk, splits, part, counters,
+                                     (cudaStream_t)stream);
 }
 
 // Batched kernel v2 over E experts: x and out (E, m, k) / (E, m, n), f32

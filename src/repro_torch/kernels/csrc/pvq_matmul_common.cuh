@@ -50,16 +50,25 @@ __device__ __forceinline__ int pack_w4(const int8_t* wp, size_t n) {
   return (int)(b0 | (b1 << 8) | (b2 << 16) | (b3 << 24));
 }
 
+// The epilogue on loaded values: act scale (a_row: per row or scalar),
+// bias (when has_bias), activation, store.
+template <typename OutT>
+__device__ __forceinline__ void finish(float acc, float a_row, int a_mode, bool has_bias,
+                                       float b, int act, OutT* p) {
+  float y = acc;
+  if (a_mode == kPerRow || a_mode == kScalar) y = __fmul_rn(y, a_row);
+  if (has_bias) y = __fadd_rn(y, b);
+  store(p, activation(y, act));
+}
+
 // Epilogue: act scale (per row or scalar), bias, activation, store.
 template <typename OutT>
 __device__ __forceinline__ void epilogue(float acc, int orow, int col, int n,
                                          const float* a, int a_mode,
                                          const float* bias, int act, OutT* out) {
-  float y = acc;
-  if (a_mode == kPerRow) y = __fmul_rn(y, a[orow]);
-  else if (a_mode == kScalar) y = __fmul_rn(y, a[0]);
-  if (bias) y = __fadd_rn(y, bias[col]);
-  store(out + (size_t)orow * n + col, activation(y, act));
+  const float a_row = a_mode == kPerRow ? a[orow] : a_mode == kScalar ? a[0] : 1.f;
+  finish(acc, a_row, a_mode, bias != nullptr, bias ? bias[col] : 0.f, act,
+         out + (size_t)orow * n + col);
 }
 
 // Kernel v2 (float x).  Matrix blockIdx.z of a stack starts sx / sw / ss /
@@ -174,36 +183,23 @@ inline int launch_f(const void* x, const int8_t* w, const float* rho, const floa
   return (int)cudaGetLastError();
 }
 
+
 // ------------------------------------------------------------ v3 (int8 x)
 //
-// Kernel v3, for one matrix (gridDim.z = 1) or a stack of expert matrices
-// (blockIdx.z is the matrix; its base pointers come from the strides).  8
-// warps split each group's k range in 4-row __dp4a chunks and their int32
-// partials are summed exactly in shared memory before the group's one
-// __fmul_rn by rho; every float step is a separately rounded __fmul_rn /
-// __fadd_rn in the plain version's order, so the result is bit-identical
-// to the plain version.  A group not divisible by 4 contracts one k row at
-// a time.
-//
-// The pulses reach the contraction one of two ways (kW):
-//   * kRingAsync / kRingBytes: each group's pulse tile (G rows x 32
-//     columns, 8 KB at G = 256) is staged into shared memory through a
-//     2-stage ring while the previous group contracts -- the streaming of
-//     the TPU's DMA body _kernel_q_dma.  kRingAsync fills it with 16-byte
-//     cp.async.cg copies (commit_group / wait_group; a chunk past n is
-//     zero-filled by the copy, src-size 0); kRingBytes, for pulse rows that
-//     are not a multiple of 16 bytes, with plain byte loads.  The ring takes
-//     2 * G * 32 bytes of shared memory, so G is at most ~3,400 (the launch
-//     fails above).
-//   * kDirect: each lane reads its column's pulse bytes straight from
-//     global memory (32-byte coalesced rows).
-// The wrapper (kernels/pvq_matmul.py:_v3_body) takes the ring when one CTA
-// covers every row (m <= 8: each tile is read by one CTA, decode), the
-// tensor-core body of pvq_matmul_mma.cuh at m > 8 when the shape allows it
-// (prefill), and kDirect for the ragged rest, where the ring measured
-// slower (PERF.md).
-
-enum WPath { kDirect = 0, kRingAsync = 1, kRingBytes = 2 };
+// Kernel v3's direct body, for one matrix (gridDim.z = 1) or a stack of
+// expert matrices (blockIdx.z is the matrix; its base pointers come from
+// the strides).  A CTA owns 32 columns (one per lane) and 8 rows; its 8
+// warps split each group's k range in 4-row __dp4a chunks, each lane
+// reading its column's pulse bytes straight from global memory (32-byte
+// coalesced rows), and their int32 partials are summed exactly in shared
+// memory before the group's one __fmul_rn by rho; every float step is a
+// separately rounded __fmul_rn / __fadd_rn in the plain version's order, so
+// the result is bit-identical to the plain version.  A group not divisible
+// by 4 contracts one k row at a time.  The wrapper
+// (kernels/pvq_matmul.py:_v3_body) takes it for the ragged shapes the
+// splitk body (m <= 8, pvq_matmul_splitk.cuh) and the tensor-core body
+// (m > 8, pvq_matmul_mma.cuh) do not take.  The Route tag only names the
+// instance (see pvq_matmul_splitk.cuh).
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -220,43 +216,28 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
 }
 
-// Stage group g's pulse tile, rows [gG, (g+1)G) x columns [col0, col0+32),
-// into one ring slot laid out (G, 32).  kRingAsync needs n % 16 == 0 and a
-// 16-byte aligned w: each 32-byte row is two cp.async chunks, a chunk past
-// n zero-filled.  kRingBytes: plain byte loads, zero past n.
-template <int kW>
-__device__ __forceinline__ void stage_tile(int8_t* slot, const int8_t* w, int g, int G,
-                                           int col0, int n) {
-  if (kW == kDirect) return;
-  const int8_t* src = w + (size_t)g * G * n + col0;
-  if (kW == kRingAsync) {
-    for (int i = threadIdx.x; i < 2 * G; i += kWarps * 32) {
-      const int r = i >> 1, h = i & 1;
-      const bool live = col0 + 16 * h < n;
-      cp_async16(slot + r * kCols + 16 * h, live ? src + (size_t)r * n + 16 * h : w, live ? 16 : 0);
-    }
-    cp_async_commit();
-  } else {
-    for (int i = threadIdx.x; i < G * kCols; i += kWarps * 32) {
-      const int r = i / kCols, c = i % kCols;
-      slot[i] = (col0 + c < n) ? src[(size_t)r * n + c] : (int8_t)0;
-    }
-  }
+// w[r] holds k row r of 4 adjacent columns (byte j = column j); o[j] gets
+// column j of the 4 rows (byte r = k row r): a 4 x 4 byte transpose.
+__device__ __forceinline__ void transpose4x4(const uint32_t (&w)[4], uint32_t (&o)[4]) {
+  const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140);  // r0c0 r1c0 r0c1 r1c1
+  const uint32_t t1 = __byte_perm(w[0], w[1], 0x7362);  // r0c2 r1c2 r0c3 r1c3
+  const uint32_t t2 = __byte_perm(w[2], w[3], 0x5140);
+  const uint32_t t3 = __byte_perm(w[2], w[3], 0x7362);
+  o[0] = __byte_perm(t0, t2, 0x5410);
+  o[1] = __byte_perm(t0, t2, 0x7632);
+  o[2] = __byte_perm(t1, t3, 0x5410);
+  o[3] = __byte_perm(t1, t3, 0x7632);
 }
 
-// Occupancy per path (the registers the compiler may take): the direct
-// path at 5 CTAs an SM (<= 51 registers), the ring at 3 (<= 85); left
-// free, it took 64 and 91-96 and ran 17% and 40% slower (PERF.md).
-template <int kW, bool kDp4a, typename OutT>
-__global__ void __launch_bounds__(kWarps * 32, kW == kDirect ? 5 : 3)
+// 5 CTAs an SM (<= 51 registers): left free it took 64 and ran 17% slower
+// (PERF.md).
+template <class Route, bool kDp4a, typename OutT>
+__global__ void __launch_bounds__(kWarps * 32, 5)
 pvq_matmul_q_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                     const float* __restrict__ rho, const float* __restrict__ a,
                     int a_mode, const float* __restrict__ bias, int act,
                     OutT* __restrict__ out, int m, int k, int n, int G) {
-  extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int red[kWarps][kRows][kCols];
-  constexpr bool kRing = kW != kDirect;
-  int8_t* ring = reinterpret_cast<int8_t*>(smem);  // [2][G][32] when kRing
   const int ng = k / G;
   const size_t e = blockIdx.z;
   x += e * m * k;
@@ -265,29 +246,14 @@ pvq_matmul_q_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   a += a_mode == kPerTile ? e * m * ng : a_mode == kPerRow ? e * m : 0;
   out += e * m * n;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int col0 = blockIdx.x * kCols;
-  const int col = col0 + lane;
+  const int col = blockIdx.x * kCols + lane;
   const int row0 = blockIdx.y * kRows;
   const int orow = row0 + warp;
   const bool colok = col < n;
   const int rows = min(kRows, m - row0);
-  const int tile = G * kCols;
 
-  stage_tile<kW>(ring, w, 0, G, col0, n);
   float acc = 0.f;
   for (int g = 0; g < ng; ++g) {
-    const int8_t* wt = ring + (g & 1) * tile;
-    if (kRing) {
-      if (g + 1 < ng) {
-        // the other slot was last read in group g - 1, behind its final barrier
-        stage_tile<kW>(ring + ((g + 1) & 1) * tile, w, g + 1, G, col0, n);
-        if (kW == kRingAsync) cp_async_wait<1>();  // group g landed; g + 1 stays in flight
-      } else if (kW == kRingAsync) {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-    }
-
     int part[kRows];
 #pragma unroll
     for (int r = 0; r < kRows; ++r) part[r] = 0;
@@ -295,8 +261,7 @@ pvq_matmul_q_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     if (kDp4a) {
 #pragma unroll 4
       for (int c = warp; c < G / 4; c += kWarps) {
-        const int wv = kRing ? pack_w4(wt + 4 * c * kCols + lane, kCols)
-                             : colok ? pack_w4(w + (size_t)(kbeg + 4 * c) * n + col, (size_t)n) : 0;
+        const int wv = colok ? pack_w4(w + (size_t)(kbeg + 4 * c) * n + col, (size_t)n) : 0;
 #pragma unroll
         for (int r = 0; r < kRows; ++r) {
           if (r < rows) {
@@ -307,8 +272,7 @@ pvq_matmul_q_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
       }
     } else {
       for (int kk = warp; kk < G; kk += kWarps) {
-        const int wv = kRing ? (int)wt[kk * kCols + lane]
-                             : colok ? (int)w[(size_t)(kbeg + kk) * n + col] : 0;
+        const int wv = colok ? (int)w[(size_t)(kbeg + kk) * n + col] : 0;
 #pragma unroll
         for (int r = 0; r < kRows; ++r)
           if (r < rows) part[r] += (int)x[(size_t)(row0 + r) * k + kbeg + kk] * wv;
@@ -330,36 +294,18 @@ pvq_matmul_q_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   if (orow < m && colok) epilogue(acc, orow, col, n, a, a_mode, bias, act, out);
 }
 
-template <int kW, bool kDp4a, typename OutT>
-int launch_q(const int8_t* x, const int8_t* w, const float* rho, const float* a, int a_mode,
-             const float* bias, int act, OutT* out, int e, int m, int k, int n, int G,
-             cudaStream_t s) {
-  const size_t smem = kW == kDirect ? 0 : (size_t)2 * G * kCols;  // the ring
-  auto* fn = pvq_matmul_q_kernel<kW, kDp4a, OutT>;
-  if (smem + sizeof(int) * kWarps * kRows * kCols > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  fn<<<grid_for(m, n, e), kWarps * 32, smem, s>>>(x, w, rho, a, a_mode, bias, act, out, m, k, n, G);
+template <class Route, typename OutT>
+int launch_q_direct(const int8_t* x, const int8_t* w, const float* rho, const float* a,
+                    int a_mode, const float* bias, int act, OutT* out, int e, int m, int k,
+                    int n, int G, cudaStream_t s) {
+  const dim3 grid = grid_for(m, n, e), block(kWarps * 32);
+  if (G % 4 == 0)
+    pvq_matmul_q_kernel<Route, true><<<grid, block, 0, s>>>(x, w, rho, a, a_mode, bias, act, out,
+                                                            m, k, n, G);
+  else
+    pvq_matmul_q_kernel<Route, false><<<grid, block, 0, s>>>(x, w, rho, a, a_mode, bias, act, out,
+                                                             m, k, n, G);
   return (int)cudaGetLastError();
-}
-
-// The ring (direct = false) or the direct body of pvq_matmul_q_kernel; the
-// ring fills by cp.async when the pulse rows allow 16-byte copies.
-template <typename OutT>
-int dispatch_q(const int8_t* x, const int8_t* w, const float* rho, const float* a, int a_mode,
-               const float* bias, int act, OutT* out, int e, int m, int k, int n, int G,
-               bool direct, cudaStream_t s) {
-  const int path = direct ? kDirect
-                   : n % 16 == 0 && ((uintptr_t)w & 15) == 0 ? kRingAsync : kRingBytes;
-#define PVQ_LAUNCH_Q(W)                                                                  \
-  return G % 4 == 0 ? launch_q<W, true>(x, w, rho, a, a_mode, bias, act, out, e, m, k, n, G, s) \
-                    : launch_q<W, false>(x, w, rho, a, a_mode, bias, act, out, e, m, k, n, G, s)
-  if (path == kDirect) PVQ_LAUNCH_Q(kDirect);
-  if (path == kRingAsync) PVQ_LAUNCH_Q(kRingAsync);
-  PVQ_LAUNCH_Q(kRingBytes);
-#undef PVQ_LAUNCH_Q
 }
 
 }  // namespace pvq

@@ -47,7 +47,7 @@
 
 #pragma once
 
-#include "pvq_matmul_common.cuh"
+#include "pvq_matmul_splitk.cuh"
 
 namespace pvq {
 
@@ -74,23 +74,10 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// w[r] holds k row r of 4 adjacent columns (byte j = column j); o[j] gets
-// column j of the 4 rows (byte r = k row r): a 4 x 4 byte transpose.
-__device__ __forceinline__ void transpose4x4(const uint32_t (&w)[4], uint32_t (&o)[4]) {
-  const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140);  // r0c0 r1c0 r0c1 r1c1
-  const uint32_t t1 = __byte_perm(w[0], w[1], 0x7362);  // r0c2 r1c2 r0c3 r1c3
-  const uint32_t t2 = __byte_perm(w[2], w[3], 0x5140);
-  const uint32_t t3 = __byte_perm(w[2], w[3], 0x7362);
-  o[0] = __byte_perm(t0, t2, 0x5410);
-  o[1] = __byte_perm(t0, t2, 0x7632);
-  o[2] = __byte_perm(t1, t3, 0x5410);
-  o[3] = __byte_perm(t1, t3, 0x7632);
-}
-
 // 16-byte chunk slot of chunk c in staged pulse row r
 __device__ __forceinline__ int pulse_chunk(int r, int c) { return c ^ (((r >> 2) & 3) << 1); }
 
-template <int kBK, typename OutT>
+template <class Route, int kBK, typename OutT>
 __global__ void __launch_bounds__(kMmaWarps * 32, 2)
 pvq_matmul_q_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                         const float* __restrict__ rho, const float* __restrict__ a,
@@ -245,12 +232,12 @@ pvq_matmul_q_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__
     }
 }
 
-template <int kBK, typename OutT>
+template <class Route, int kBK, typename OutT>
 int launch_q_mma(const int8_t* x, const int8_t* w, const float* rho, const float* a, int a_mode,
                  const float* bias, int act, OutT* out, int e, int m, int k, int n, int G,
                  cudaStream_t s) {
   constexpr size_t smem = (size_t)kMmaStages * (kMmaBM * (kBK + kMmaXPad) + kBK * kMmaBN);
-  auto* fn = pvq_matmul_q_mma_kernel<kBK, OutT>;
+  auto* fn = pvq_matmul_q_mma_kernel<Route, kBK, OutT>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -262,17 +249,21 @@ int launch_q_mma(const int8_t* x, const int8_t* w, const float* rho, const float
 }
 
 // Kernel v3's bodies; the caller picks one (kernels/pvq_matmul.py:_v3_body).
-enum Body { kBodyRing = 0, kBodyDirect = 1, kBodyMma = 2 };
+enum Body { kBodySplitK = 0, kBodyDirect = 1, kBodyMma = 2 };
 
 // Launch kernel v3 over `stack` matrices of (m, k) x (k, n), packed one
 // after another, with the given body: a is per row (a_mode 0, m values per
 // matrix), per tile (a_mode 2, m * k/G per matrix) or one scalar shared by
 // all (a_mode 1); bias (n) is shared; out is f32 (out_bf16 = 0) or bf16
 // (out_bf16 = 1).  The mma body needs G % 32 == 0, n % 16 == 0 and 16-byte
-// aligned x, w and rho; the launch fails otherwise.
-inline int launch_q_stack(const int8_t* x, const int8_t* w, const float* rho, const float* a,
-                          int a_mode, const float* bias, int act, void* out, int out_bf16,
-                          int stack, int m, int k, int n, int G, int body, cudaStream_t s) {
+// aligned x, w and rho; the splitk body takes the plan (cols, chunk,
+// splits), its int32 scratch and counters (launch_q_splitk says what it
+// needs); the launch fails otherwise.  Route names the instances.
+template <class Route>
+int launch_q_stack(const int8_t* x, const int8_t* w, const float* rho, const float* a,
+                   int a_mode, const float* bias, int act, void* out, int out_bf16, int stack,
+                   int m, int k, int n, int G, int body, int cols, int chunk, int splits,
+                   int* part, unsigned* counters, cudaStream_t s) {
   if (stack <= 0 || m <= 0 || n <= 0) return 0;
   if (G <= 0 || k % G || (a_mode != kPerRow && a_mode != kScalar && a_mode != kPerTile))
     return (int)cudaErrorInvalidValue;
@@ -281,21 +272,28 @@ inline int launch_q_stack(const int8_t* x, const int8_t* w, const float* rho, co
       return (int)cudaErrorInvalidValue;
 #define PVQ_LAUNCH_MMA(OutT)                                                                \
   return G % 64 == 0                                                                       \
-             ? launch_q_mma<64>(x, w, rho, a, a_mode, bias, act, static_cast<OutT*>(out),  \
-                                stack, m, k, n, G, s)                                      \
-             : launch_q_mma<32>(x, w, rho, a, a_mode, bias, act, static_cast<OutT*>(out),  \
-                                stack, m, k, n, G, s)
+             ? launch_q_mma<Route, 64>(x, w, rho, a, a_mode, bias, act,                    \
+                                       static_cast<OutT*>(out), stack, m, k, n, G, s)      \
+             : launch_q_mma<Route, 32>(x, w, rho, a, a_mode, bias, act,                    \
+                                       static_cast<OutT*>(out), stack, m, k, n, G, s)
     if (out_bf16) PVQ_LAUNCH_MMA(__nv_bfloat16);
     PVQ_LAUNCH_MMA(float);
 #undef PVQ_LAUNCH_MMA
   }
-  if (body != kBodyRing && body != kBodyDirect) return (int)cudaErrorInvalidValue;
-  const bool direct = body == kBodyDirect;
+  if (body == kBodySplitK) {
+    if (out_bf16)
+      return launch_q_splitk<Route>(x, w, rho, a, a_mode, bias, act,
+                                    static_cast<__nv_bfloat16*>(out), stack, m, k, n, G, cols,
+                                    chunk, splits, part, counters, s);
+    return launch_q_splitk<Route>(x, w, rho, a, a_mode, bias, act, static_cast<float*>(out),
+                                  stack, m, k, n, G, cols, chunk, splits, part, counters, s);
+  }
+  if (body != kBodyDirect) return (int)cudaErrorInvalidValue;
   if (out_bf16)
-    return dispatch_q(x, w, rho, a, a_mode, bias, act, static_cast<__nv_bfloat16*>(out),
-                      stack, m, k, n, G, direct, s);
-  return dispatch_q(x, w, rho, a, a_mode, bias, act, static_cast<float*>(out), stack, m, k, n,
-                    G, direct, s);
+    return launch_q_direct<Route>(x, w, rho, a, a_mode, bias, act,
+                                  static_cast<__nv_bfloat16*>(out), stack, m, k, n, G, s);
+  return launch_q_direct<Route>(x, w, rho, a, a_mode, bias, act, static_cast<float*>(out), stack,
+                                m, k, n, G, s);
 }
 
 }  // namespace pvq

@@ -14,7 +14,8 @@ contract in int64.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -23,7 +24,7 @@ from . import build
 
 ACTIVATIONS = ("none", "relu", "relu2", "gelu", "silu")
 #: kernel v3's bodies, in the C launchers' numbering
-V3_BODIES = ("ring", "direct", "mma")
+V3_BODIES = ("splitk", "direct", "mma")
 #: kernel v2's bodies, in the C launchers' numbering
 V2_BODIES = ("direct", "mma")
 
@@ -248,22 +249,29 @@ def _mma_fits(k: int, n: int, group: int, x_ptr: int, w_ptr: int) -> bool:
             and x_ptr % 16 == 0 and w_ptr % 16 == 0)
 
 
+def _splitk_fits(k: int, n: int, group: int, x_ptr: int, w_ptr: int) -> bool:
+    """Whether the splitk body takes the operands: 4-row __dp4a steps inside
+    a group, 16-byte pulse pieces (n % 16 == 0, aligned pulses) and 4-byte
+    x words."""
+    return group % 4 == 0 and n % 16 == 0 and w_ptr % 16 == 0 and x_ptr % 4 == 0
+
+
 def _v3_body(m: int, k: int, n: int, group: int, x_ptr: int, w_ptr: int) -> str:
     """Which body of kernel v3 contracts ``m`` rows (per expert) of ``(m, k)
-    x (k, n)``: ``"ring"`` when one 8-row CTA covers every row (m <= 8,
-    decode: the pulses streamed through a ``cp.async`` ring), ``"mma"``
-    (int8 tensor cores on 64 x 128 tiles) above that when the operands fit
-    it, ``"direct"`` (``__dp4a`` reading the pulses from global memory)
-    otherwise.  Every body is bit-identical to the plain version."""
+    x (k, n)``: at m <= 8 (decode) ``"splitk"`` (the contraction split over
+    CTAs, see :func:`_v3_decode_plan`) when the operands fit it, above that
+    ``"mma"`` (int8 tensor cores on 64 x 128 tiles) when they fit it, and
+    ``"direct"`` (``__dp4a`` reading the pulses from global memory) for the
+    ragged rest.  Every body is bit-identical to the plain version."""
     if m <= 8:
-        return "ring"
+        return "splitk" if _splitk_fits(k, n, group, x_ptr, w_ptr) else "direct"
     return "mma" if _mma_fits(k, n, group, x_ptr, w_ptr) else "direct"
 
 
 def _pick_body(body: Optional[str], m, k, n, group, xc, wc) -> str:
     """The rule's body, or ``body`` where a caller names one (the checks
-    that compare bodies on the card); the mma body is refused where the
-    operands do not fit it."""
+    that compare bodies on the card); the mma and splitk bodies are refused
+    where the operands do not fit them."""
     if body is None:
         return _v3_body(m, k, n, group, xc.data_ptr(), wc.data_ptr())
     if body not in V3_BODIES:
@@ -271,7 +279,71 @@ def _pick_body(body: Optional[str], m, k, n, group, xc, wc) -> str:
     if body == "mma" and not _mma_fits(k, n, group, xc.data_ptr(), wc.data_ptr()):
         raise ValueError(f"the mma body needs group % 32 == 0 and n % 16 == 0 "
                          f"(k {k}, n {n}, group {group})")
+    if body == "splitk" and (m > 8 or not _splitk_fits(k, n, group, xc.data_ptr(), wc.data_ptr())):
+        raise ValueError(f"the splitk body needs m <= 8, group % 4 == 0 and n % 16 == 0 "
+                         f"(m {m}, k {k}, n {n}, group {group})")
     return body
+
+
+#: SMs of the H100 SXM; the splitk plan aims at two CTAs on each
+SPLITK_SMS = 132
+SPLITK_TARGET_CTAS = 2 * SPLITK_SMS
+#: output columns of a splitk CTA (64-byte pulse rows per request)
+SPLITK_COLS = 64
+
+
+@functools.lru_cache(maxsize=None)
+def _v3_decode_plan(e: int, m: int, k: int, n: int, group: int) -> Tuple[int, int, int]:
+    """``(cols, chunk, splits)`` of the splitk body for ``e`` matrices of
+    ``(m, k) x (k, n)``: CTAs of ``cols`` columns, each contracting ``chunk``
+    k rows; ``splits = k // chunk``.  Where the column blocks alone reach
+    ``SPLITK_TARGET_CTAS`` (the 64-expert banks, a wide ``lm_head``), k is
+    not split (``chunk == k``).  Otherwise the chunk is the largest divisor
+    of the group, a multiple of 4, that reaches the target, but no smaller
+    than ``max(32, 16 m)`` rows (the int32 partials, written and read back,
+    stay at most half the pulse bytes), or the group where that floor
+    exceeds it."""
+    cols = SPLITK_COLS
+    tiles = e * -(-n // cols)
+    if tiles >= SPLITK_TARGET_CTAS:
+        return cols, k, 1
+    floor = min(max(32, 16 * m), group)
+    chunks = [d for d in range(group, 3, -1) if group % d == 0 and d % 4 == 0 and d >= floor]
+    chunk = next((d for d in chunks if tiles * (k // d) >= SPLITK_TARGET_CTAS), chunks[-1])
+    return cols, chunk, k // chunk
+
+
+# (device index, stream) -> the splitk body's arrival counters, zero between
+# calls: the last CTA of each column block resets its counter.  Two launches
+# running at once on one buffer would corrupt each other, so the buffer is
+# per stream; a call splits k only below SPLITK_TARGET_CTAS column blocks, so
+# that many counters serve every call.  A CUDA graph keeps the address of
+# its capture stream's buffer: it must not replay while another launch on
+# that buffer runs (an eager call on the capture stream, or a replay of
+# another graph captured there).
+_SPLITK_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _splitk_buffers(body: str, e: int, m: int, k: int, n: int, group: int,
+                    device: torch.device, stream: int):
+    """The splitk body's plan ``(cols, chunk, splits)``, a ``torch.empty``
+    int32 scratch for its partials and the stream's counters (both None
+    where the plan does not split k); zeros and None for the other bodies."""
+    if body != "splitk":
+        return (0, 0, 0), None, None
+    plan = _v3_decode_plan(e, m, k, n, group)
+    if plan[2] == 1:
+        return plan, None, None
+    counters = _SPLITK_COUNTERS.get((device.index, stream))
+    if counters is None:
+        counters = torch.zeros(SPLITK_TARGET_CTAS, dtype=torch.int32, device=device)
+        _SPLITK_COUNTERS[(device.index, stream)] = counters
+    scratch = torch.empty(e * plan[2] * m * n, dtype=torch.int32, device=device)
+    return plan, scratch, counters
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 def pvq_matmul_q_cuda(
@@ -293,12 +365,14 @@ def pvq_matmul_q_cuda(
     ac = _cuda_operand(act_scale, torch.float32, "act_scale")
     bc = None if bias is None else _cuda_operand(bias, torch.float32, "bias")
     body = _pick_body(_body, m, k, n, group, xc, wc)
+    stream = _stream(x_q)
+    plan, scratch, counters = _splitk_buffers(body, 1, m, k, n, group, x_q.device, stream)
     out = torch.empty((m, n), dtype=out_dtype, device=x_q.device)
     status = build.launcher("pvq_matmul_q_launch")(
         xc.data_ptr(), wc.data_ptr(), sc.data_ptr(), ac.data_ptr(), a_mode,
-        None if bc is None else bc.data_ptr(), ACTIVATIONS.index(activation),
+        _ptr(bc), ACTIVATIONS.index(activation),
         out.data_ptr(), int(out_dtype == torch.bfloat16), m, k, n, group,
-        V3_BODIES.index(body), _stream(x_q),
+        V3_BODIES.index(body), *plan, _ptr(scratch), _ptr(counters), stream,
     )
     build.check(status, f"pvq_matmul_q ({body} body)")
     LAUNCHES["pvq_matmul_q"] += 1
@@ -427,11 +501,13 @@ def pvq_matmul_q_batched_cuda(
     sc = _cuda_operand(scales, torch.float32, "scales")
     ac = _cuda_operand(act_scale, torch.float32, "act_scale")
     body = _pick_body(_body, m, k, n, group, xc, wc)
+    stream = _stream(x_q)
+    plan, scratch, counters = _splitk_buffers(body, e, m, k, n, group, x_q.device, stream)
     out = torch.empty((e, m, n), dtype=out_dtype, device=x_q.device)
     status = build.launcher("pvq_matmul_q_batched_launch")(
         xc.data_ptr(), wc.data_ptr(), sc.data_ptr(), ac.data_ptr(), a_mode,
         ACTIVATIONS.index(activation), out.data_ptr(), int(out_dtype == torch.bfloat16),
-        e, m, k, n, group, V3_BODIES.index(body), _stream(x_q),
+        e, m, k, n, group, V3_BODIES.index(body), *plan, _ptr(scratch), _ptr(counters), stream,
     )
     build.check(status, f"pvq_matmul_q_batched ({body} body)")
     LAUNCHES["pvq_matmul_q_batched"] += 1

@@ -14,8 +14,10 @@ batch instead, after a warm one; ``--f32`` makes that the f32 leg of
 the packed weights).  Prints one JSON object: the host wall time per step
 (or prefill), the device time summed over every CUDA kernel (ours
 included: CUPTI traces them by name), the device's idle share, the launch
-count, kernels v3's and v2's device time, calls and share, and the kernels
-with the most device time.
+count, kernels v3's and v2's device time, calls and share (v3's also by
+route: the 2-D matrices against the expert-batched banks, told apart by the
+Route tag in the kernels' names, and by body), and the kernels with the most
+device time.
 """
 
 from __future__ import annotations
@@ -108,11 +110,22 @@ def _report(prof, wall: float, units: int, args, cfg, unit: str) -> dict:
     device_us = sum(v[0] for v in kernels.values())
     # kernels v3 and v2 (2-D and batched, every body), and their tensor-core
     # bodies alone
-    def by_name(part):
-        hits = [v for name, v in kernels.items() if part in name]
+    def by_name(*parts):
+        hits = [v for name, v in kernels.items() if all(p in name for p in parts)]
         return sum(v[0] for v in hits), sum(v[1] for v in hits)
 
-    (v3_us, _), (mma_us, _) = by_name("pvq_matmul_q_"), by_name("pvq_matmul_q_mma")
+    (v3_us, v3_calls), (mma_us, _) = by_name("pvq_matmul_q_"), by_name("pvq_matmul_q_mma")
+    v3_by_route = {
+        route: {f"ms_per_{unit}": us / 1e3 / units, f"calls_per_{unit}": n / units}
+        for route, (us, n) in (("2d", by_name("pvq_matmul_q_", "OneMatrix")),
+                               ("batched", by_name("pvq_matmul_q_", "ExpertStack")))
+    }
+    v3_by_body = {
+        body: {f"ms_per_{unit}": us / 1e3 / units, f"calls_per_{unit}": n / units}
+        for body, (us, n) in (("splitk", by_name("pvq_matmul_q_splitk")),
+                              ("mma", by_name("pvq_matmul_q_mma")),
+                              ("direct", by_name("pvq_matmul_q_kernel")))
+    }
     (v2_us, v2_calls), (v2_mma_us, v2_mma_calls) = by_name("pvq_matmul_f_"), by_name("pvq_matmul_f_mma")
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[: args.top]
     unit_ms = 1e3 * wall / units
@@ -125,6 +138,9 @@ def _report(prof, wall: float, units: int, args, cfg, unit: str) -> dict:
         "device_idle_share": max(1.0 - device_ms / unit_ms, 0.0) if device_us else None,
         f"kernel_launches_per_{unit}": sum(v[1] for v in kernels.values()) / units,
         f"v3_ms_per_{unit}": v3_us / 1e3 / units,
+        f"v3_calls_per_{unit}": v3_calls / units,
+        "v3_by_route": v3_by_route,
+        "v3_by_body": v3_by_body,
         f"v3_mma_ms_per_{unit}": mma_us / 1e3 / units,
         "v3_share_of_device_time": v3_us / device_us if device_us else None,
         f"v2_ms_per_{unit}": v2_us / 1e3 / units,

@@ -6,16 +6,17 @@ dependencies:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Every test skips without a CUDA card.  Tolerances: the encoder, kernel v3
-(each of its three bodies: ring, direct, mma) and its expert-batched form
+(each of its three bodies: splitk, direct, mma) and its expert-batched form
 (without the tanh-gelu epilogue) and kernel v4
 are identical to their plain versions (same float operation order, no FMA
 contraction, the plain versions' fixed summation trees); kernel v2 (each
 of its two bodies: direct, mma), its batched form and the gelu epilogue
 within ``rtol=1e-5, atol=1e-5 * max|y|`` (v2's group sums run in f64 in
 another order, so a sum lying on an f32 rounding boundary may round the
-other way; ``tanhf``); v2's bf16 output after a gelu or silu epilogue
-within ``rtol=1e-2`` (``tanhf``/``expf`` differ from PyTorch's in the last
-f32 bits, which moves a bf16 rounding by one bf16 ulp, 2^-8 relative).
+other way; ``tanhf``); v2's bf16 output after a gelu or silu epilogue,
+and v3's after a gelu epilogue, within ``rtol=1e-2`` (``tanhf``/``expf``
+differ from PyTorch's in the last f32 bits, which moves a bf16 rounding by
+one bf16 ulp, 2^-8 relative).
 """
 
 import numpy as np
@@ -41,10 +42,11 @@ def _body_launches_since(before):
 
 
 @needs_cuda
-# m <= 8 stages the pulses through the ring; m > 8 with n % 16 != 0 or a
-# group not divisible by 32 reads them directly (the dp4a body)
-@pytest.mark.parametrize("m,k,n,group,body", [(4, 1024, 960, 256, "ring"), (7, 96, 40, 32, "ring"),
-                                              (3, 64, 24, 16, "ring"), (2, 12, 5, 6, "ring"),
+# m <= 8 splits the contraction over CTAs (splitk) when n % 16 == 0 and the
+# group is a multiple of 4; the ragged rest, and m > 8 with n % 16 != 0 or a
+# group not divisible by 32, read the pulses directly (the dp4a body)
+@pytest.mark.parametrize("m,k,n,group,body", [(4, 1024, 960, 256, "splitk"), (7, 96, 40, 32, "direct"),
+                                              (3, 64, 24, 16, "direct"), (2, 12, 5, 6, "direct"),
                                               (20, 96, 40, 32, "direct"), (11, 12, 5, 6, "direct")])
 def test_cuda_matmuls_match_plain(m, k, n, group, body):
     dev = torch.device("cuda")
@@ -115,7 +117,7 @@ def test_cuda_mma_body_matches_plain(m, k, n, group):
             assert torch.equal(got, port_mm.pvq_matmul_q_plain(
                 xin, pulses, scales, a, b, group=group, out_dtype=torch.bfloat16)), tuple(a.shape)
             calls += 1
-    assert _body_launches_since(before) == {"ring": 0, "direct": 0, "mma": calls}
+    assert _body_launches_since(before) == {"splitk": 0, "direct": 0, "mma": calls}
 
 
 @needs_cuda
@@ -180,7 +182,7 @@ def _bank(gen, e, k, n, group, dev):
         (64, 60, 2048, 1408, 256),  # up / gate at prefill
         (64, 1, 1536, 2048, 256),   # wo at decode
         (64, 60, 1536, 2048, 256),  # wo at prefill
-        (5, 7, 96, 40, 32),         # ragged n, rows not 16-byte multiples: plain loads
+        (5, 7, 96, 40, 32),         # ragged n, rows not 16-byte multiples: the direct body
         (3, 9, 128, 48, 32),        # n % 32 != 0 on 16-byte rows, m > 8: the mma body
         (2, 3, 12, 5, 6),           # a group not divisible by 4
         (2, 10, 12, 5, 6),          # the same, m > 8: pulses read directly
@@ -190,7 +192,10 @@ def test_cuda_batched_kernels_match_plain(e, m, k, n, group):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(e + m + k)
     pulses, scales = _bank(gen, e, k, n, group, dev)
-    body = "ring" if m <= 8 else "mma" if group % 32 == 0 and n % 16 == 0 else "direct"
+    if m <= 8:
+        body = "splitk" if group % 4 == 0 and n % 16 == 0 else "direct"
+    else:
+        body = "mma" if group % 32 == 0 and n % 16 == 0 else "direct"
     before = dict(V3_BODY_LAUNCHES)
     x = torch.randn(e, m, k, generator=gen, device=dev)
     x_q, a = port_q.quantize_activations(x)
@@ -250,24 +255,176 @@ def test_cuda_batched_mma_body_matches_plain(e, m, k, n, group):
         assert torch.equal(got, port_mm.pvq_matmul_q_batched_plain(
             xq, pulses, scales, a, group=group, activation="silu", out_dtype=torch.bfloat16)), mode
         calls += 1
-    assert _body_launches_since(before) == {"ring": 0, "direct": 0, "mma": calls}
+    assert _body_launches_since(before) == {"splitk": 0, "direct": 0, "mma": calls}
 
 
 @needs_cuda
 def test_forced_bodies_agree_and_mma_refuses_what_it_cannot_take():
-    """The private body argument runs each body on one shape (all identical),
-    and the mma body raises on a shape outside its preconditions."""
+    """The private body argument runs each body on one shape (all identical;
+    the splitk body on its first 8 rows), and the mma and splitk bodies
+    raise on a shape outside their preconditions."""
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(5)
     pulses, scales, bias, x = _v3_cases(40, 512, 96, 64, gen, dev)
     xq, a = ops._quantize_x(x, port_q.ActQuant(), 64)
-    want = port_mm.pvq_matmul_q_plain(xq, pulses, scales, a, bias, group=64)
     for body in port_mm.V3_BODIES:
-        assert torch.equal(port_mm.pvq_matmul_q_cuda(xq, pulses, scales, a, bias, group=64,
-                                                     _body=body), want), body
+        rows = slice(0, 8) if body == "splitk" else slice(None)
+        want = port_mm.pvq_matmul_q_plain(xq[rows], pulses, scales, a[rows], bias, group=64)
+        assert torch.equal(port_mm.pvq_matmul_q_cuda(xq[rows], pulses, scales, a[rows], bias,
+                                                     group=64, _body=body), want), body
     with pytest.raises(ValueError, match="mma body"):
         port_mm.pvq_matmul_q_cuda(xq[:, :96], pulses[:96, :40], scales[:1, :40],
                                   a, None, group=96, _body="mma")
+    with pytest.raises(ValueError, match="splitk body"):  # n % 16 != 0
+        port_mm.pvq_matmul_q_cuda(xq[:4], pulses[:, :40], scales[:, :40], a[:4], None,
+                                  group=64, _body="splitk")
+    with pytest.raises(ValueError, match="splitk body"):  # more than 8 rows
+        port_mm.pvq_matmul_q_cuda(xq, pulses, scales, a, None, group=64, _body="splitk")
+
+
+def _splitk_counters_are_zero():
+    torch.cuda.synchronize()
+    return all(int(c.abs().sum()) == 0 for c in port_mm._SPLITK_COUNTERS.values())
+
+
+@needs_cuda
+@pytest.mark.parametrize("n", [16, 320, 960, 2560, 40])
+@pytest.mark.parametrize("ngroups", [1, 4])
+@pytest.mark.parametrize("group", [32, 64, 128, 256])
+@pytest.mark.parametrize("m", range(1, 9))
+def test_cuda_splitk_body_matches_plain(m, group, ngroups, n):
+    """At m <= 8 the splitk body (n 40: the direct body) is identical to the
+    plain version: per-row, scalar and (over several groups) per-tile
+    scales, with and without bias, each activation (tanh-gelu within rtol
+    1e-5), f32 and bf16 output.  One group (k = group) and four; the plan
+    splits k over CTAs on these few column blocks, into pieces of a group."""
+    dev = torch.device("cuda")
+    k = group * ngroups
+    gen = torch.Generator().manual_seed(m * 131 + group + n + k)
+    pulses, scales, bias, x = _v3_cases(m, k, n, group, gen, dev)
+    xq, a_row = ops._quantize_x(x, port_q.ActQuant("per_row"), group)
+    xt, a_tile = ops._quantize_x(x, port_q.ActQuant("per_tile"), group)
+    cases = [(xq, a_row), (xq, a_row.amax().reshape(1, 1))] + ([(xt, a_tile)] if k > group else [])
+    body = "splitk" if n % 16 == 0 else "direct"
+    before = dict(V3_BODY_LAUNCHES)
+    calls = 0
+    for xin, a in cases:
+        for act in port_mm.ACTIVATIONS:
+            for b in (None, bias):
+                got = port_mm.pvq_matmul_q_cuda(xin, pulses, scales, a, b, group=group,
+                                                activation=act)
+                want = port_mm.pvq_matmul_q_plain(xin, pulses, scales, a, b, group=group,
+                                                  activation=act)
+                calls += 1
+                if act == "gelu":
+                    _close(got, want)
+                else:
+                    assert torch.equal(got, want), (tuple(a.shape), act, b is None)
+        got = port_mm.pvq_matmul_q_cuda(xin, pulses, scales, a, bias, group=group,
+                                        activation="silu", out_dtype=torch.bfloat16)
+        assert torch.equal(got, port_mm.pvq_matmul_q_plain(
+            xin, pulses, scales, a, bias, group=group, activation="silu",
+            out_dtype=torch.bfloat16)), tuple(a.shape)
+        calls += 1
+    assert _body_launches_since(before) == {b: calls if b == body else 0 for b in V3_BODY_LAUNCHES}
+    assert _splitk_counters_are_zero()
+
+
+@needs_cuda
+@pytest.mark.parametrize(
+    "e,m,k,n,group",
+    [
+        (64, 1, 2048, 1408, 256),  # up / gate at decode: no split, 16 stages through 4 slots
+        (64, 1, 1536, 2048, 256),  # wo at decode
+        (300, 5, 1024, 16, 128),   # 300 column blocks: no split, 8 stages
+        (3, 8, 512, 80, 64),       # split k; the second column block is part-filled
+        (2, 4, 256, 48, 4),        # the smallest group: chunks of 4 rows
+    ],
+)
+def test_cuda_splitk_batched_matches_plain(e, m, k, n, group):
+    """The batched route's splitk body is identical to the plain version:
+    per-row and per-tile scales, each activation but tanh-gelu (within rtol
+    1e-5), f32 and bf16 output."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(e * 3 + m + k + n)
+    pulses = torch.randint(-127, 128, (e, k, n), generator=gen, dtype=torch.int8, device=dev)
+    scales = torch.rand(e, k // group, n, generator=gen, device=dev)
+    x = torch.randn(e, m, k, generator=gen, device=dev)
+    before = dict(V3_BODY_LAUNCHES)
+    calls = 0
+    for mode in ("per_row", "per_tile"):
+        xq, a = port_q.quantize_activations(x, port_q.ActQuant(mode), tile=group)
+        for act in port_mm.ACTIVATIONS:
+            for out_dtype in (torch.float32, torch.bfloat16):
+                got = port_mm.pvq_matmul_q_batched_cuda(xq, pulses, scales, a, group=group,
+                                                        activation=act, out_dtype=out_dtype)
+                want = port_mm.pvq_matmul_q_batched_plain(xq, pulses, scales, a, group=group,
+                                                          activation=act, out_dtype=out_dtype)
+                calls += 1
+                if act == "gelu":
+                    _close(got, want, rtol=1e-5 if out_dtype == torch.float32 else 1e-2)
+                else:
+                    assert torch.equal(got, want), (mode, act, out_dtype)
+    assert _body_launches_since(before) == {"splitk": calls, "direct": 0, "mma": 0}
+    assert _splitk_counters_are_zero()
+
+
+@needs_cuda
+@pytest.mark.parametrize("e,m,k,n,group", [(1, 4, 1024, 960, 256), (1, 1, 2048, 102400, 256),
+                                           (64, 1, 2048, 1408, 256), (3, 8, 512, 80, 64)])
+def test_cuda_splitk_calls_in_a_row_leave_the_counters_at_zero(e, m, k, n, group):
+    """Three calls in a row on one stream give the same result bit for bit:
+    the last CTA of each column block resets its arrival counter."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(k + n)
+    pulses = torch.randint(-127, 128, (e, k, n), generator=gen, dtype=torch.int8, device=dev)
+    scales = torch.rand(e, k // group, n, generator=gen, device=dev)
+    xq, a = port_q.quantize_activations(torch.randn(e, m, k, generator=gen, device=dev))
+    if e == 1:
+        want = port_mm.pvq_matmul_q_plain(xq[0], pulses[0], scales[0], a[0], group=group)
+        outs = [port_mm.pvq_matmul_q_cuda(xq[0], pulses[0], scales[0], a[0], group=group)
+                for _ in range(3)]
+    else:
+        want = port_mm.pvq_matmul_q_batched_plain(xq, pulses, scales, a, group=group)
+        outs = [port_mm.pvq_matmul_q_batched_cuda(xq, pulses, scales, a, group=group)
+                for _ in range(3)]
+    for i, got in enumerate(outs):
+        assert torch.equal(got, want), i
+    assert _splitk_counters_are_zero()
+
+
+@needs_cuda
+@pytest.mark.parametrize("batched", [False, True])
+def test_cuda_splitk_body_replays_from_a_cuda_graph(batched):
+    """One call captured in a CUDA graph and replayed twice gives the eager
+    result bit for bit (a split-k shape: scratch, counters and all)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    e, m, k, n, group = (3, 8, 512, 80, 64) if batched else (1, 4, 1024, 960, 256)
+    pulses = torch.randint(-127, 128, (e, k, n), generator=gen, dtype=torch.int8, device=dev)
+    scales = torch.rand(e, k // group, n, generator=gen, device=dev)
+    xq, a = port_q.quantize_activations(torch.randn(e, m, k, generator=gen, device=dev))
+    if batched:
+        def call(): return port_mm.pvq_matmul_q_batched_cuda(xq, pulses, scales, a, group=group)
+    else:
+        def call(): return port_mm.pvq_matmul_q_cuda(xq[0], pulses[0], scales[0], a[0], group=group)
+    eager = call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()  # warm up off the default stream, as graph capture asks
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = dict(V3_BODY_LAUNCHES)
+    with torch.cuda.graph(graph):
+        out = call()
+    assert _body_launches_since(before)["splitk"] == 1
+    for replay in range(2):
+        out.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager), replay
+    assert _splitk_counters_are_zero()
 
 
 @needs_cuda

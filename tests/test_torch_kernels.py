@@ -261,9 +261,82 @@ _MMA_OK = dict(m=512, k=1024, n=2560, group=256, x_ptr=4096, w_ptr=8192)
 
 @pytest.mark.parametrize("m", [1, 4, 8])
 def test_v3_body_is_the_ring_up_to_eight_rows(m):
-    assert port_mm._v3_body(**{**_MMA_OK, "m": m}) == "ring"
-    # whatever else fails: the ring takes ragged shapes too
-    assert port_mm._v3_body(m, 12, 5, 6, 3, 5) == "ring"
+    # up to 8 rows the splitk body (which replaced the ring) takes every
+    # shape that fits it
+    assert port_mm._v3_body(**{**_MMA_OK, "m": m}) == "splitk"
+    assert port_mm._v3_body(m, 96, 48, 4, 16, 32) == "splitk"
+    # ragged shapes go to the direct body
+    assert port_mm._v3_body(m, 12, 5, 6, 3, 5) == "direct"
+
+
+# (e, k, n) of the full-width main paths' v3 decode calls: smollm-360m's 7
+# layer matmuls (wq, wk, wv, wo, wi_gate, wi_up, ffn wo); deepseek-v2-lite-
+# 16b's 2-D matrices (MLA wq, wkv_a, wo; the shared experts' up/gate and
+# down; layer 0's dense FFN, 10944 padded to 11008; lm_head) and its two
+# expert-bank shapes; group 256
+V3_DECODE_MAIN_PATH = [
+    (1, 1024, 960), (1, 1024, 320), (1, 1024, 2560), (1, 2560, 960),
+    (1, 2048, 3072), (1, 2048, 576), (1, 2048, 2048), (1, 2048, 2816), (1, 2816, 2048),
+    (1, 2048, 10944), (1, 11008, 2048), (1, 2048, 102400),
+    (64, 2048, 1408), (64, 1536, 2048),
+]
+
+
+def _plan_tiles(e, m, k, n, group):
+    """Every CTA of the splitk plan as (expert, k rows, columns)."""
+    cols, chunk, splits = port_mm._v3_decode_plan(e, m, k, n, group)
+    assert chunk * splits == k
+    return [(x, range(s * chunk, (s + 1) * chunk), range(c, min(c + cols, n)))
+            for x in range(e) for s in range(splits) for c in range(0, n, cols)]
+
+
+@pytest.mark.parametrize("e,m,k,n,group", [(1, 4, 1024, 960, 256), (1, 1, 512, 80, 64),
+                                           (3, 8, 96, 48, 32), (2, 2, 384, 16, 128),
+                                           (5, 4, 1536, 208, 256), (300, 1, 256, 16, 256),
+                                           (1, 3, 40, 32, 20)])
+def test_v3_decode_plan_covers_every_expert_group_and_column_once(e, m, k, n, group):
+    cover = np.zeros((e, k, n), np.int32)
+    for x, rows, cols in _plan_tiles(e, m, k, n, group):
+        cover[x, rows.start:rows.stop, cols.start:cols.stop] += 1
+    assert (cover == 1).all()
+    # each group's k rows are split into whole pieces that stay inside it
+    _, chunk, splits = port_mm._v3_decode_plan(e, m, k, n, group)
+    if splits > 1:
+        assert group % chunk == 0 and chunk % 4 == 0
+    else:
+        assert chunk == k
+
+
+@pytest.mark.parametrize("m", range(1, 9))
+@pytest.mark.parametrize("e,k,n", V3_DECODE_MAIN_PATH)
+def test_v3_decode_plan_chunks_are_fours_inside_one_group(e, k, n, m):
+    cols, chunk, splits = port_mm._v3_decode_plan(e, m, k, n, 256)
+    assert cols == port_mm.SPLITK_COLS and chunk * splits == k
+    if splits > 1:
+        assert chunk % 4 == 0 and 256 % chunk == 0
+        assert chunk >= min(max(32, 16 * m), 256)  # partials at most half the pulse bytes
+        # a split k means too few column blocks: the counters cover them
+        assert e * -(-n // cols) < port_mm.SPLITK_TARGET_CTAS
+    assert port_mm._v3_body(m, k, n, 256, 4096, 8192) == "splitk"
+
+
+@pytest.mark.parametrize("k,n,least", [(1024, 960, 132), (1024, 2560, 264), (2560, 960, 264)])
+def test_v3_decode_plan_fills_the_card_on_smollms_layer(k, n, least):
+    """q/o launch >= 132 CTAs and up/gate/down >= 264 at m 4 (two an SM)."""
+    assert len(_plan_tiles(1, 4, k, n, 256)) >= least
+
+
+@pytest.mark.parametrize("k,n", [(2048, 1408), (1536, 2048)])
+def test_v3_decode_plan_does_not_split_the_expert_banks(k, n):
+    assert port_mm._v3_decode_plan(64, 1, k, n, 256) == (port_mm.SPLITK_COLS, k, 1)
+
+
+@pytest.mark.parametrize("failing", [dict(n=40), dict(n=2568), dict(group=6, k=1020),
+                                     dict(group=18, k=1026), dict(w_ptr=8200),
+                                     dict(x_ptr=4098)])
+@pytest.mark.parametrize("m", [1, 4, 8])
+def test_v3_decode_routes_ragged_shapes_to_direct(failing, m):
+    assert port_mm._v3_body(**{**_MMA_OK, "m": m, **failing}) == "direct"
 
 
 @pytest.mark.parametrize("m,k,n", [(9, 256, 16), (60, 2048, 1408), (60, 1536, 2048),
