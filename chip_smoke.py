@@ -14,12 +14,12 @@ order, it:
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds every hand-written kernel from ``src/repro_torch/kernels/csrc``,
-   and prints what ``nvcc -Xptxas -v`` reports for kernel v3's decode body
-   (registers, spills);
+   and prints what ``nvcc -Xptxas -v`` reports for kernels v3's and v2's
+   decode bodies (registers, spills);
 3. holds each kernel against its plain PyTorch version on the card at the
    full-width main-path shapes (smollm-360m for the encoder, v2, v3 and v4;
-   deepseek-v2-lite-16b's 2-D decode matrices for v3 too, and its expert
-   banks for the batched v2 and v3): the
+   deepseek-v2-lite-16b's 2-D decode matrices for v3 and v2 too, and its
+   expert banks for the batched v2 and v3): the
    encoder, v3, batched v3 and v4 must be identical, v2 and batched v2
    within ``rtol=1e-5``; it times the kernel, the plain version and one
    PyTorch yardstick call (CUDA events, median of runs, L2 flushed before
@@ -27,7 +27,9 @@ order, it:
    (v3, v2, v4 and their batched forms) also gives ``device_ms`` beside
    ``ms`` for the kernel and its yardstick: the mean device time of the
    call's kernels under ``torch.profiler`` over 20 launches, each after an
-   L2 flush, without the wrapper's host time that ``ms`` holds.  v3 and v2 at
+   L2 flush, without the wrapper's host time that ``ms`` holds; v2's decode
+   rows (its splitk body) also time v2's direct body on the same inputs
+   (``direct_ms``, ``direct_device_ms``).  v3 and v2 at
    prefill (one smollm layer's 7 matmuls and deepseek's lm_head at m 512,
    one MoE layer's banks at m 60; v2's banks in f32 and bf16 x) must take
    their tensor-core bodies (int8 for v3, f64 for v2), and are timed beside
@@ -37,9 +39,10 @@ order, it:
    with every kernel launch count set to 0 just before and read just after;
    requires finite logits of the expected shape, every kernel of the
    path launched, v3's splitk (decode) and tensor-core bodies and v2's
-   tensor-core body among them (v2's in the f32 leg's prefill), no v3 call
-   of at most 8 rows on v3's direct body where the splitk body fits it, and
-   no v2 call above 8 rows on v2's direct body; then
+   splitk and tensor-core bodies among them (v2's in the f32 leg's decode
+   and prefill), no call of at most 8 rows on v3's or v2's direct body
+   where its splitk body fits it, and no v2 call above 8 rows on v2's
+   direct body; then
    runs the same tokens and packed weights through the
    plain versions on the card: the served leg's teacher-forced logits must
    be identical to the kernel path's, and the f32 leg (kernel v2) must
@@ -130,6 +133,7 @@ DEEPSEEK_DECODE_SHAPES = [("mla wq", 2048, 3072), ("shared up/gate", 2048, 2816)
 MMA_SOURCE = "src/repro_torch/kernels/csrc/pvq_matmul_mma.cuh"
 F_MMA_SOURCE = "src/repro_torch/kernels/csrc/pvq_matmul_f_mma.cuh"
 SPLITK_SOURCE = "src/repro_torch/kernels/csrc/pvq_matmul_splitk.cuh"
+F_SPLITK_SOURCE = "src/repro_torch/kernels/csrc/pvq_matmul_f_splitk.cuh"
 DEVICE_MS_BY = ("torch.profiler: mean device time of the call's kernels over 20 launches, "
                 "the L2 flushed before each (the flush's kernel left out)")
 
@@ -176,12 +180,12 @@ class Timer:
         device ms to ``target[key]`` for each ``(target, key, weight)``."""
         self.queued.append((fn, targets))
 
-    def measure_device(self, reps: int = 20) -> None:
-        """Device time of every queued call (``DEVICE_MS_BY``), in one
-        ``torch.profiler`` trace: a lone flush first (its kernel's name
-        marks the flushes), then for each call ``reps`` times a flush and the
-        call; the kernels between two flushes, in device order, are one
-        launch's."""
+    def _trace(self, calls, reps):
+        """One ``torch.profiler`` trace of ``calls``: a lone flush first (its
+        kernel's name marks the flushes), then for each call ``reps`` times a
+        flush and the call; the kernels between two flushes, in device
+        order, are one launch's.  Returns each launch's device us, or None
+        where the trace lost events."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
 
@@ -189,7 +193,7 @@ class Timer:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             self.flush.zero_()
             torch.cuda.synchronize()
-            for fn, _ in self.queued:
+            for fn in calls:
                 for _ in range(reps):
                     self.flush.zero_()
                     fn()
@@ -197,22 +201,35 @@ class Timer:
         kernels = sorted((evt.time_range.start, evt.name, float(evt.device_time_total))
                          for evt in prof.events()
                          if getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA)
-        if not kernels:
-            fail("torch.profiler recorded no device activity")
-        flush_name = kernels[0][1]
         launches = []
         for _, name, us in kernels[1:]:
-            if name == flush_name:
+            if name == kernels[0][1]:
                 launches.append(0.0)
             elif launches:
                 launches[-1] += us
-        if len(launches) != reps * len(self.queued) or min(launches, default=0.0) <= 0.0:
-            fail(f"torch.profiler: {len(launches)} flushed launches for {len(self.queued)} calls "
-                 f"x {reps}, or a launch with no kernel")
-        for i, (_, targets) in enumerate(self.queued):
-            ms = sum(launches[i * reps:(i + 1) * reps]) / reps / 1e3
-            for target, key, weight in targets:
-                target[key] = target.get(key, 0.0) + weight * ms
+        if len(launches) != reps * len(calls) or min(launches, default=0.0) <= 0.0:
+            print(f"chip_smoke: torch.profiler kept {len(launches)} flushed launches of "
+                  f"{len(calls)} calls x {reps}, or a launch with no kernel", file=sys.stderr)
+            return None
+        return launches
+
+    def measure_device(self, reps: int = 20, per_trace: int = 20, attempts: int = 3) -> None:
+        """Device time of every queued call (``DEVICE_MS_BY``), ``per_trace``
+        calls a trace; a trace that lost events (it happened in about one run
+        in seven with 77 calls in one trace) is taken again, up to
+        ``attempts`` times."""
+        for at in range(0, len(self.queued), per_trace):
+            chunk = self.queued[at:at + per_trace]
+            for _ in range(attempts):
+                launches = self._trace([fn for fn, _ in chunk], reps)
+                if launches is not None:
+                    break
+            else:
+                fail(f"torch.profiler lost device events in {attempts} traces in a row")
+            for i, (_, targets) in enumerate(chunk):
+                ms = sum(launches[i * reps:(i + 1) * reps]) / reps / 1e3
+                for target, key, weight in targets:
+                    target[key] = target.get(key, 0.0) + weight * ms
         self.queued.clear()
 
 
@@ -234,35 +251,51 @@ def _new_total():
     return dict(ms=0.0, direct_ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0, err=0.0)
 
 
-def _decode_total():
-    return dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0, library_device_ms=0.0,
-                bytes=0.0, ops=0.0, err=0.0)
+def _decode_total(direct=False):
+    total = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0, library_device_ms=0.0,
+                 bytes=0.0, ops=0.0, err=0.0)
+    if direct:
+        total.update(direct_ms=0.0, direct_device_ms=0.0)
+    return total
 
 
 def decode_row(timer, head, kern, plain, library, nbytes, nops, rate, *, tol=0.0,
-               body_launches=None, times=1, total=None):
+               body_launches=None, direct=None, times=1, total=None):
     """A decode shape (``head`` names it): the kernel against its plain
     version within ``tol`` (v3 and v4: identical), timed by events (``ms``)
     beside the plain version and its yardstick; the device time of kernel
     and yardstick (``device_ms``, ``library_device_ms``) is queued on the
-    timer.  With ``body_launches`` the v3 or v2 body that ran.  ``times``
-    adds the row that many times into ``total``.  ``kern`` and ``library``
-    must hold their tensors (``functools.partial``)."""
+    timer.  With ``body_launches`` the v3 or v2 body that ran; with
+    ``direct`` (the same call on the direct body) that body too, held to
+    the same tolerance and timed the same way (``direct_ms``,
+    ``direct_device_ms``).  ``times`` adds the row that many times into
+    ``total``.  ``kern``, ``direct`` and ``library`` must hold their tensors
+    (``functools.partial``)."""
     what = json.dumps(head)
     before = body_launches() if body_launches else None
-    err = check_close(what, kern(), plain(), tol)
+    want = plain()
+    err = check_close(what, kern(), want, tol)
     row = dict(head)
     if body_launches:
         row["body"] = [b for b, c in body_launches().items() if c != before[b]]
+    timed = [(kern, "ms", "device_ms")]
+    if direct is not None:
+        check_close(f"{what} (direct body)", direct(), want, tol)
+        timed.append((direct, "direct_ms", "direct_device_ms"))
+    del want
     b_ms, b_by = bound_ms(nbytes, nops, rate)
-    row.update({"ms": timer(kern), "plain_ms": timer(plain), "library_ms": timer(library),
-                "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err})
-    for fn, key in ((kern, "device_ms"), (library, "library_device_ms")):
+    timed.append((library, "library_ms", "library_device_ms"))
+    for fn, key, _ in timed:
+        row[key] = timer(fn)
+    row.update({"plain_ms": timer(plain), "bound_ms": b_ms, "bound_by": b_by,
+                "max_abs_err": err})
+    for fn, _, key in timed:
         targets = [(row, key, 1)] + ([(total, key, times)] if total is not None else [])
         timer.device_later(fn, *targets)
     if total is not None:
-        for key in ("ms", "plain_ms", "library_ms"):
+        for _, key, _ in timed:
             total[key] += times * row[key]
+        total["plain_ms"] += times * row["plain_ms"]
         total["bytes"] += times * nbytes
         total["ops"] += times * nops
         total["err"] = max(total["err"], err)
@@ -329,10 +362,11 @@ def v2_bytes(m, k, n, e=1, itemsize=4):
 
 
 def check_matmuls(torch, timer, mm, ops, quantize, kernels_mod):
-    """Kernels v3 (int8 x) and v2 (f32 x) at one layer's decode shapes, v2
-    at the prefill FFN shape, and v3 and v2 at prefill: one layer's 7
-    matmuls and deepseek's lm_head at m 512, each against its direct body
-    too; returns their kernel-line entries and details."""
+    """Kernels v3 (int8 x) and v2 (f32 x) at one layer's decode shapes and
+    deepseek's 2-D decode shapes (v2 against its direct body too), v2 at the
+    prefill FFN shape, and v3 and v2 at prefill: one layer's 7 matmuls and
+    deepseek's lm_head at m 512, each against its direct body too; returns
+    their kernel-line entries and details."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     layer = []
     for k, n in LAYER_SHAPES:
@@ -340,7 +374,7 @@ def check_matmuls(torch, timer, mm, ops, quantize, kernels_mod):
         pulses, scales, _ = ops.encode_weight_matrix(w, group=GROUP, k_pulses=GROUP)
         layer.append((pulses, scales))
     rows = []
-    totals = {name: _decode_total() for name in ("pvq_matmul_q", "pvq_matmul")}
+    totals = {"pvq_matmul_q": _decode_total(), "pvq_matmul": _decode_total(direct=True)}
     m = DECODE_M
     for (k, n), (pulses, scales) in zip(LAYER_SHAPES, layer):
         x = torch.randn(m, k, generator=gen, device="cuda")
@@ -349,17 +383,19 @@ def check_matmuls(torch, timer, mm, ops, quantize, kernels_mod):
         # v3 is identical to its plain version by construction; v2's f64
         # group sums run in another order (the same f32 value unless a sum
         # lies on an f32 rounding boundary)
-        for name, kern, plain, nbytes, rate, tol, bodies in (
+        for name, kern, plain, direct, nbytes, rate, tol, bodies in (
             ("pvq_matmul_q", partial(mm.pvq_matmul_q_cuda, x_q, pulses, scales, a, group=GROUP),
-             partial(mm.pvq_matmul_q_plain, x_q, pulses, scales, a, group=GROUP),
+             partial(mm.pvq_matmul_q_plain, x_q, pulses, scales, a, group=GROUP), None,
              v3_bytes(m, k, n), INT8_OPS_PER_S, 0.0, kernels_mod.v3_body_launches),
             ("pvq_matmul", partial(mm.pvq_matmul_cuda, x, pulses, scales, group=GROUP),
              partial(mm.pvq_matmul_plain, x, pulses, scales, group=GROUP),
+             partial(mm.pvq_matmul_cuda, x, pulses, scales, group=GROUP, _body="direct"),
              v2_bytes(m, k, n), F64_TC_FLOPS_PER_S, 1e-5, kernels_mod.v2_body_launches),
         ):
             rows.append(decode_row(timer, {"kernel": name, "m": m, "k": k, "n": n}, kern, plain,
                                    partial(torch.matmul, x, w_deq), nbytes, 2.0 * m * k * n,
-                                   rate, tol=tol, body_launches=bodies, total=totals[name]))
+                                   rate, tol=tol, body_launches=bodies, direct=direct,
+                                   total=totals[name]))
     # v2 at the prefill FFN shape (v3's prefill rows are below)
     k, n = LAYER_SHAPES[4]
     pulses, scales = layer[4]
@@ -374,8 +410,9 @@ def check_matmuls(torch, timer, mm, ops, quantize, kernels_mod):
                  "plain_ms": timer(plain), "library_ms": timer(lambda: torch.matmul(x, w_deq)),
                  "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err})
     del w_deq
-    # v3 at deepseek's 2-D decode shapes, m 4
-    ds_decode = _decode_total()
+    # v3 and v2 (f32 x; against its direct body too) at deepseek's 2-D
+    # decode shapes, m 4
+    ds_decode, ds_decode_v2 = _decode_total(), _decode_total(direct=True)
     m = DECODE_M
     for what, k, n in DEEPSEEK_DECODE_SHAPES:
         pulses = torch.randint(-9, 10, (k, n), generator=gen, device="cuda", dtype=torch.int8)
@@ -389,6 +426,14 @@ def check_matmuls(torch, timer, mm, ops, quantize, kernels_mod):
             partial(mm.pvq_matmul_q_plain, x_q, pulses, scales, a, group=GROUP),
             partial(torch.matmul, x, w_deq), v3_bytes(m, k, n), 2.0 * m * k * n, INT8_OPS_PER_S,
             body_launches=kernels_mod.v3_body_launches, total=ds_decode))
+        rows.append(decode_row(
+            timer, {"kernel": "pvq_matmul", "matrix": f"deepseek {what}", "m": m, "k": k, "n": n},
+            partial(mm.pvq_matmul_cuda, x, pulses, scales, group=GROUP),
+            partial(mm.pvq_matmul_plain, x, pulses, scales, group=GROUP),
+            partial(torch.matmul, x, w_deq), v2_bytes(m, k, n), 2.0 * m * k * n,
+            F64_TC_FLOPS_PER_S, tol=1e-5, body_launches=kernels_mod.v2_body_launches,
+            direct=partial(mm.pvq_matmul_cuda, x, pulses, scales, group=GROUP, _body="direct"),
+            total=ds_decode_v2))
     # v3 and v2 at prefill: one layer's 7 matmuls, then deepseek's lm_head
     prefill = {"smollm_layer_m512": _new_total(), "deepseek_lm_head_m512": _new_total()}
     v2_prefill = {"smollm_layer_m512": _new_total(), "deepseek_lm_head_m512": _new_total()}
@@ -422,13 +467,16 @@ def check_matmuls(torch, timer, mm, ops, quantize, kernels_mod):
         v3 = name == "pvq_matmul_q"
         entries[name] = decode_entry(
             tot, INT8_OPS_PER_S if v3 else F64_TC_FLOPS_PER_S, name=name, route="cuda",
-            source=SPLITK_SOURCE if v3 else "src/repro_torch/kernels/csrc/pvq_matmul.cu",
+            source=SPLITK_SOURCE if v3 else F_SPLITK_SOURCE,
             replaces=("src/repro/kernels/pvq_matmul.py:596" if v3
                       else "src/repro/kernels/pvq_matmul.py:229"),
             shape=f"one decoder layer's 7 matmuls, m={DECODE_M}, group {GROUP}")
+    ds_shape = "deepseek's 2-D decode matrices: " + ", ".join(
+        f"{what} {k} x {n}" for what, k, n in DEEPSEEK_DECODE_SHAPES) + f", m={DECODE_M}"
     entries["pvq_matmul_q"]["decode"] = {"deepseek_2d_m4": decode_entry(
-        ds_decode, INT8_OPS_PER_S, shape="deepseek's 2-D decode matrices: " + ", ".join(
-            f"{what} {k} x {n}" for what, k, n in DEEPSEEK_DECODE_SHAPES) + f", m={DECODE_M}")}
+        ds_decode, INT8_OPS_PER_S, shape=ds_shape)}
+    entries["pvq_matmul"]["decode"] = {"deepseek_2d_m4": decode_entry(
+        ds_decode_v2, F64_TC_FLOPS_PER_S, shape=ds_shape + ", f32 x")}
     entries["pvq_matmul_q"]["prefill"] = {
         "smollm_layer_m512": prefill_entry(
             prefill["smollm_layer_m512"],
@@ -502,7 +550,8 @@ def check_batched(torch, timer, mm, quantize, kernels_mod):
     values in f32) and the dequantized f32 banks."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     rows = []
-    totals = {name: _decode_total() for name in ("pvq_matmul_q_batched", "pvq_matmul_batched")}
+    totals = {"pvq_matmul_q_batched": _decode_total(),
+              "pvq_matmul_batched": _decode_total(direct=True)}
     prefill = _new_total()
     v2_prefill = {dtype: _new_total() for dtype in (torch.float32, torch.bfloat16)}
     banks = {}
@@ -544,26 +593,29 @@ def check_batched(torch, timer, mm, quantize, kernels_mod):
                                  "x": str(dtype), "m": m, "k": k, "n": n, **row})
                 del w_deq
                 continue
-            for name, kern, plain, nbytes, rate, tol, bodies in (
+            for name, kern, plain, direct, nbytes, rate, tol, bodies in (
                 ("pvq_matmul_q_batched",
                  partial(mm.pvq_matmul_q_batched_cuda, x_q, pulses, scales, a, group=GROUP),
-                 partial(mm.pvq_matmul_q_batched_plain, x_q, pulses, scales, a, group=GROUP),
+                 partial(mm.pvq_matmul_q_batched_plain, x_q, pulses, scales, a, group=GROUP), None,
                  v3_bytes(m, k, n, e), INT8_OPS_PER_S, 0.0, kernels_mod.v3_body_launches),
                 ("pvq_matmul_batched",
                  partial(mm.pvq_matmul_batched_cuda, x, pulses, scales, group=GROUP),
                  partial(mm.pvq_matmul_batched_plain, x, pulses, scales, group=GROUP),
+                 partial(mm.pvq_matmul_batched_cuda, x, pulses, scales, group=GROUP,
+                         _body="direct"),
                  v2_bytes(m, k, n, e), F64_TC_FLOPS_PER_S, 1e-5, kernels_mod.v2_body_launches),
             ):
                 rows.append(decode_row(
                     timer, {"kernel": name, "bank": what, "experts": e, "m": m, "k": k, "n": n},
                     kern, plain, partial(torch.bmm, x, w_deq), nbytes, 2.0 * e * m * k * n, rate,
-                    tol=tol, body_launches=bodies, times=times, total=totals[name]))
+                    tol=tol, body_launches=bodies, direct=direct, times=times,
+                    total=totals[name]))
     entries = {}
     for name, tot in totals.items():
         v3 = name == "pvq_matmul_q_batched"
         entries[name] = decode_entry(
             tot, INT8_OPS_PER_S if v3 else F64_TC_FLOPS_PER_S, name=name, route="cuda",
-            source=SPLITK_SOURCE if v3 else "src/repro_torch/kernels/csrc/pvq_matmul_batched.cu",
+            source=SPLITK_SOURCE if v3 else F_SPLITK_SOURCE,
             replaces=("src/repro/kernels/pvq_matmul.py:619 (pvq_matmul_q_batched), "
                       "src/repro/kernels/pvq_matmul.py:555 (_kernel_q_dma)"
                       if v3 else "src/repro/kernels/pvq_matmul.py:250"),
@@ -688,6 +740,27 @@ def v3_direct_where_splitk_fits(mm):
         mm._v3_body = inner
 
 
+@contextlib.contextmanager
+def v2_direct_where_splitk_fits(mm):
+    """Counts the kernel v2 calls of at most 8 rows that the body rule sends
+    to the direct body although v2's splitk body takes their operands (a
+    harness-only wrapper of ``pvq_matmul._v2_body``)."""
+    inner, log = mm._v2_body, {"calls": 0, "shapes": set()}
+
+    def logged(m, k, n, group, x_ptr, w_ptr, x_dtype):
+        body = inner(m, k, n, group, x_ptr, w_ptr, x_dtype)
+        if m <= 8 and body == "direct" and mm._v2_splitk_fits(k, n, group, x_ptr, w_ptr, x_dtype):
+            log["calls"] += 1
+            log["shapes"].add((m, k, n, group, str(x_dtype)))
+        return body
+
+    mm._v2_body = logged
+    try:
+        yield log
+    finally:
+        mm._v2_body = inner
+
+
 class RoutingLog:
     """Records the top-k expert indices of every MoE routing call while
     ``active`` (a harness-only wrapper of ``nn.moe._topk_argmax``), so the
@@ -730,6 +803,7 @@ def serve_full(torch, serve, kernels_mod, mm, enc, quant, routing, argv, *, kvq,
     kernels_mod.reset_launches()
     t0 = time.time()
     with routing.recording(), v2_direct_above_eight(mm) as v2_direct, \
+            v2_direct_where_splitk_fits(mm) as v2_direct_small, \
             v3_direct_where_splitk_fits(mm) as v3_direct:
         report, rc, state = serve.run(argv, return_state=True)
     counts = kernels_mod.launches()
@@ -759,6 +833,12 @@ def serve_full(torch, serve, kernels_mod, mm, enc, quant, routing, argv, *, kvq,
     if v2_direct["calls"]:
         fail(f"full serve ran {v2_direct['calls']} v2 calls above 8 rows on the direct body: "
              f"{sorted(v2_direct['shapes'])}")
+    # the f32 leg's decode runs v2 at m <= 8: the contraction split over CTAs
+    if v2_bodies["splitk"] <= 0:
+        fail(f"full serve never launched v2's splitk body: {v2_bodies}")
+    if v2_direct_small["calls"]:
+        fail(f"full serve ran {v2_direct_small['calls']} v2 calls of at most 8 rows on the "
+             f"direct body where the splitk body fits: {sorted(v2_direct_small['shapes'])}")
     if rc != 0 and "agreement_fail" not in report:
         fail(f"full serve exited {rc}: {report}")
     kernel_routes = list(routing.calls)
@@ -833,8 +913,9 @@ def start_ptxas_report(build, nvcc_flags=()):
 
 
 def ptxas_report(proc, part="splitk"):
-    """Registers, spills and stack of each kernel whose name holds ``part``,
-    from the ``-Xptxas -v`` lines of ``proc``."""
+    """Registers, spills and stack of each kernel whose name holds ``part``
+    (by default v3's and v2's decode bodies), from the ``-Xptxas -v`` lines
+    of ``proc``."""
     text, _ = proc.communicate()
     if proc.returncode != 0:
         fail(f"nvcc -Xptxas -v exited {proc.returncode}:\n{text}")
@@ -907,7 +988,13 @@ def main() -> int:
     build.build_all()
     print(json.dumps({"phase": "build", "tree": str(tree), "seconds": round(time.time() - t0, 2)}),
           flush=True)
-    print(json.dumps({"ptxas_v3_decode_body": ptxas_report(ptxas)}), flush=True)
+    decode_bodies = ptxas_report(ptxas)
+    for key, part in (("ptxas_v3_decode_body", "pvq_matmul_q_splitk"),
+                      ("ptxas_v2_decode_body", "pvq_matmul_f_splitk")):
+        found = [f for f in decode_bodies if part in f["kernel"]]
+        if not found:
+            fail(f"nvcc -Xptxas -v reported no {part} kernel")
+        print(json.dumps({key: found}), flush=True)
 
     timer = Timer(torch)
     entries, rows = check_matmuls(torch, timer, mm, ops, quantize_activations, kernels_mod)

@@ -7,8 +7,9 @@ v3's launches (2-D and batched together) by the body that ran:
 ``"splitk"`` (m <= 8: the contraction split over CTAs), ``"mma"`` (int8
 tensor cores, m > 8) or ``"direct"`` (the ragged rest); see
 ``pvq_matmul._v3_body``.  ``V2_BODY_LAUNCHES`` does
-the same for kernel v2: ``"mma"`` (f64 tensor cores, m > 8) or ``"direct"``
-(f64 FMAs on the CUDA cores: m <= 8 and the ragged rest); see
+the same for kernel v2: ``"splitk"`` (m <= 8: the contraction split over
+CTAs with f64 partials), ``"mma"`` (f64 tensor cores, m > 8) or
+``"direct"`` (f64 FMAs on the CUDA cores: the ragged rest); see
 ``pvq_matmul._v2_body``.
 """
 
@@ -25,7 +26,7 @@ LAUNCHES: Dict[str, int] = {
 
 
 V3_BODY_LAUNCHES: Dict[str, int] = {"splitk": 0, "direct": 0, "mma": 0}
-V2_BODY_LAUNCHES: Dict[str, int] = {"direct": 0, "mma": 0}
+V2_BODY_LAUNCHES: Dict[str, int] = {"direct": 0, "mma": 0, "splitk": 0}
 
 
 def reset_launches() -> None:

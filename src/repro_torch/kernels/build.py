@@ -41,12 +41,14 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "pvq_encode_launch": ([_P, _I, _I, _I, _I, _P, _P, _P], _I),
     },
     "pvq_matmul": {
-        "pvq_matmul_launch": ([_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P], _I),
+        "pvq_matmul_launch": ([_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                               _P, _P, _P], _I),
         "pvq_matmul_q_launch": ([_P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                                  _I, _I, _I, _P, _P, _P], _I),
     },
     "pvq_matmul_batched": {
-        "pvq_matmul_batched_launch": ([_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+        "pvq_matmul_batched_launch": ([_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                       _I, _P, _P, _P], _I),
         "pvq_matmul_q_batched_launch": ([_P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I,
                                          _I, _I, _I, _P, _P, _P], _I),
     },

@@ -30,13 +30,15 @@
 // the direct body (pvq_matmul_common.cuh: 8 rows x 32 columns a CTA, 8
 // warps splitting each group in 4-row __dp4a chunks, W read straight from
 // global memory) otherwise.
-// v2 has two bodies, chosen per call by the wrapper (kernels/pvq_matmul.py:
-// _v2_body): at m > 8 the f64 tensor-core body (pvq_matmul_f_mma.cuh:
-// mma.sync m16n8k4 .f64 on 64 x 64 tiles) when G % 16 == 0, n % 16 == 0
-// and the rows are 16-byte aligned; otherwise, and at every m <= 8, the
-// direct body (pvq_matmul_common.cuh): 8 x 32 CTAs, f64 FMAs of exact
-// products on the CUDA cores, W read from global memory with one byte per
-// lane per k row (32-byte coalesced rows).  The partials of a group are summed exactly
+// v2 has three bodies, chosen per call by the wrapper (kernels/pvq_matmul.py:
+// _v2_body): at m <= 8 the splitk body (pvq_matmul_f_splitk.cuh: v3's
+// split of the contraction over CTAs and its cp.async pulse stream, with
+// f64 partials and f64 FMAs of exact products) when G % 4 == 0, n % 16 == 0,
+// the pulses are 16-byte aligned and x is aligned to 4 elements; at m > 8
+// the f64 tensor-core body (pvq_matmul_f_mma.cuh: mma.sync m16n8k4 .f64 on
+// 64 x 64 tiles) when G % 16 == 0, n % 16 == 0 and the rows are 16-byte
+// aligned; the direct body (pvq_matmul_common.cuh: 8 x 32 CTAs, W read
+// from global memory) otherwise.  The partials of a group are summed exactly
 // (int32; on v2 in f64, rounded to f32 once) BEFORE the group's single rho
 // multiply, so a group is never split across two rho products.  Every float
 // multiply and add after a group's contraction is a separately rounded
@@ -44,7 +46,7 @@
 // bit for bit and v2 does too unless a group's f64 sum lies within its own
 // rounding error of an f32 rounding boundary.
 
-#include "pvq_matmul_f_mma.cuh"
+#include "pvq_matmul_f_splitk.cuh"
 #include "pvq_matmul_mma.cuh"
 
 using namespace pvq;
@@ -65,11 +67,14 @@ extern "C" int pvq_matmul_q_launch(const int8_t* x, const int8_t* w,
 }
 
 // x_bf16: 0 -> x and out are f32, 1 -> x and out are bf16.
-// body: 0 -> direct, 1 -> mma (pvq_matmul_f_mma.cuh, FBody).
+// body: 0 -> direct, 1 -> mma, 2 -> splitk (pvq_matmul_f_splitk.cuh, FBody);
+// cols, chunk, splits, part and counters: the splitk body's plan, f64
+// scratch and arrival counters (ignored by the others).
 extern "C" int pvq_matmul_launch(const void* x, const int8_t* w, const float* rho,
                                  const float* bias, int act, void* out,
                                  int x_bf16, int m, int k, int n, int G,
-                                 int body, void* stream) {
-  return launch_f_stack(x, w, rho, bias, act, out, x_bf16, 1, m, k, n, G, body,
-                        (cudaStream_t)stream);
+                                 int body, int cols, int chunk, int splits, double* part,
+                                 unsigned* counters, void* stream) {
+  return launch_f_stack<OneMatrix>(x, w, rho, bias, act, out, x_bf16, 1, m, k, n, G, body, cols,
+                                   chunk, splits, part, counters, (cudaStream_t)stream);
 }

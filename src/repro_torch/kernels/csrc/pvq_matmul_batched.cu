@@ -33,10 +33,10 @@
 // pvq_matmul_q_batched_plain.  v2 takes the body the wrapper picks
 // (kernels/pvq_matmul.py:_v2_body): at prefill the f64 tensor-core body
 // (pvq_matmul_f_mma.cuh), whose 64-row tiles likewise hold an expert's 60
-// rows, at decode the direct body reading the pulses straight from global
-// memory with f64 FMAs on the CUDA cores.
+// rows, at decode the splitk body (pvq_matmul_f_splitk.cuh: unsplit at 64
+// experts, each CTA's pulse tile streamed through a cp.async ring).
 
-#include "pvq_matmul_f_mma.cuh"
+#include "pvq_matmul_f_splitk.cuh"
 #include "pvq_matmul_mma.cuh"
 
 using namespace pvq;
@@ -57,10 +57,12 @@ extern "C" int pvq_matmul_q_batched_launch(const int8_t* x, const int8_t* w, con
 }
 
 // Batched kernel v2 over E experts: x and out (E, m, k) / (E, m, n), f32
-// (x_bf16 = 0) or bf16 (x_bf16 = 1), with the given body (0 direct, 1 mma).
+// (x_bf16 = 0) or bf16 (x_bf16 = 1), with the given body (0 direct, 1 mma,
+// 2 splitk with its plan, f64 scratch and counters).
 extern "C" int pvq_matmul_batched_launch(const void* x, const int8_t* w, const float* rho,
                                          int act, void* out, int x_bf16, int e, int m, int k,
-                                         int n, int G, int body, void* stream) {
-  return launch_f_stack(x, w, rho, nullptr, act, out, x_bf16, e, m, k, n, G, body,
-                        (cudaStream_t)stream);
+                                         int n, int G, int body, int cols, int chunk, int splits,
+                                         double* part, unsigned* counters, void* stream) {
+  return launch_f_stack<ExpertStack>(x, w, rho, nullptr, act, out, x_bf16, e, m, k, n, G, body,
+                                     cols, chunk, splits, part, counters, (cudaStream_t)stream);
 }

@@ -1,7 +1,8 @@
 // Device code shared by pvq_matmul.cu (2-D kernels v2 and v3) and
 // pvq_matmul_batched.cu (the same contractions over a leading expert axis):
-// the CTA shape, the fused epilogue and the float-activation kernel v2,
-// whose grid's z axis walks a stack of matrices (gridDim.z = 1 for one).
+// the CTA shape, the fused epilogue and the direct bodies of kernels v2
+// (float activations) and v3 (int8), whose grid's z axis walks a stack of
+// matrices (gridDim.z = 1 for one).
 //
 // A CTA owns 32 output columns (one per lane) and 8 output rows; its 8
 // warps split the contraction of each group in 4-row chunks.  The per-warp
@@ -82,8 +83,12 @@ __device__ __forceinline__ void epilogue(float acc, int orow, int col, int n,
 // lies within its own rounding error of an f32 rounding boundary).  With
 // f32 sums the order showed: at bf16 a last-bit difference rounds a
 // residual element the other way, and a MoE router amplifies that into
-// other experts.
-template <bool kVec4, typename XT>
+// other experts.  The wrapper (kernels/pvq_matmul.py:_v2_body) takes this
+// body for the ragged shapes that the splitk body (m <= 8,
+// pvq_matmul_f_splitk.cuh) and the f64 tensor-core body (m > 8,
+// pvq_matmul_f_mma.cuh) do not take.  The Route tag only names the
+// instance (see pvq_matmul_splitk.cuh).
+template <class Route, bool kVec4, typename XT>
 __global__ void __launch_bounds__(kWarps * 32)
 pvq_matmul_f_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
                     const float* __restrict__ rho, const float* __restrict__ bias,
@@ -159,11 +164,12 @@ inline dim3 grid_for(int m, int n, int stack = 1) {
   return dim3((n + kCols - 1) / kCols, (m + kRows - 1) / kRows, stack);
 }
 
-// Launch kernel v2 over `stack` matrices of (m, k) x (k, n), packed one
-// after another; x and out are f32 (x_bf16 = 0) or bf16 (x_bf16 = 1).
-inline int launch_f(const void* x, const int8_t* w, const float* rho, const float* bias,
-                    int act, void* out, int x_bf16, int stack, int m, int k, int n, int G,
-                    cudaStream_t s) {
+// Launch kernel v2's direct body over `stack` matrices of (m, k) x (k, n),
+// packed one after another; x and out are f32 (x_bf16 = 0) or bf16
+// (x_bf16 = 1).
+template <class Route>
+int launch_f(const void* x, const int8_t* w, const float* rho, const float* bias, int act,
+             void* out, int x_bf16, int stack, int m, int k, int n, int G, cudaStream_t s) {
   if (m <= 0 || n <= 0 || stack <= 0) return 0;
   if (G <= 0 || k % G) return (int)cudaErrorInvalidValue;
   const dim3 grid = grid_for(m, n, stack), block(kWarps * 32);
@@ -172,13 +178,13 @@ inline int launch_f(const void* x, const int8_t* w, const float* rho, const floa
   if (x_bf16) {
     auto* xp = static_cast<const __nv_bfloat16*>(x);
     auto* o = static_cast<__nv_bfloat16*>(out);
-    if (vec4) pvq_matmul_f_kernel<true><<<grid, block, 0, s>>>(xp, w, rho, bias, act, o, m, k, n, G, sx, sw, ss, so);
-    else pvq_matmul_f_kernel<false><<<grid, block, 0, s>>>(xp, w, rho, bias, act, o, m, k, n, G, sx, sw, ss, so);
+    if (vec4) pvq_matmul_f_kernel<Route, true><<<grid, block, 0, s>>>(xp, w, rho, bias, act, o, m, k, n, G, sx, sw, ss, so);
+    else pvq_matmul_f_kernel<Route, false><<<grid, block, 0, s>>>(xp, w, rho, bias, act, o, m, k, n, G, sx, sw, ss, so);
   } else {
     auto* xp = static_cast<const float*>(x);
     auto* o = static_cast<float*>(out);
-    if (vec4) pvq_matmul_f_kernel<true><<<grid, block, 0, s>>>(xp, w, rho, bias, act, o, m, k, n, G, sx, sw, ss, so);
-    else pvq_matmul_f_kernel<false><<<grid, block, 0, s>>>(xp, w, rho, bias, act, o, m, k, n, G, sx, sw, ss, so);
+    if (vec4) pvq_matmul_f_kernel<Route, true><<<grid, block, 0, s>>>(xp, w, rho, bias, act, o, m, k, n, G, sx, sw, ss, so);
+    else pvq_matmul_f_kernel<Route, false><<<grid, block, 0, s>>>(xp, w, rho, bias, act, o, m, k, n, G, sx, sw, ss, so);
   }
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,7 @@
 // Kernel v2's f64 tensor-core body for m > 8 (the f32 leg's prefill), shared
 // by the 2-D route (pvq_matmul.cu, gridDim.z = 1) and the expert-batched
-// route (pvq_matmul_batched.cu, blockIdx.z is the expert), and the launcher
-// that picks between v2's two bodies.
+// route (pvq_matmul_batched.cu, blockIdx.z is the expert); the launcher that
+// picks between v2's three bodies is in pvq_matmul_f_splitk.cuh.
 //
 // Replaces src/repro/kernels/pvq_matmul.py:_accumulate_int8 as pvq_matmul
 // (:229) and pvq_matmul_batched (:250) reach it: each group of G k rows of
@@ -83,7 +83,8 @@ __device__ __forceinline__ double to_f64(__nv_bfloat16 v) { return (double)__bfl
 // 16-byte chunk slot of chunk c in staged pulse row r (64-byte rows)
 __device__ __forceinline__ int f_pulse_chunk(int r, int c) { return c ^ (((r >> 1) & 1) << 1); }
 
-template <int kBK, typename XT>
+// The Route tag only names the instance (see pvq_matmul_splitk.cuh).
+template <class Route, int kBK, typename XT>
 __global__ void __launch_bounds__(kFWarps * 32, 3)
 pvq_matmul_f_mma_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
                         const float* __restrict__ rho, const float* __restrict__ bias,
@@ -223,12 +224,12 @@ pvq_matmul_f_mma_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
     }
 }
 
-template <int kBK, typename XT>
+template <class Route, int kBK, typename XT>
 int launch_f_mma(const XT* x, const int8_t* w, const float* rho, const float* bias, int act,
                  XT* out, int e, int m, int k, int n, int G, cudaStream_t s) {
   constexpr size_t smem =
       (size_t)kFStages * (kFBM * (kBK * sizeof(XT) + kFXPad) + kBK * kFBN);
-  auto* fn = pvq_matmul_f_mma_kernel<kBK, XT>;
+  auto* fn = pvq_matmul_f_mma_kernel<Route, kBK, XT>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -237,34 +238,6 @@ int launch_f_mma(const XT* x, const int8_t* w, const float* rho, const float* bi
   const dim3 grid((n + kFBN - 1) / kFBN, (m + kFBM - 1) / kFBM, e);
   fn<<<grid, kFWarps * 32, smem, s>>>(x, w, rho, bias, act, out, m, k, n, G);
   return (int)cudaGetLastError();
-}
-
-// Kernel v2's bodies; the caller picks one (kernels/pvq_matmul.py:_v2_body).
-enum FBody { kFBodyDirect = 0, kFBodyMma = 1 };
-
-// Launch kernel v2 over `stack` matrices of (m, k) x (k, n), packed one
-// after another, with the given body; x and out are f32 (x_bf16 = 0) or
-// bf16 (x_bf16 = 1), bias (n) is shared.  The mma body needs G % 16 == 0,
-// n % 16 == 0 and 16-byte aligned x, w and rho; the launch fails otherwise.
-inline int launch_f_stack(const void* x, const int8_t* w, const float* rho, const float* bias,
-                          int act, void* out, int x_bf16, int stack, int m, int k, int n, int G,
-                          int body, cudaStream_t s) {
-  if (body == kFBodyDirect)
-    return launch_f(x, w, rho, bias, act, out, x_bf16, stack, m, k, n, G, s);
-  if (body != kFBodyMma) return (int)cudaErrorInvalidValue;
-  if (stack <= 0 || m <= 0 || n <= 0) return 0;
-  if (G <= 0 || k % G || G % 16 || n % 16 ||
-      (((uintptr_t)x | (uintptr_t)w | (uintptr_t)rho) & 15))
-    return (int)cudaErrorInvalidValue;
-#define PVQ_LAUNCH_F_MMA(XT)                                                                  \
-  return G % 32 == 0                                                                         \
-             ? launch_f_mma<32>(static_cast<const XT*>(x), w, rho, bias, act,                \
-                                static_cast<XT*>(out), stack, m, k, n, G, s)                 \
-             : launch_f_mma<16>(static_cast<const XT*>(x), w, rho, bias, act,                \
-                                static_cast<XT*>(out), stack, m, k, n, G, s)
-  if (x_bf16) PVQ_LAUNCH_F_MMA(__nv_bfloat16);
-  PVQ_LAUNCH_F_MMA(float);
-#undef PVQ_LAUNCH_F_MMA
 }
 
 }  // namespace pvq

@@ -60,9 +60,12 @@ constexpr int kSplitRow = kSplitCols + 16;                 // staged pulse row, 
 constexpr int kSplitSlots = 3;                             // stage slots in shared memory
 constexpr int kSplitMaxStage = 256;                        // k rows a stage at most
 
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+// kBytes (4, 8 or 16) from global to shared memory, through L1
+template <int kBytes>
+__device__ __forceinline__ void cp_async_ca(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" :: "r"(s), "l"(gmem) : "memory");
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
+               :: "r"(s), "l"(gmem), "n"(kBytes) : "memory");
 }
 
 // One stage slot: srows pulse rows of kSplitRow bytes, then x's kM x srows slice.
@@ -124,7 +127,7 @@ pvq_matmul_q_splitk_kernel(const int8_t* __restrict__ x, const int8_t* __restric
     }
     for (int i = tid; i < kM * srows / 4; i += kSplitThreads) {
       const int r = i / (srows / 4), c = i % (srows / 4);
-      cp_async4(xs + 4 * i, x + (size_t)r * k + kb + 4 * c);
+      cp_async_ca<4>(xs + 4 * i, x + (size_t)r * k + kb + 4 * c);
     }
   };
 
@@ -265,12 +268,12 @@ pvq_matmul_q_splitk_kernel(const int8_t* __restrict__ x, const int8_t* __restric
   }
 }
 
-// k rows a stage: the largest multiple of 4 up to kSplitMaxStage that
-// divides the piece a CTA walks inside one group (the group unsplit, else
-// the chunk).
-inline int splitk_stage_rows(int G, int chunk, int splits) {
+// k rows a stage: the largest multiple of 4 up to max_rows that divides
+// the piece a CTA walks inside one group (the group unsplit, else the
+// chunk).
+inline int splitk_stage_rows(int G, int chunk, int splits, int max_rows = kSplitMaxStage) {
   const int piece = splits == 1 ? G : chunk;
-  for (int d = kSplitMaxStage; d > 4; d -= 4)
+  for (int d = max_rows; d > 4; d -= 4)
     if (piece % d == 0) return d;
   return 4;
 }

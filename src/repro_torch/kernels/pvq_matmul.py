@@ -26,7 +26,7 @@ ACTIVATIONS = ("none", "relu", "relu2", "gelu", "silu")
 #: kernel v3's bodies, in the C launchers' numbering
 V3_BODIES = ("splitk", "direct", "mma")
 #: kernel v2's bodies, in the C launchers' numbering
-V2_BODIES = ("direct", "mma")
+V2_BODIES = ("direct", "mma", "splitk")
 
 #: finite attention mask value (a fully masked block merges out with weight 0)
 ATTN_NEG_INF = -1e30
@@ -159,22 +159,33 @@ def _v2_mma_fits(k: int, n: int, group: int, x_ptr: int, w_ptr: int,
             and x_ptr % 16 == 0 and w_ptr % 16 == 0)
 
 
+def _v2_splitk_fits(k: int, n: int, group: int, x_ptr: int, w_ptr: int,
+                    x_dtype: torch.dtype) -> bool:
+    """Whether v2's splitk body takes the operands: 4-row steps inside a
+    group, 16-byte pulse pieces (n % 16 == 0, aligned pulses) and x staged
+    4 elements a copy (x aligned to 4 of its elements)."""
+    return (group % 4 == 0 and n % 16 == 0 and w_ptr % 16 == 0
+            and x_ptr % (4 * x_dtype.itemsize) == 0)
+
+
 def _v2_body(m: int, k: int, n: int, group: int, x_ptr: int, w_ptr: int,
              x_dtype: torch.dtype) -> str:
     """Which body of kernel v2 contracts ``m`` rows (per expert) of ``(m, k)
-    x (k, n)``: ``"mma"`` (f64 tensor cores on 64 x 64 tiles) above 8 rows
-    when the operands fit it, ``"direct"`` (f64 FMAs on the CUDA cores, 8 x
-    32 CTAs) otherwise and at every m <= 8 (decode).  Both take each group's
-    dot in f64 and round it to f32 once, as the plain version does."""
+    x (k, n)``: at m <= 8 (decode) ``"splitk"`` (the contraction split over
+    CTAs with f64 partials, see :func:`_v3_decode_plan`) when the operands
+    fit it, above that ``"mma"`` (f64 tensor cores on 64 x 64 tiles) when
+    they fit it, and ``"direct"`` (f64 FMAs on the CUDA cores, 8 x 32 CTAs)
+    for the ragged rest.  Each takes each group's dot in f64 and rounds it
+    to f32 once, as the plain version does."""
     if m <= 8:
-        return "direct"
+        return "splitk" if _v2_splitk_fits(k, n, group, x_ptr, w_ptr, x_dtype) else "direct"
     return "mma" if _v2_mma_fits(k, n, group, x_ptr, w_ptr, x_dtype) else "direct"
 
 
 def _pick_v2_body(body: Optional[str], m, k, n, group, xc, wc) -> str:
     """The rule's body, or ``body`` where a caller names one (the checks
-    that compare bodies on the card); the mma body is refused where the
-    operands do not fit it."""
+    that compare bodies on the card); the mma and splitk bodies are refused
+    where the operands do not fit them."""
     if body is None:
         return _v2_body(m, k, n, group, xc.data_ptr(), wc.data_ptr(), xc.dtype)
     if body not in V2_BODIES:
@@ -182,6 +193,10 @@ def _pick_v2_body(body: Optional[str], m, k, n, group, xc, wc) -> str:
     if body == "mma" and not _v2_mma_fits(k, n, group, xc.data_ptr(), wc.data_ptr(), xc.dtype):
         raise ValueError(f"the v2 mma body needs group % 16 == 0, n % 16 == 0 and 16-byte "
                          f"aligned rows (k {k}, n {n}, group {group}, {xc.dtype})")
+    if body == "splitk" and (m > 8 or not _v2_splitk_fits(k, n, group, xc.data_ptr(),
+                                                          wc.data_ptr(), xc.dtype)):
+        raise ValueError(f"the v2 splitk body needs m <= 8, group % 4 == 0 and n % 16 == 0 "
+                         f"(m {m}, k {k}, n {n}, group {group})")
     return body
 
 
@@ -198,12 +213,14 @@ def pvq_matmul_cuda(
     sc = _cuda_operand(scales, torch.float32, "scales")
     bc = None if bias is None else _cuda_operand(bias, torch.float32, "bias")
     body = _pick_v2_body(_body, m, k, n, group, xc, wc)
+    stream = _stream(x)
+    plan, scratch, counters = _splitk_buffers(body, 1, m, k, n, group, x.device, stream,
+                                              torch.float64)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     status = build.launcher("pvq_matmul_launch")(
-        xc.data_ptr(), wc.data_ptr(), sc.data_ptr(),
-        None if bc is None else bc.data_ptr(), ACTIVATIONS.index(activation),
+        xc.data_ptr(), wc.data_ptr(), sc.data_ptr(), _ptr(bc), ACTIVATIONS.index(activation),
         out.data_ptr(), int(x.dtype == torch.bfloat16), m, k, n, group,
-        V2_BODIES.index(body), _stream(x),
+        V2_BODIES.index(body), *plan, _ptr(scratch), _ptr(counters), stream,
     )
     build.check(status, f"pvq_matmul ({body} body)")
     LAUNCHES["pvq_matmul"] += 1
@@ -294,14 +311,15 @@ SPLITK_COLS = 64
 
 @functools.lru_cache(maxsize=None)
 def _v3_decode_plan(e: int, m: int, k: int, n: int, group: int) -> Tuple[int, int, int]:
-    """``(cols, chunk, splits)`` of the splitk body for ``e`` matrices of
-    ``(m, k) x (k, n)``: CTAs of ``cols`` columns, each contracting ``chunk``
-    k rows; ``splits = k // chunk``.  Where the column blocks alone reach
-    ``SPLITK_TARGET_CTAS`` (the 64-expert banks, a wide ``lm_head``), k is
-    not split (``chunk == k``).  Otherwise the chunk is the largest divisor
-    of the group, a multiple of 4, that reaches the target, but no smaller
-    than ``max(32, 16 m)`` rows (the int32 partials, written and read back,
-    stay at most half the pulse bytes), or the group where that floor
+    """``(cols, chunk, splits)`` of the splitk bodies (v3's and v2's) for
+    ``e`` matrices of ``(m, k) x (k, n)``: CTAs of ``cols`` columns, each
+    contracting ``chunk`` k rows; ``splits = k // chunk``.  Where the column
+    blocks alone reach ``SPLITK_TARGET_CTAS`` (the 64-expert banks, a wide
+    ``lm_head``), k is not split (``chunk == k``).  Otherwise the chunk is
+    the largest divisor of the group, a multiple of 4, that reaches the
+    target, but no smaller than ``max(32, 16 m)`` rows (v3's int32
+    partials, written and read back, stay at most half the pulse bytes,
+    v2's f64 partials at most all of them), or the group where that floor
     exceeds it."""
     cols = SPLITK_COLS
     tiles = e * -(-n // cols)
@@ -313,22 +331,24 @@ def _v3_decode_plan(e: int, m: int, k: int, n: int, group: int) -> Tuple[int, in
     return cols, chunk, k // chunk
 
 
-# (device index, stream) -> the splitk body's arrival counters, zero between
-# calls: the last CTA of each column block resets its counter.  Two launches
-# running at once on one buffer would corrupt each other, so the buffer is
-# per stream; a call splits k only below SPLITK_TARGET_CTAS column blocks, so
-# that many counters serve every call.  A CUDA graph keeps the address of
-# its capture stream's buffer: it must not replay while another launch on
-# that buffer runs (an eager call on the capture stream, or a replay of
-# another graph captured there).
+# (device index, stream) -> the splitk bodies' arrival counters (v3's and
+# v2's), zero between calls: the last CTA of each column block resets its
+# counter.  Two launches running at once on one buffer would corrupt each
+# other, so the buffer is per stream (launches on one stream run one at a
+# time, so v2 and v3 share it); a call splits k only below
+# SPLITK_TARGET_CTAS column blocks, so that many counters serve every call.
+# A CUDA graph keeps the address of its capture stream's buffer: it must
+# not replay while another launch on that buffer runs (an eager call on the
+# capture stream, or a replay of another graph captured there).
 _SPLITK_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def _splitk_buffers(body: str, e: int, m: int, k: int, n: int, group: int,
-                    device: torch.device, stream: int):
+                    device: torch.device, stream: int, partial: torch.dtype = torch.int32):
     """The splitk body's plan ``(cols, chunk, splits)``, a ``torch.empty``
-    int32 scratch for its partials and the stream's counters (both None
-    where the plan does not split k); zeros and None for the other bodies."""
+    scratch for its ``(e, splits, m, n)`` partials (int32 for v3, f64 for
+    v2) and the stream's counters (both None where the plan does not split
+    k); zeros and None for the other bodies."""
     if body != "splitk":
         return (0, 0, 0), None, None
     plan = _v3_decode_plan(e, m, k, n, group)
@@ -338,7 +358,7 @@ def _splitk_buffers(body: str, e: int, m: int, k: int, n: int, group: int,
     if counters is None:
         counters = torch.zeros(SPLITK_TARGET_CTAS, dtype=torch.int32, device=device)
         _SPLITK_COUNTERS[(device.index, stream)] = counters
-    scratch = torch.empty(e * plan[2] * m * n, dtype=torch.int32, device=device)
+    scratch = torch.empty((e, plan[2], m, n), dtype=partial, device=device)
     return plan, scratch, counters
 
 
@@ -447,11 +467,14 @@ def pvq_matmul_batched_cuda(
     wc = _cuda_operand(w_pulses, torch.int8, "w_pulses")
     sc = _cuda_operand(scales, torch.float32, "scales")
     body = _pick_v2_body(_body, m, k, n, group, xc, wc)
+    stream = _stream(x)
+    plan, scratch, counters = _splitk_buffers(body, e, m, k, n, group, x.device, stream,
+                                              torch.float64)
     out = torch.empty((e, m, n), dtype=x.dtype, device=x.device)
     status = build.launcher("pvq_matmul_batched_launch")(
         xc.data_ptr(), wc.data_ptr(), sc.data_ptr(), ACTIVATIONS.index(activation),
         out.data_ptr(), int(x.dtype == torch.bfloat16), e, m, k, n, group,
-        V2_BODIES.index(body), _stream(x),
+        V2_BODIES.index(body), *plan, _ptr(scratch), _ptr(counters), stream,
     )
     build.check(status, f"pvq_matmul_batched ({body} body)")
     LAUNCHES["pvq_matmul_batched"] += 1

@@ -14,8 +14,8 @@ the reference leg (f32 activations, dense KV cache: kernel v2 on the packed
 weights) and exits 1 if teacher-forced top-1 agreement is below T.  The
 JSON report adds ``kernel_launches`` (the CUDA launches of each kernel),
 ``v3_body_launches`` (kernel v3's launches by body: splitk, direct, mma),
-``v2_body_launches`` (kernel v2's, the f32 leg's: direct, mma), the packed
-MoE expert banks' bytes, and on a card the peak device memory.
+``v2_body_launches`` (kernel v2's, the f32 leg's: direct, mma, splitk), the
+packed MoE expert banks' bytes, and on a card the peak device memory.
 """
 
 from __future__ import annotations

@@ -4,20 +4,21 @@
     python -m repro_torch.tools.profile_decode --arch deepseek-v2-lite-16b --steps 4
     python -m repro_torch.tools.profile_decode --arch deepseek-v2-lite-16b --prefill
     python -m repro_torch.tools.profile_decode --arch deepseek-v2-lite-16b --prefill --f32
+    python -m repro_torch.tools.profile_decode --arch deepseek-v2-lite-16b --f32 --steps 4
 
 Packs the model (as ``serve --pvq``), prefills with ``--act-int8 --kv-pvq``
 in effect (an MLA model's latent cache stays dense), runs two warm-up
 decode steps, then traces ``--steps`` decode steps with ``torch.profiler``
 (CPU + CUDA activity).  With ``--prefill`` it traces one prefill of the
-batch instead, after a warm one; ``--f32`` makes that the f32 leg of
+batch instead, after a warm one.  ``--f32`` runs either as the f32 leg of
 ``serve --agreement-min`` (f32 activations and a dense cache, kernel v2 on
-the packed weights).  Prints one JSON object: the host wall time per step
-(or prefill), the device time summed over every CUDA kernel (ours
-included: CUPTI traces them by name), the device's idle share, the launch
-count, kernels v3's and v2's device time, calls and share (v3's also by
-route: the 2-D matrices against the expert-batched banks, told apart by the
-Route tag in the kernels' names, and by body), and the kernels with the most
-device time.
+the packed weights, as ``serve.teacher_forced_logits`` runs it).  Prints
+one JSON object: the host wall time per step (or prefill), the device time
+summed over every CUDA kernel (ours included: CUPTI traces them by name),
+the device's idle share, the launch count, kernels v3's and v2's device
+time, calls and share, each also by route (the 2-D matrices against the
+expert-batched banks, told apart by the Route tag in the kernels' names)
+and by body, and the kernels with the most device time.
 """
 
 from __future__ import annotations
@@ -47,10 +48,8 @@ def main(argv=None) -> int:
     ap.add_argument("--prefill", action="store_true",
                     help="trace one prefill (after a warm one) instead of decode steps")
     ap.add_argument("--f32", action="store_true",
-                    help="with --prefill: the f32 leg (f32 activations, dense cache)")
+                    help="the f32 leg (f32 activations, dense cache): kernel v2")
     args = ap.parse_args(argv)
-    if args.f32 and not args.prefill:
-        ap.error("--f32 traces the f32 leg's prefill: it needs --prefill")
     if not torch.cuda.is_available():
         raise RuntimeError("profile_decode measures the card: no CUDA device")
     from torch.profiler import ProfilerActivity, profile
@@ -114,19 +113,22 @@ def _report(prof, wall: float, units: int, args, cfg, unit: str) -> dict:
         hits = [v for name, v in kernels.items() if all(p in name for p in parts)]
         return sum(v[0] for v in hits), sum(v[1] for v in hits)
 
-    (v3_us, v3_calls), (mma_us, _) = by_name("pvq_matmul_q_"), by_name("pvq_matmul_q_mma")
-    v3_by_route = {
-        route: {f"ms_per_{unit}": us / 1e3 / units, f"calls_per_{unit}": n / units}
-        for route, (us, n) in (("2d", by_name("pvq_matmul_q_", "OneMatrix")),
-                               ("batched", by_name("pvq_matmul_q_", "ExpertStack")))
-    }
-    v3_by_body = {
-        body: {f"ms_per_{unit}": us / 1e3 / units, f"calls_per_{unit}": n / units}
-        for body, (us, n) in (("splitk", by_name("pvq_matmul_q_splitk")),
-                              ("mma", by_name("pvq_matmul_q_mma")),
-                              ("direct", by_name("pvq_matmul_q_kernel")))
-    }
-    (v2_us, v2_calls), (v2_mma_us, v2_mma_calls) = by_name("pvq_matmul_f_"), by_name("pvq_matmul_f_mma")
+    def split(groups):
+        return {key: {f"ms_per_{unit}": us / 1e3 / units, f"calls_per_{unit}": n / units}
+                for key, (us, n) in groups}
+
+    v3_us, v3_calls = by_name("pvq_matmul_q_")
+    v3_by_route = split((("2d", by_name("pvq_matmul_q_", "OneMatrix")),
+                         ("batched", by_name("pvq_matmul_q_", "ExpertStack"))))
+    v3_by_body = split((("splitk", by_name("pvq_matmul_q_splitk")),
+                        ("mma", by_name("pvq_matmul_q_mma")),
+                        ("direct", by_name("pvq_matmul_q_kernel"))))
+    v2_us, v2_calls = by_name("pvq_matmul_f_")
+    v2_by_route = split((("2d", by_name("pvq_matmul_f_", "OneMatrix")),
+                         ("batched", by_name("pvq_matmul_f_", "ExpertStack"))))
+    v2_by_body = split((("splitk", by_name("pvq_matmul_f_splitk")),
+                        ("mma", by_name("pvq_matmul_f_mma")),
+                        ("direct", by_name("pvq_matmul_f_kernel"))))
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[: args.top]
     unit_ms = 1e3 * wall / units
     device_ms = device_us / 1e3 / units
@@ -141,12 +143,11 @@ def _report(prof, wall: float, units: int, args, cfg, unit: str) -> dict:
         f"v3_calls_per_{unit}": v3_calls / units,
         "v3_by_route": v3_by_route,
         "v3_by_body": v3_by_body,
-        f"v3_mma_ms_per_{unit}": mma_us / 1e3 / units,
         "v3_share_of_device_time": v3_us / device_us if device_us else None,
         f"v2_ms_per_{unit}": v2_us / 1e3 / units,
         f"v2_calls_per_{unit}": v2_calls / units,
-        f"v2_mma_ms_per_{unit}": v2_mma_us / 1e3 / units,
-        f"v2_mma_calls_per_{unit}": v2_mma_calls / units,
+        "v2_by_route": v2_by_route,
+        "v2_by_body": v2_by_body,
         "v2_share_of_device_time": v2_us / device_us if device_us else None,
         "leg": "f32" if args.f32 else "served",
         "top_kernels": [

@@ -10,7 +10,7 @@ Every test skips without a CUDA card.  Tolerances: the encoder, kernel v3
 (without the tanh-gelu epilogue) and kernel v4
 are identical to their plain versions (same float operation order, no FMA
 contraction, the plain versions' fixed summation trees); kernel v2 (each
-of its two bodies: direct, mma), its batched form and the gelu epilogue
+of its three bodies: splitk, direct, mma), its batched form and the gelu epilogue
 within ``rtol=1e-5, atol=1e-5 * max|y|`` (v2's group sums run in f64 in
 another order, so a sum lying on an f32 rounding boundary may round the
 other way; ``tanhf``); v2's bf16 output after a gelu or silu epilogue,
@@ -41,10 +41,16 @@ def _body_launches_since(before):
     return {body: V3_BODY_LAUNCHES[body] - before[body] for body in V3_BODY_LAUNCHES}
 
 
+def _v2_launches_since(before):
+    return {body: V2_BODY_LAUNCHES[body] - before[body] for body in V2_BODY_LAUNCHES}
+
+
 @needs_cuda
 # m <= 8 splits the contraction over CTAs (splitk) when n % 16 == 0 and the
 # group is a multiple of 4; the ragged rest, and m > 8 with n % 16 != 0 or a
-# group not divisible by 32, read the pulses directly (the dp4a body)
+# group not divisible by 32, read the pulses directly (the dp4a body).  v2
+# takes the body of the same name on each of these shapes (its mma body, m
+# > 8, needs n % 16 == 0 too)
 @pytest.mark.parametrize("m,k,n,group,body", [(4, 1024, 960, 256, "splitk"), (7, 96, 40, 32, "direct"),
                                               (3, 64, 24, 16, "direct"), (2, 12, 5, 6, "direct"),
                                               (20, 96, 40, 32, "direct"), (11, 12, 5, 6, "direct")])
@@ -55,6 +61,7 @@ def test_cuda_matmuls_match_plain(m, k, n, group, body):
     scales = torch.rand(k // group, n, generator=gen).to(dev)
     x = torch.randn(m, k, generator=gen).to(dev)
     bias = torch.randn(n, generator=gen).to(dev)
+    before_v2 = dict(V2_BODY_LAUNCHES)
     for act in port_mm.ACTIVATIONS:
         got = port_mm.pvq_matmul_cuda(x, pulses, scales, bias, group=group, activation=act)
         want = port_mm.pvq_matmul_plain(x, pulses, scales, bias, group=group, activation=act)
@@ -62,6 +69,7 @@ def test_cuda_matmuls_match_plain(m, k, n, group, body):
     xb = x.to(torch.bfloat16)
     _close(port_mm.pvq_matmul_cuda(xb, pulses, scales, group=group),
            port_mm.pvq_matmul_plain(xb, pulses, scales, group=group), rtol=1e-2)
+    assert _v2_launches_since(before_v2) == {b: 6 if b == body else 0 for b in V2_BODY_LAUNCHES}
     before = dict(V3_BODY_LAUNCHES)
     for mode in ("per_row", "per_tile", "per_tensor"):
         xq, a = ops._quantize_x(x, port_q.ActQuant(mode), group)
@@ -193,10 +201,11 @@ def test_cuda_batched_kernels_match_plain(e, m, k, n, group):
     gen = torch.Generator(device=dev).manual_seed(e + m + k)
     pulses, scales = _bank(gen, e, k, n, group, dev)
     if m <= 8:
-        body = "splitk" if group % 4 == 0 and n % 16 == 0 else "direct"
+        body = v2_body = "splitk" if group % 4 == 0 and n % 16 == 0 else "direct"
     else:
         body = "mma" if group % 32 == 0 and n % 16 == 0 else "direct"
-    before = dict(V3_BODY_LAUNCHES)
+        v2_body = "mma" if group % 16 == 0 and n % 16 == 0 else "direct"
+    before, before_v2 = dict(V3_BODY_LAUNCHES), dict(V2_BODY_LAUNCHES)
     x = torch.randn(e, m, k, generator=gen, device=dev)
     x_q, a = port_q.quantize_activations(x)
     for act in ("none", "silu"):
@@ -218,6 +227,7 @@ def test_cuda_batched_kernels_match_plain(e, m, k, n, group):
            port_mm.pvq_matmul_batched_plain(xb, pulses, scales, group=group), rtol=1e-2)
     launched = _body_launches_since(before)
     assert launched[body] > 0 and sum(launched.values()) == launched[body], launched
+    assert _v2_launches_since(before_v2) == {b: 3 if b == v2_body else 0 for b in V2_BODY_LAUNCHES}
 
 
 @needs_cuda
@@ -441,10 +451,6 @@ def test_ops_route_stacked_banks_to_the_batched_kernels():
     assert LAUNCHES["pvq_matmul_q_batched"] == before["pvq_matmul_q_batched"] + 1
 
 
-def _v2_launches_since(before):
-    return {body: V2_BODY_LAUNCHES[body] - before[body] for body in V2_BODY_LAUNCHES}
-
-
 def _v2_tol(dtype, act):
     return 1e-2 if dtype == torch.bfloat16 and act in ("gelu", "silu") else 1e-5
 
@@ -479,26 +485,35 @@ def test_cuda_v2_mma_body_matches_plain(m, group, dtype):
         want = port_mm.pvq_matmul_batched_plain(x, pulses, scales, group=group, activation=act)
         _close(got, want, rtol=_v2_tol(dtype, act))
         calls += 1
-    assert _v2_launches_since(before) == {"direct": 0, "mma": calls}
+    assert _v2_launches_since(before) == {"direct": 0, "mma": calls, "splitk": 0}
 
 
 @needs_cuda
 def test_forced_v2_bodies_agree_and_mma_refuses_what_it_cannot_take():
-    """The private body argument runs each v2 body on one shape (both agree
-    with the plain version), and the mma body raises on operands outside its
-    preconditions instead of running the direct body."""
+    """The private body argument runs each v2 body on one shape (each agrees
+    with the plain version; the splitk body on the first 8 rows), and the
+    mma and splitk bodies raise on operands outside their preconditions
+    instead of running the direct body."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(6)
     k, n, group = 512, 96, 64
     pulses = torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8, device=dev)
     scales = torch.rand(k // group, n, generator=gen, device=dev)
     x = torch.randn(40, k, generator=gen, device=dev)
-    want = port_mm.pvq_matmul_plain(x, pulses, scales, group=group)
     before = dict(V2_BODY_LAUNCHES)
     for body in port_mm.V2_BODIES:
-        _close(port_mm.pvq_matmul_cuda(x, pulses, scales, group=group, _body=body), want)
-    assert _v2_launches_since(before) == {"direct": 1, "mma": 1}
+        rows = slice(0, 8) if body == "splitk" else slice(None)
+        want = port_mm.pvq_matmul_plain(x[rows], pulses, scales, group=group)
+        _close(port_mm.pvq_matmul_cuda(x[rows], pulses, scales, group=group, _body=body), want)
+    assert _v2_launches_since(before) == {"direct": 1, "mma": 1, "splitk": 1}
     before = dict(V2_BODY_LAUNCHES)
+    with pytest.raises(ValueError, match="v2 splitk body"):  # more than 8 rows
+        port_mm.pvq_matmul_cuda(x, pulses, scales, group=group, _body="splitk")
+    with pytest.raises(ValueError, match="v2 splitk body"):  # n % 16 != 0
+        port_mm.pvq_matmul_cuda(x[:4], pulses[:, :40], scales[:, :40], group=group, _body="splitk")
+    with pytest.raises(ValueError, match="v2 splitk body"):  # n % 16 != 0, batched
+        port_mm.pvq_matmul_batched_cuda(x[None, :4, :96], pulses[None, :96, :40],
+                                        scales[None, :1, :40], group=96, _body="splitk")
     with pytest.raises(ValueError, match="v2 mma body"):  # n % 16 != 0
         port_mm.pvq_matmul_cuda(x, pulses[:, :40], scales[:, :40], group=group, _body="mma")
     with pytest.raises(ValueError, match="v2 mma body"):  # a group not a multiple of 16
@@ -506,4 +521,144 @@ def test_forced_v2_bodies_agree_and_mma_refuses_what_it_cannot_take():
     with pytest.raises(ValueError, match="v2 mma body"):
         port_mm.pvq_matmul_batched_cuda(x[None, :, :96], pulses[None, :96], scales[None, :4],
                                         group=24, _body="mma")
-    assert _v2_launches_since(before) == {"direct": 0, "mma": 0}
+    assert _v2_launches_since(before) == {"direct": 0, "mma": 0, "splitk": 0}
+
+
+def _v2_cases(e, m, k, n, group, dtype, gen, dev):
+    """Pulses over the whole int8 range, rho, bias and x (``dtype``) for a v2
+    check over ``e`` matrices."""
+    pulses = torch.randint(-127, 128, (e, k, n), generator=gen, dtype=torch.int8, device=dev)
+    scales = torch.rand(e, k // group, n, generator=gen, device=dev)
+    bias = torch.randn(n, generator=gen, device=dev)
+    x = torch.randn(e, m, k, generator=gen, device=dev).to(dtype)
+    return pulses, scales, bias, x
+
+
+@needs_cuda
+@pytest.mark.parametrize("n", [16, 320, 960, 2560, 40])
+@pytest.mark.parametrize("ngroups", [1, 4])
+@pytest.mark.parametrize("group", [32, 64, 128, 256])
+@pytest.mark.parametrize("m", range(1, 9))
+def test_cuda_v2_splitk_body_matches_plain(m, group, ngroups, n):
+    """At m <= 8 kernel v2 takes the splitk body (n 40: the direct body) and
+    agrees with its plain version: f32 and bf16 x, with and without bias,
+    each activation.  One group (k = group) and four; the plan splits k over
+    CTAs on these few column blocks, into pieces of a group."""
+    dev = torch.device("cuda")
+    k = group * ngroups
+    gen = torch.Generator(device=dev).manual_seed(m * 131 + group + n + k)
+    body = "splitk" if n % 16 == 0 else "direct"
+    before = dict(V2_BODY_LAUNCHES)
+    calls = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        pulses, scales, bias, x = _v2_cases(1, m, k, n, group, dtype, gen, dev)
+        for act in port_mm.ACTIVATIONS:
+            for b in (None, bias):
+                got = port_mm.pvq_matmul_cuda(x[0], pulses[0], scales[0], b, group=group,
+                                              activation=act)
+                want = port_mm.pvq_matmul_plain(x[0], pulses[0], scales[0], b, group=group,
+                                                activation=act)
+                assert got.dtype == dtype
+                _close(got, want, rtol=_v2_tol(dtype, act))
+                calls += 1
+    assert _v2_launches_since(before) == {b: calls if b == body else 0 for b in V2_BODY_LAUNCHES}
+    assert _splitk_counters_are_zero()
+
+
+@needs_cuda
+@pytest.mark.parametrize(
+    "e,m,k,n,group",
+    [
+        (64, 1, 2048, 1408, 256),  # up / gate at decode: no split, 8 stages through 3 slots
+        (64, 1, 1536, 2048, 256),  # wo at decode
+        (300, 5, 1024, 16, 128),   # 300 column blocks: no split, 8 stages
+        (3, 8, 512, 80, 64),       # split k; the second column block is part-filled
+        (2, 4, 256, 48, 4),        # the smallest group: chunks of 4 rows
+    ],
+)
+def test_cuda_v2_splitk_batched_matches_plain(e, m, k, n, group):
+    """The batched route's v2 splitk body agrees with the plain version: f32
+    and bf16 x, each activation."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(e * 5 + m + k + n)
+    before = dict(V2_BODY_LAUNCHES)
+    calls = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        pulses, scales, _, x = _v2_cases(e, m, k, n, group, dtype, gen, dev)
+        for act in port_mm.ACTIVATIONS:
+            got = port_mm.pvq_matmul_batched_cuda(x, pulses, scales, group=group, activation=act)
+            want = port_mm.pvq_matmul_batched_plain(x, pulses, scales, group=group, activation=act)
+            assert got.dtype == dtype
+            _close(got, want, rtol=_v2_tol(dtype, act))
+            calls += 1
+    assert _v2_launches_since(before) == {"direct": 0, "mma": 0, "splitk": calls}
+    assert _splitk_counters_are_zero()
+
+
+@needs_cuda
+@pytest.mark.parametrize("e,m,k,n,group", [(1, 4, 1024, 960, 256), (1, 1, 2048, 102400, 256),
+                                           (64, 1, 2048, 1408, 256), (3, 8, 512, 80, 64)])
+def test_cuda_v2_splitk_calls_in_a_row_and_among_v3_calls_leave_the_counters_at_zero(
+        e, m, k, n, group):
+    """Three v2 calls in a row on one stream, then v2 and v3 calls in turn
+    (the two splitk bodies share the stream's arrival counters), give the
+    same results bit for bit: the last CTA of each column block resets its
+    counter."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(k + n + 1)
+    pulses, scales, _, x = _v2_cases(e, m, k, n, group, torch.float32, gen, dev)
+    xq, a = port_q.quantize_activations(x)
+    if e == 1:
+        def v2(): return port_mm.pvq_matmul_cuda(x[0], pulses[0], scales[0], group=group)
+        def v3(): return port_mm.pvq_matmul_q_cuda(xq[0], pulses[0], scales[0], a[0], group=group)
+        want = port_mm.pvq_matmul_plain(x[0], pulses[0], scales[0], group=group)
+    else:
+        def v2(): return port_mm.pvq_matmul_batched_cuda(x, pulses, scales, group=group)
+        def v3(): return port_mm.pvq_matmul_q_batched_cuda(xq, pulses, scales, a, group=group)
+        want = port_mm.pvq_matmul_batched_plain(x, pulses, scales, group=group)
+    before, before_v3 = dict(V2_BODY_LAUNCHES), dict(V3_BODY_LAUNCHES)
+    first = v2()
+    _close(first, want)
+    outs = [v2() for _ in range(2)]
+    want_q = v3()
+    for _ in range(2):
+        outs.append(v2())
+        assert torch.equal(v3(), want_q)
+    for i, got in enumerate(outs):
+        assert torch.equal(got, first), i
+    assert _v2_launches_since(before)["splitk"] == 5
+    assert _body_launches_since(before_v3)["splitk"] == 3
+    assert _splitk_counters_are_zero()
+
+
+@needs_cuda
+@pytest.mark.parametrize("batched", [False, True])
+def test_cuda_v2_splitk_body_replays_from_a_cuda_graph(batched):
+    """One v2 call captured in a CUDA graph and replayed twice gives the
+    eager result bit for bit (a split-k shape: scratch, counters and all)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    e, m, k, n, group = (3, 8, 512, 80, 64) if batched else (1, 4, 1024, 960, 256)
+    pulses, scales, bias, x = _v2_cases(e, m, k, n, group, torch.float32, gen, dev)
+    if batched:
+        def call(): return port_mm.pvq_matmul_batched_cuda(x, pulses, scales, group=group)
+    else:
+        def call(): return port_mm.pvq_matmul_cuda(x[0], pulses[0], scales[0], bias, group=group,
+                                                   activation="silu")
+    eager = call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()  # warm up off the default stream, as graph capture asks
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = dict(V2_BODY_LAUNCHES)
+    with torch.cuda.graph(graph):
+        out = call()
+    assert _v2_launches_since(before)["splitk"] == 1
+    for replay in range(2):
+        out.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager), replay
+    assert _splitk_counters_are_zero()

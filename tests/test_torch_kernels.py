@@ -370,12 +370,45 @@ V2_MAIN_PATH = [
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("k,n", V2_MAIN_PATH)
 def test_v2_body_on_the_main_paths_shapes(k, n, dtype):
-    """Decode (m 4 on the 2-D matrices, m 1 per expert) takes the direct
+    """Decode (m 4 on the 2-D matrices, m 1 per expert) takes the splitk
     body; prefill (m 512, m 60 per expert) the f64 tensor cores."""
     for m in (1, 4, 8):
-        assert port_mm._v2_body(m, k, n, 256, 4096, 8192, dtype) == "direct"
+        assert port_mm._v2_body(m, k, n, 256, 4096, 8192, dtype) == "splitk"
     for m in (9, 60, 512):
         assert port_mm._v2_body(m, k, n, 256, 4096, 8192, dtype) == "mma"
+
+
+# at m <= 8: a ragged n, a group not divisible by 4, unaligned pulses, and an
+# x not aligned to 4 of its elements (f32: 16 bytes, bf16: 8 bytes)
+@pytest.mark.parametrize("failing,dtype", [
+    (dict(n=40), torch.float32), (dict(n=40), torch.bfloat16),
+    (dict(n=2568), torch.float32), (dict(group=6, k=1020), torch.float32),
+    (dict(group=6, k=1020), torch.bfloat16), (dict(group=18, k=1026), torch.bfloat16),
+    (dict(w_ptr=8200), torch.float32), (dict(w_ptr=8200), torch.bfloat16),
+    (dict(x_ptr=4104), torch.float32), (dict(x_ptr=4100), torch.float32),
+    (dict(x_ptr=4100), torch.bfloat16), (dict(x_ptr=4098), torch.bfloat16),
+])
+@pytest.mark.parametrize("m", [1, 4, 8])
+def test_v2_decode_routes_ragged_or_misaligned_shapes_to_direct(failing, dtype, m):
+    call = {**dict(m=m, k=1024, n=2560, group=256, x_ptr=4096, w_ptr=8192), **failing}
+    assert port_mm._v2_body(**call, x_dtype=dtype) == "direct"
+
+
+def test_v2_splitk_takes_an_x_aligned_to_four_of_its_elements():
+    """bf16 x needs 8-byte alignment for its 4-element copies, f32 16."""
+    assert port_mm._v2_body(4, 1024, 960, 256, 4104, 8192, torch.bfloat16) == "splitk"
+    assert port_mm._v2_body(4, 1024, 960, 256, 4104, 8192, torch.float32) == "direct"
+    assert port_mm._v2_body(4, 96, 48, 4, 16, 32, torch.float32) == "splitk"
+
+
+@pytest.mark.parametrize("m,n,group", [(9, 64, 64), (4, 40, 64), (4, 64, 6)])
+def test_pick_v2_body_refuses_splitk_outside_its_preconditions(m, n, group):
+    k = 4 * group
+    x = torch.zeros(m, k)
+    w = torch.zeros(k, n, dtype=torch.int8)
+    with pytest.raises(ValueError, match="v2 splitk body"):
+        port_mm._pick_v2_body("splitk", m, k, n, group, x, w)
+    assert port_mm._pick_v2_body(None, m, k, n, group, x, w) in ("direct", "mma")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

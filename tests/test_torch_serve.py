@@ -9,6 +9,8 @@
   int8 rounding flip at a random-init near-tie rewrites the suffix).
 * No module of the port, nor ``chip_smoke.py``, imports JAX or the
   reference package.
+* ``tools/profile_decode``: ``--f32`` traces the f32 leg's decode too, and
+  its report splits kernel v2's device time by route and by body.
 """
 
 import json
@@ -120,3 +122,50 @@ def test_port_imports_no_jax_and_no_reference():
     assert len(files) > 10
     offenders = [str(f.relative_to(ROOT)) for f in files if _FORBIDDEN.search(f.read_text())]
     assert offenders == []
+
+
+def test_profile_decode_takes_the_f32_leg_at_decode(monkeypatch):
+    """``--f32`` without ``--prefill`` (the f32 leg's decode steps) passes
+    the parser; with no card the tool refuses to measure."""
+    from repro_torch.tools import profile_decode
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        profile_decode.main(["--f32", "--steps", "2"])
+
+
+def test_profile_report_splits_v2_by_route_and_body(monkeypatch):
+    """Kernel v2's device time, from a trace's kernel names: all of v2, by
+    route (the Route tag) and by body; v3 apart."""
+    from types import SimpleNamespace
+
+    from repro_torch.tools import profile_decode
+
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda i: "test")
+    cuda = torch.autograd.DeviceType.CUDA
+    traced = [
+        ("void pvq::pvq_matmul_f_splitk_kernel<pvq::OneMatrix, 4, float>(float const*)", 10.0),
+        ("void pvq::pvq_matmul_f_splitk_kernel<pvq::ExpertStack, 1, float>(float const*)", 30.0),
+        ("void pvq::pvq_matmul_f_mma_kernel<pvq::OneMatrix, 32, float>(float const*)", 50.0),
+        ("void pvq::pvq_matmul_f_kernel<pvq::ExpertStack, true, float>(float const*)", 70.0),
+        ("void pvq::pvq_matmul_q_splitk_kernel<pvq::OneMatrix, 4, float>(signed char const*)", 5.0),
+        ("void at::native::elementwise_kernel<128, 2>()", 1.0),
+    ]
+    events = [SimpleNamespace(device_type=cuda, name=name, device_time_total=us)
+              for name, us in traced]
+    report = profile_decode._report(
+        SimpleNamespace(events=lambda: events), 1.0, 2,
+        SimpleNamespace(batch=4, prompt_len=128, top=3, f32=True), SimpleNamespace(name="m"),
+        "step")
+    assert report["v2_ms_per_step"] == pytest.approx(0.080)
+    assert report["v2_calls_per_step"] == 2.0
+    assert report["v2_by_route"] == {
+        "2d": {"ms_per_step": pytest.approx(0.030), "calls_per_step": 1.0},
+        "batched": {"ms_per_step": pytest.approx(0.050), "calls_per_step": 1.0}}
+    assert report["v2_by_body"] == {
+        "splitk": {"ms_per_step": pytest.approx(0.020), "calls_per_step": 1.0},
+        "mma": {"ms_per_step": pytest.approx(0.025), "calls_per_step": 0.5},
+        "direct": {"ms_per_step": pytest.approx(0.035), "calls_per_step": 0.5}}
+    assert report["v3_ms_per_step"] == pytest.approx(0.0025)
+    assert report["kernel_launches_per_step"] == 3.0
+    assert report["leg"] == "f32"
