@@ -15,7 +15,7 @@ order, it:
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds every hand-written kernel from ``src/repro_torch/kernels/csrc``,
    and prints what ``nvcc -Xptxas -v`` reports for kernels v3's and v2's
-   decode bodies (registers, spills);
+   decode bodies and for kernel v4 (registers, spills);
 3. holds each kernel against its plain PyTorch version on the card at the
    full-width main-path shapes (smollm-360m for the encoder, v2, v3 and v4;
    deepseek-v2-lite-16b's 2-D decode matrices for v3 and v2 too, and its
@@ -29,7 +29,10 @@ order, it:
    call's kernels under ``torch.profiler`` over 20 launches, each after an
    L2 flush, without the wrapper's host time that ``ms`` holds; v2's decode
    rows (its splitk body) also time v2's direct body on the same inputs
-   (``direct_ms``, ``direct_device_ms``).  v3 and v2 at
+   (``direct_ms``, ``direct_device_ms``); v4 is timed at smollm's decode
+   (S 160), CI's prompt-512 smoke at full width (S 520) and smollm's
+   published context (S 2048, batch 4 and 1), the first also with the L2 warm
+   (``warm_ms``, ``warm_device_ms``).  v3 and v2 at
    prefill (one smollm layer's 7 matmuls and deepseek's lm_head at m 512,
    one MoE layer's banks at m 60; v2's banks in f32 and bf16 x) must take
    their tensor-core bodies (int8 for v3, f64 for v2), and are timed beside
@@ -54,7 +57,9 @@ order, it:
    kernel path and plain path differ, and prints the peak device memory;
 6. serves both reduced models the same way, where the serve gate (top-1
    agreement >= 0.99 of the served leg with the f32 leg, CI's
-   configuration) must hold;
+   configuration) must hold, then CI's long-context ``--kv-pvq`` smoke
+   (reduced smollm, batch 1, prompt 512, 8 new tokens) under the same
+   gate, with kernel v4 launched and ``kv_bytes_ratio_vs_f32 <= 0.35``;
 7. prints the ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
 
 Any failed phase, kernel mismatch or missed gate raises.  The full-width
@@ -95,6 +100,13 @@ REDUCED_SERVE = [
     "--pvq", "--act-int8", "--kv-pvq", "--kv-block", "8", "--kv-group", "16",
     "--agreement-min", "0.99", "--seed", "0",
 ]
+# CI's long-context PVQ-KV serve smoke (ci.yml:88-98), as CI runs it: 16
+# full KV blocks plus the tail at prompt 512, kernel v4 on every decode step
+CI_LONG_SERVE = [
+    "--arch", "smollm-360m", "--reduced", "--batch", "1", "--prompt-len", "512", "--gen", "8",
+    "--pvq", "--act-int8", "--kv-pvq", "--agreement-min", "0.99",
+]
+KV_BYTES_RATIO_MAX = 0.35  # CI's gate on that smoke
 MOE_ARCH = "deepseek-v2-lite-16b"
 MOE_FULL_SERVE = [
     "--arch", MOE_ARCH, "--batch", str(BATCH), "--prompt-len", str(PROMPT), "--gen", str(GEN),
@@ -156,15 +168,18 @@ class Timer:
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")
-        self.queued = []  # (fn, [(target dict, key, weight)])
+        # the same fill kernel on 16 bytes: marks launches without evicting L2
+        self.mark = torch.empty(16, dtype=torch.uint8, device="cuda")
+        self.queued = []  # (fn, [(target dict, key, weight)], flush)
 
-    def __call__(self, fn, reps: int = 15, warmup: int = 2) -> float:
+    def __call__(self, fn, reps: int = 15, warmup: int = 2, flush: bool = True) -> float:
         torch = self.torch
+        clear = self.flush if flush else self.mark
         for _ in range(warmup):
             fn()
         times = []
         for _ in range(reps):
-            self.flush.zero_()
+            clear.zero_()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -174,18 +189,20 @@ class Timer:
             times.append(start.elapsed_time(end))
         return statistics.median(times)
 
-    def device_later(self, fn, *targets) -> None:
+    def device_later(self, fn, *targets, flush: bool = True) -> None:
         """Queues ``fn`` (already warm; its tensors bound, e.g. by
         ``functools.partial``): ``measure_device`` adds weight times its
-        device ms to ``target[key]`` for each ``(target, key, weight)``."""
-        self.queued.append((fn, targets))
+        device ms to ``target[key]`` for each ``(target, key, weight)``.
+        With ``flush=False`` the L2 stays warm between its launches."""
+        self.queued.append((fn, targets, flush))
 
     def _trace(self, calls, reps):
-        """One ``torch.profiler`` trace of ``calls``: a lone flush first (its
-        kernel's name marks the flushes), then for each call ``reps`` times a
-        flush and the call; the kernels between two flushes, in device
-        order, are one launch's.  Returns each launch's device us, or None
-        where the trace lost events."""
+        """One ``torch.profiler`` trace of ``calls`` (``(fn, flush)`` pairs):
+        a lone flush first (its kernel's name marks the flushes), then for
+        each call ``reps`` times a flush (or the same fill kernel on 16
+        bytes, which leaves L2 warm) and the call; the kernels between two
+        marks, in device order, are one launch's.  Returns each launch's
+        device us, or None where the trace lost events."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
 
@@ -193,9 +210,10 @@ class Timer:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             self.flush.zero_()
             torch.cuda.synchronize()
-            for fn in calls:
+            for fn, flush in calls:
+                clear = self.flush if flush else self.mark
                 for _ in range(reps):
-                    self.flush.zero_()
+                    clear.zero_()
                     fn()
             torch.cuda.synchronize()
         kernels = sorted((evt.time_range.start, evt.name, float(evt.device_time_total))
@@ -221,12 +239,12 @@ class Timer:
         for at in range(0, len(self.queued), per_trace):
             chunk = self.queued[at:at + per_trace]
             for _ in range(attempts):
-                launches = self._trace([fn for fn, _ in chunk], reps)
+                launches = self._trace([(fn, flush) for fn, _, flush in chunk], reps)
                 if launches is not None:
                     break
             else:
                 fail(f"torch.profiler lost device events in {attempts} traces in a row")
-            for i, (_, targets) in enumerate(chunk):
+            for i, (_, targets, _) in enumerate(chunk):
                 ms = sum(launches[i * reps:(i + 1) * reps]) / reps / 1e3
                 for target, key, weight in targets:
                     target[key] = target.get(key, 0.0) + weight * ms
@@ -494,50 +512,87 @@ def check_matmuls(torch, timer, mm, ops, quantize, kernels_mod):
     return entries, rows
 
 
-def check_attention(torch, timer, mm, quant):
-    """Kernel v4 at the full-width decode shape, on planes in the packed
-    cache's own (batch 4, S 160, 5 kv heads, X) layout: BH = 20 rows of
-    m = 3 query heads per kv head, hd 64, group 32."""
-    b, n_kv, m, hd, group, s = BATCH, 5, 3, 64, 32, 160
-    bh, ng = b * n_kv, hd // group
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    q_i8, a = quant(torch.randn(bh, m, hd, generator=gen, device="cuda"))
-    kp = torch.randint(-20, 21, (b, s, n_kv, hd), generator=gen, device="cuda", dtype=torch.int8)
-    vp = torch.randint(-20, 21, (b, s, n_kv, hd), generator=gen, device="cuda", dtype=torch.int8)
-    ks = torch.rand(b, s, n_kv, ng, generator=gen, device="cuda") * 0.1
-    vs = torch.rand(b, s, n_kv, ng, generator=gen, device="cuda") * 0.1
-    kv_len = torch.full((bh,), s, dtype=torch.int32, device="cuda")
-    scale = hd ** -0.5
-    args = (q_i8, a, kp, ks, vp, vs, kv_len)
+# kernel v4's timed rows: (what, batch, S) at smollm-360m's full width (5
+# kv heads, m = 3 query heads per kv head, hd 64, KV group 32), planes in
+# the packed cache's own (batch, S, 5, X) layout and every position live:
+# smollm's decode (prompt 128 + 32 new tokens), CI's prompt-512 --kv-pvq
+# smoke (batch 1, 512 + 8), and smollm's published context at batch 4 and
+# at batch 1 (5 CTAs: whether the grid is too thin for a row's passes)
+ATTN_ROWS = [("smollm decode", BATCH, 160), ("ci long-context smoke", 1, 520),
+             ("smollm published context", BATCH, 2048),
+             ("smollm published context, batch 1", 1, 2048)]
+ATTN_N_KV, ATTN_M, ATTN_HD, ATTN_GROUP = 5, 3, 64, 32
+ATTN_SOURCE = "src/repro_torch/kernels/csrc/pvq_attn_decode.cuh"
 
-    kern = partial(mm.pvq_attn_q_cuda, *args, group=group, sm_scale=scale)
-    plain = partial(mm.pvq_attn_q_plain, *args, group=group, sm_scale=scale)
 
-    err = 0.0
-    for name, got, want in zip(("acc", "m", "l"), kern(), plain()):
-        err = max(err, check_close(f"pvq_attn_q {name}", got, want, 0.0))
-
-    def rows(t):  # (b, S, n_kv, X) -> (BH, 1, S, X)
-        return t.permute(0, 2, 1, 3).reshape(bh, 1, s, t.shape[-1])
-
-    kd = rows(kp).float() * torch.repeat_interleave(rows(ks), group, dim=-1)
-    vd = rows(vp).float() * torch.repeat_interleave(rows(vs), group, dim=-1)
-    qf = (q_i8.float() * a)[:, None]
-    library = partial(torch.nn.functional.scaled_dot_product_attention, qf, kd, vd, scale=scale)
-    nbytes = bh * m * hd + 4 * bh * m + 2 * bh * s * hd + 2 * 4 * bh * s * ng + 4 * bh \
+def attn_bytes(bh, m, s, hd, ng):
+    """Bytes v4 must move: int8 q and its f32 scale, the int8 K/V planes and
+    their f32 scales for S live positions, kv_len, f32 acc, m and l."""
+    return bh * m * hd + 4 * bh * m + 2 * bh * s * hd + 2 * 4 * bh * s * ng + 4 * bh \
         + 4 * bh * m * hd + 2 * 4 * bh * m
-    nops = 2.0 * 2 * bh * m * s * hd
-    b_ms, b_by = bound_ms(nbytes, nops, INT8_OPS_PER_S)
-    entry = {
-        "name": "pvq_attn_q", "route": "cuda", "source": "src/repro_torch/kernels/csrc/pvq_attn.cu",
-        "replaces": "src/repro/kernels/pvq_matmul.py:813",
-        "shape": f"BH {bh} (batch {b} x {n_kv} kv heads, cache layout), m {m}, hd {hd}, "
-                 f"group {group}, S {s}",
-        "max_abs_err": err, "ms": timer(kern), "plain_ms": timer(plain), "bound_ms": b_ms,
-        "bound_by": b_by, "library_ms": timer(library), "device_ms_by": DEVICE_MS_BY,
-    }
-    timer.device_later(kern, (entry, "device_ms", 1))
-    timer.device_later(library, (entry, "library_device_ms", 1))
+
+
+def check_attention(torch, timer, mm, quant):
+    """Kernel v4 at each of ``ATTN_ROWS``: identical to its plain version,
+    timed (events and device) beside the plain version and
+    ``scaled_dot_product_attention`` on the dequantized f32 K/V; the first
+    row also with the L2 warm between launches (``warm_ms``,
+    ``warm_device_ms``), as the decode step finds it right after the layer
+    that wrote the cache.  The entry's numbers are the first row's, each
+    row is under ``decode``."""
+    n_kv, m, hd, group = ATTN_N_KV, ATTN_M, ATTN_HD, ATTN_GROUP
+    ng = hd // group
+    scale = hd ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    plan = getattr(mm, "_v4_plan", None)  # a parent tree (--tree) may not have one
+    entry = {"name": "pvq_attn_q", "route": "cuda", "source": ATTN_SOURCE,
+             "replaces": "src/repro/kernels/pvq_matmul.py:813", "device_ms_by": DEVICE_MS_BY}
+    rows = {}
+    for i, (what, b, s) in enumerate(ATTN_ROWS):
+        bh = b * n_kv
+        q_i8, a = quant(torch.randn(bh, m, hd, generator=gen, device="cuda"))
+        kp = torch.randint(-20, 21, (b, s, n_kv, hd), generator=gen, device="cuda",
+                           dtype=torch.int8)
+        vp = torch.randint(-20, 21, (b, s, n_kv, hd), generator=gen, device="cuda",
+                           dtype=torch.int8)
+        ks = torch.rand(b, s, n_kv, ng, generator=gen, device="cuda") * 0.1
+        vs = torch.rand(b, s, n_kv, ng, generator=gen, device="cuda") * 0.1
+        kv_len = torch.full((bh,), s, dtype=torch.int32, device="cuda")
+        args = (q_i8, a, kp, ks, vp, vs, kv_len)
+        kern = partial(mm.pvq_attn_q_cuda, *args, group=group, sm_scale=scale)
+        plain = partial(mm.pvq_attn_q_plain, *args, group=group, sm_scale=scale)
+        err = 0.0
+        for name, got, want in zip(("acc", "m", "l"), kern(), plain()):
+            err = max(err, check_close(f"pvq_attn_q {what} {name}", got, want, 0.0))
+
+        def planes(t):  # (b, S, n_kv, X) -> (BH, 1, S, X)
+            return t.permute(0, 2, 1, 3).reshape(bh, 1, s, t.shape[-1])
+
+        kd = planes(kp).float() * torch.repeat_interleave(planes(ks), group, dim=-1)
+        vd = planes(vp).float() * torch.repeat_interleave(planes(vs), group, dim=-1)
+        qf = (q_i8.float() * a)[:, None]
+        library = partial(torch.nn.functional.scaled_dot_product_attention, qf, kd, vd,
+                          scale=scale)
+        b_ms, b_by = bound_ms(attn_bytes(bh, m, s, hd, ng), 2.0 * 2 * bh * m * s * hd,
+                              INT8_OPS_PER_S)
+        row = {"what": what, "shape": f"BH {bh} (batch {b} x {n_kv} kv heads, cache layout), "
+                                      f"m {m}, hd {hd}, group {group}, S {s}",
+               "plan": list(plan(m, s, hd, group)) if plan else None,
+               "max_abs_err": err, "ms": timer(kern), "plain_ms": timer(plain),
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": timer(library)}
+        # the first row's device times go into the entry too
+        into = [row] + ([entry] if i == 0 else [])
+        timer.device_later(kern, *[(t, "device_ms", 1) for t in into])
+        timer.device_later(library, *[(t, "library_device_ms", 1) for t in into])
+        if i == 0:
+            row["warm_ms"] = timer(kern, flush=False)
+            row["library_warm_ms"] = timer(library, flush=False)
+            timer.device_later(kern, *[(t, "warm_device_ms", 1) for t in into], flush=False)
+            timer.device_later(library, *[(t, "library_warm_device_ms", 1) for t in into],
+                               flush=False)
+            entry.update({k: v for k, v in row.items() if k != "what"})
+        rows[f"S{s}_batch{b}"] = row
+    entry["decode"] = rows
     return entry
 
 
@@ -895,20 +950,28 @@ def serve_full(torch, serve, kernels_mod, mm, enc, quant, routing, argv, *, kvq,
     return counts, bodies, v2_bodies
 
 
-def serve_reduced(serve, argv):
+def serve_reduced(serve, argv, kernels_mod, expect=(), what="reduced"):
+    """A reduced serve: exit 0 and the serve gate (agreement >= 0.99); the
+    kernels named in ``expect`` launched (counts set to 0 just before)."""
+    kernels_mod.reset_launches()
     report, rc = serve.run(argv)
-    print(json.dumps({"serve": "reduced", **report}), flush=True)
+    counts = kernels_mod.launches()
+    print(json.dumps({"serve": what, **report}), flush=True)
     if rc != 0 or report.get("act_int8_top1_agreement", 0.0) < AGREEMENT_MIN:
-        fail(f"reduced serve exited {rc}: {report.get('agreement_fail') or report}")
+        fail(f"{what} serve exited {rc}: {report.get('agreement_fail') or report}")
+    missing = [name for name in expect if counts[name] <= 0]
+    if missing:
+        fail(f"{what} serve never launched {missing}: {counts}")
+    return report
 
 
-def start_ptxas_report(build, nvcc_flags=()):
-    """Starts ``nvcc -Xptxas -v`` on the 2-D kernels' source (a cubin under
-    the build directory), beside the library builds."""
+def start_ptxas_report(build, source="pvq_matmul"):
+    """Starts ``nvcc -Xptxas -v`` on ``csrc/<source>.cu`` (a cubin under the
+    build directory), beside the library builds."""
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cmd = [build.nvcc_path(), *build._ARCH, "-std=c++17", "-O3", "-cubin", "-Xptxas", "-v",
-           *nvcc_flags, "-o", str(build.BUILD_DIR / "ptxas_report.cubin"),
-           str(build.CSRC / "pvq_matmul.cu")]
+           *build.SOURCES[source], "-o", str(build.BUILD_DIR / f"ptxas_{source}.cubin"),
+           str(build.CSRC / f"{source}.cu")]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
@@ -941,8 +1004,10 @@ def ptxas_report(proc, part="splitk"):
         names = subprocess.run([filt], input="\n".join(f["kernel"] for f in found),
                                capture_output=True, text=True, timeout=60).stdout.splitlines()
         if len(names) == len(found):
+            anon = "(anonymous namespace)::"
             for f, demangled in zip(found, names):
-                f["kernel"] = demangled.split("(")[0]
+                inner = demangled[len(anon):] if demangled.startswith(anon) else demangled
+                f["kernel"] = demangled[:len(demangled) - len(inner)] + inner.split("(")[0]
     return found
 
 
@@ -985,12 +1050,14 @@ def main() -> int:
 
     t0 = time.time()
     ptxas = start_ptxas_report(build)
+    ptxas_attn = start_ptxas_report(build, "pvq_attn")
     build.build_all()
     print(json.dumps({"phase": "build", "tree": str(tree), "seconds": round(time.time() - t0, 2)}),
           flush=True)
-    decode_bodies = ptxas_report(ptxas)
+    decode_bodies = ptxas_report(ptxas) + ptxas_report(ptxas_attn, "pvq_attn_q")
     for key, part in (("ptxas_v3_decode_body", "pvq_matmul_q_splitk"),
-                      ("ptxas_v2_decode_body", "pvq_matmul_f_splitk")):
+                      ("ptxas_v2_decode_body", "pvq_matmul_f_splitk"),
+                      ("ptxas_v4", "pvq_attn_q")):
         found = [f for f in decode_bodies if part in f["kernel"]]
         if not found:
             fail(f"nvcc -Xptxas -v reported no {part} kernel")
@@ -1021,8 +1088,13 @@ def main() -> int:
         expect=MOE_KERNELS)
     routing.close()
     torch.cuda.empty_cache()
-    serve_reduced(serve, REDUCED_SERVE)
-    serve_reduced(serve, MOE_REDUCED_SERVE)
+    serve_reduced(serve, REDUCED_SERVE, kernels_mod)
+    serve_reduced(serve, MOE_REDUCED_SERVE, kernels_mod)
+    long_ctx = serve_reduced(serve, CI_LONG_SERVE, kernels_mod, expect=("pvq_attn_q",),
+                             what="ci long-context kv-pvq")
+    if not long_ctx.get("kv_bytes_ratio_vs_f32", 1.0) <= KV_BYTES_RATIO_MAX:
+        fail(f"ci long-context smoke: kv_bytes_ratio_vs_f32 "
+             f"{long_ctx.get('kv_bytes_ratio_vs_f32')} > {KV_BYTES_RATIO_MAX}")
 
     # each kernel's launches come from the main path that first ported it;
     # launches_by_path has every full-width path's count

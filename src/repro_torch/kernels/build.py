@@ -53,8 +53,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
                                          _I, _I, _I, _P, _P, _P], _I),
     },
     "pvq_attn": {
-        "pvq_attn_q_smem_bytes": ([_I, _I, _I], ctypes.c_size_t),
-        "pvq_attn_q_launch": ([_P] * 7 + [_I] * 6 + [_F, _P, _P, _P, _P], _I),
+        "pvq_attn_q_smem_bytes": ([_I] * 4, ctypes.c_size_t),
+        "pvq_attn_q_launch": ([_P] * 7 + [_I] * 6 + [_F] + [_I] * 2 + [_P] * 4, _I),
     },
 }
 

@@ -5,9 +5,9 @@
 
 For each kernel, ``*_cuda`` launches the hand-written Hopper kernel
 (``csrc/pvq_matmul.cu``, ``csrc/pvq_matmul_batched.cu``,
-``csrc/pvq_attn.cu``) and ``*_plain`` computes the same function in plain
-PyTorch.  Integer contractions in the plain versions
-run as f32 matmuls of integer-valued tensors, exact while
+``csrc/pvq_attn.cu`` with ``csrc/pvq_attn_decode.cuh``) and ``*_plain``
+computes the same function in plain PyTorch.  Integer contractions in the
+plain versions run as f32 matmuls of integer-valued tensors, exact while
 ``group * 127^2 < 2^24`` (``torch.mm`` on int8 wraps in int8); wider groups
 contract in int64.
 """
@@ -35,7 +35,7 @@ ATTN_NEG_INF = -1e30
 ATTN_BS = 128
 
 # exp of a non-positive argument for the softmax of kernel v4, as one fixed
-# sequence of separately rounded f32 operations that csrc/pvq_attn.cu
+# sequence of separately rounded f32 operations that csrc/pvq_attn_decode.cuh
 # repeats (torch.exp and CUDA's expf may differ in the last bit): Cody-Waite
 # reduction x = n ln2 + r, the Cephes expf polynomial on r, then times 2^n
 # built from its bits.  Arguments below EXP_MIN give 0.
@@ -628,17 +628,79 @@ def pvq_attn_q_plain(
     return acc, m_run, l_run
 
 
+#: kernel v4's CTA (csrc/pvq_attn_decode.cuh): query rows (kM) and warps
+#: (kM x W) at most, and the H100's shared memory a CTA
+V4_KM_MAX = 8
+V4_WARPS_MAX = 16
+V4_SMEM_MAX = 232448
+
+
+def _v4_row_bytes(hd: int) -> int:
+    """A staged K or V position's bytes in kernel v4 (``attn_row_bytes``):
+    hd rounded up to 16 and the P @ V lanes' quads, padded to 16 mod 32."""
+    nq = -(-hd // 4)
+    quads = nq if nq >= 32 else 1 << (nq - 1).bit_length()
+    words = max(-(-hd // 16) * 4, quads)
+    return 4 * (words + (12 - words % 8) % 8)
+
+
+def _v4_smem_bytes(km: int, w: int, hd: int, group: int) -> int:
+    """Kernel v4's shared memory a CTA (``attn_layout``): W blocks' K and V
+    tiles and scales, the kM query rows, each pair's requantized
+    probabilities, then the f32 block outputs, acc and the per-pair and
+    per-row values.  It does not depend on m."""
+    ng = hd // group
+    tiles = 2 * w * ATTN_BS * _v4_row_bytes(hd) + 2 * w * ATTN_BS * ng * 4
+    q = km * -(-hd // 16) * 16
+    floats = w * km * hd + km * hd + km * w * ng + 4 * km * w + 3 * km
+    return tiles + q + km * w * ng * ATTN_BS + 4 * floats
+
+
+@functools.lru_cache(maxsize=None)
+def _v4_plan(m: int, s: int, hd: int, group: int) -> Tuple[int, int, int]:
+    """``(km, w, passes)`` of kernel v4 for rows of ``m`` query rows over
+    planes of capacity ``s``: CTAs of ``km`` query rows (all of a decode
+    row's, at most 8) and ``km x w`` warps, one a (query row, block) pair,
+    so a pass takes ``w`` 128-column blocks and a row of ``s`` positions
+    makes ``passes`` of them (balanced: ``w`` is the fewest blocks a pass
+    that keeps that count, and fewer where shared memory falls short).
+    Chosen from the planes' capacity, never from ``kv_len`` (on the device:
+    reading it would sync)."""
+    km = max(1, min(m, V4_KM_MAX))
+    nblk = max(1, -(-s // ATTN_BS))
+    w = -(-nblk // -(-nblk // (V4_WARPS_MAX // km)))
+    while _v4_smem_bytes(km, w, hd, group) > V4_SMEM_MAX:
+        if w == 1:
+            raise ValueError(f"pvq_attn_q: head dim {hd} (group {group}) leaves no plan within "
+                             f"{V4_SMEM_MAX} bytes of shared memory")
+        w -= 1
+    return km, w, -(-nblk // w)
+
+
+def _check_v4_plan(plan, s: int, hd: int, group: int) -> Tuple[int, int, int]:
+    """A forced plan (the checks that run every plan on the card): what the
+    kernel takes, with ``passes`` the count its ``w`` gives at ``s``."""
+    km, w, passes = plan
+    nblk = max(1, -(-s // ATTN_BS))
+    if not (1 <= km <= V4_KM_MAX and w >= 1 and km * w <= V4_WARPS_MAX
+            and passes == -(-nblk // w) and _v4_smem_bytes(km, w, hd, group) <= V4_SMEM_MAX):
+        raise ValueError(f"pvq_attn_q: plan {tuple(plan)} does not fit S {s}, head dim {hd}, "
+                         f"group {group}")
+    return km, w, passes
+
+
 def pvq_attn_q_cuda(
     q_i8, act_scale, k_pulses, k_scales, v_pulses, v_scales, kv_len, *,
-    group: int, sm_scale: float,
+    group: int, sm_scale: float, _plan: Optional[Tuple[int, int, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel v4.  It reads a packed cache's ``(b, S, n_kv, X)`` planes in
-    place (never copied into per-row order)."""
+    place (never copied into per-row order), with the plan of
+    :func:`_v4_plan`, or ``_plan`` where a caller forces one."""
     bh, m, hd, s, ng, n_kv = _check_attn(
         q_i8, act_scale, k_pulses, k_scales, v_pulses, v_scales, kv_len, group
     )
-    if build.launcher("pvq_attn_q_smem_bytes")(m, hd, group) > 227 * 1024:
-        raise ValueError(f"pvq_attn_q: {m} query rows x head dim {hd} exceed shared memory")
+    km, w, _ = (_v4_plan(m, s, hd, group) if _plan is None
+                else _check_v4_plan(_plan, s, hd, group))
     ops_ = [
         _cuda_operand(q_i8, torch.int8, "q"),
         _cuda_operand(act_scale, torch.float32, "act_scale"),
@@ -654,7 +716,7 @@ def pvq_attn_q_cuda(
     l_run = torch.empty((bh, m, 1), dtype=torch.float32, device=dev)
     status = build.launcher("pvq_attn_q_launch")(
         *[t.data_ptr() for t in ops_], bh, n_kv, m, s, hd, group, float(sm_scale),
-        acc.data_ptr(), m_run.data_ptr(), l_run.data_ptr(), _stream(q_i8),
+        km, w, acc.data_ptr(), m_run.data_ptr(), l_run.data_ptr(), _stream(q_i8),
     )
     build.check(status, "pvq_attn_q")
     LAUNCHES["pvq_attn_q"] += 1

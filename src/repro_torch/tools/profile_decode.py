@@ -18,7 +18,8 @@ summed over every CUDA kernel (ours included: CUPTI traces them by name),
 the device's idle share, the launch count, kernels v3's and v2's device
 time, calls and share, each also by route (the 2-D matrices against the
 expert-batched banks, told apart by the Route tag in the kernels' names)
-and by body, and the kernels with the most device time.
+and by body, kernel v4's (packed-KV attention) device time, calls and
+share, and the kernels with the most device time.
 """
 
 from __future__ import annotations
@@ -129,6 +130,7 @@ def _report(prof, wall: float, units: int, args, cfg, unit: str) -> dict:
     v2_by_body = split((("splitk", by_name("pvq_matmul_f_splitk")),
                         ("mma", by_name("pvq_matmul_f_mma")),
                         ("direct", by_name("pvq_matmul_f_kernel"))))
+    v4_us, v4_calls = by_name("pvq_attn")
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[: args.top]
     unit_ms = 1e3 * wall / units
     device_ms = device_us / 1e3 / units
@@ -149,6 +151,9 @@ def _report(prof, wall: float, units: int, args, cfg, unit: str) -> dict:
         "v2_by_route": v2_by_route,
         "v2_by_body": v2_by_body,
         "v2_share_of_device_time": v2_us / device_us if device_us else None,
+        f"v4_ms_per_{unit}": v4_us / 1e3 / units,
+        f"v4_calls_per_{unit}": v4_calls / units,
+        "v4_share_of_device_time": v4_us / device_us if device_us else None,
         "leg": "f32" if args.f32 else "served",
         "top_kernels": [
             {"name": name[:80], f"ms_per_{unit}": us / 1e3 / units, f"calls_per_{unit}": n / units}

@@ -140,26 +140,106 @@ def test_cuda_encode_matches_plain_bit_for_bit(g, n, k):
     assert torch.equal(rho, rho_ref)
 
 
-@needs_cuda
-@pytest.mark.parametrize("n_kv", [1, 3])
-@pytest.mark.parametrize("hd,group", [(64, 32), (16, 16)])
-def test_cuda_attention_matches_plain(hd, group, n_kv):
-    """Bit for bit, on a packed cache's (b, S, n_kv, X) planes."""
+def _attn_case(b, n_kv, m, s, hd, group, seed):
+    """int8 queries and K/V planes in the packed cache's (b, S, n_kv, X)
+    layout on the card; kv_len cycles through 0, 1, 127, 128, 129 and S."""
     dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(hd)
-    bh, m, s, ng = 6, 3, 160, hd // group
+    gen = torch.Generator().manual_seed(seed)
+    bh, ng = b * n_kv, hd // group
     q_i8, a = port_q.quantize_activations(torch.randn(bh, m, hd, generator=gen))
-    lead = (bh // n_kv, s, n_kv)
-    kp = torch.randint(-12, 13, (*lead, hd), generator=gen, dtype=torch.int8)
-    vp = torch.randint(-12, 13, (*lead, hd), generator=gen, dtype=torch.int8)
+    lead = (b, s, n_kv)
+    kp = torch.randint(-20, 21, (*lead, hd), generator=gen, dtype=torch.int8)
+    vp = torch.randint(-20, 21, (*lead, hd), generator=gen, dtype=torch.int8)
     ks = torch.rand(*lead, ng, generator=gen) * 0.2
     vs = torch.rand(*lead, ng, generator=gen) * 0.2
-    kv_len = torch.tensor([0, 1, 64, 128, 129, 160], dtype=torch.int32)
-    args = [t.to(dev) for t in (q_i8, a, kp, ks, vp, vs, kv_len)]
-    got = port_mm.pvq_attn_q_cuda(*args, group=group, sm_scale=0.125)
-    want = port_mm.pvq_attn_q_plain(*args, group=group, sm_scale=0.125)
+    lens = [0, 1, 127, 128, 129, s]
+    kv_len = torch.tensor([lens[i % len(lens)] for i in range(bh)], dtype=torch.int32)
+    return [t.to(dev) for t in (q_i8, a, kp, ks, vp, vs, kv_len)]
+
+
+def _attn_equal(got, want, what):
     for name, g_, w_ in zip(("acc", "m", "l"), got, want):
-        assert torch.equal(g_, w_), name
+        assert torch.equal(g_, w_), (name, what)
+
+
+@needs_cuda
+@pytest.mark.parametrize("n_kv", [1, 3, 5])
+@pytest.mark.parametrize("hd,group", [(64, 32), (16, 16)])
+@pytest.mark.parametrize("m", [3, 12, 768])
+@pytest.mark.parametrize("s", [160, 520, 2048])
+def test_cuda_attention_matches_plain(s, m, hd, group, n_kv):
+    """Bit for bit, on a packed cache's (b, S, n_kv, X) planes, with the
+    plan the rule picks; m 768 is more query rows than one CTA's shared
+    memory holds at hd 64 (a chunked prefill's), tiled over the grid."""
+    b = 6 // n_kv + 1
+    args = _attn_case(b, n_kv, m, s, hd, group, seed=s + m + hd + n_kv)
+    before = LAUNCHES["pvq_attn_q"]
+    got = port_mm.pvq_attn_q_cuda(*args, group=group, sm_scale=0.125)
+    assert LAUNCHES["pvq_attn_q"] == before + 1
+    _attn_equal(got, port_mm.pvq_attn_q_plain(*args, group=group, sm_scale=0.125),
+                port_mm._v4_plan(m, s, hd, group))
+
+
+def _every_v4_plan(s, hd, group):
+    """Every (km, w, passes) the plan function can return at S ``s``."""
+    nblk = -(-s // port_mm.ATTN_BS)
+    for km in range(1, port_mm.V4_KM_MAX + 1):
+        for w in range(1, port_mm.V4_WARPS_MAX // km + 1):
+            if port_mm._v4_smem_bytes(km, w, hd, group) <= port_mm.V4_SMEM_MAX:
+                yield km, w, -(-nblk // w)
+
+
+@needs_cuda
+@pytest.mark.parametrize("s,m,hd,group", [(520, 12, 64, 32), (520, 12, 16, 16), (2048, 3, 64, 32),
+                                          (300, 5, 36, 12), (200, 4, 20, 5), (150, 3, 18, 6)])
+def test_cuda_attention_every_forced_plan_matches_plain(s, m, hd, group):
+    """Each plan the rule can pick, forced: query-row tiles of 1 to 8, 1 to
+    16 blocks a pass; head dims off the 16-byte path too
+    (36 and 20: 4-byte pieces; 18: byte pieces; groups 5 and 6: byte dots)."""
+    args = _attn_case(2, 3, m, s, hd, group, seed=s + m + hd)
+    want = port_mm.pvq_attn_q_plain(*args, group=group, sm_scale=0.3)
+    plans = list(_every_v4_plan(s, hd, group))
+    assert port_mm._v4_plan(m, s, hd, group) in plans
+    for plan in plans:
+        _attn_equal(port_mm.pvq_attn_q_cuda(*args, group=group, sm_scale=0.3, _plan=plan),
+                    want, plan)
+
+
+@needs_cuda
+def test_v4_shared_memory_formula_is_the_kernels():
+    from repro_torch.kernels import build
+
+    smem = build.launcher("pvq_attn_q_smem_bytes")
+    for hd, group in ((64, 32), (16, 16), (128, 32), (36, 12), (20, 5)):
+        for km, w, _ in _every_v4_plan(2048, hd, group):
+            assert smem(km, w, hd, group) == port_mm._v4_smem_bytes(km, w, hd, group)
+
+
+@needs_cuda
+def test_cuda_attention_replays_from_a_cuda_graph():
+    """One v4 call captured in a CUDA graph and replayed with other kv_len
+    contents gives the eager result for those contents, bit for bit (the
+    plan comes from the planes' capacity, never from kv_len)."""
+    args = _attn_case(4, 5, 3, 2048, 64, 32, seed=7)
+    kv_len = args[-1]
+    def call(): return port_mm.pvq_attn_q_cuda(*args, group=32, sm_scale=0.125)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()  # warm up off the default stream, as graph capture asks
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = LAUNCHES["pvq_attn_q"]
+    with torch.cuda.graph(graph):
+        out = call()
+    assert LAUNCHES["pvq_attn_q"] == before + 1
+    for lens in ([2048, 0, 129, 1000, 1] * 4, [160] * 20):
+        kv_len.copy_(torch.tensor(lens, dtype=torch.int32))
+        for t in out:
+            t.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        _attn_equal(out, call(), lens)
 
 
 @needs_cuda

@@ -249,6 +249,164 @@ def test_attn_decode_dispatch_matches_reference():
         np.testing.assert_allclose(g_.numpy(), w_, rtol=1e-4, atol=1e-4 * np.abs(w_).max())
 
 
+# kernel v4's redesigned order (csrc/pvq_attn_decode.cuh), emulated in torch:
+# the blocks of a pass side by side given the prefix max of the block
+# maxima, lane-layout tree sums over 128 zero-padded columns, and the fold
+# in block order, pass after pass, over tiles of km query rows
+def _v4_emulate(q_i8, a, kp, ks, vp, vs, kv_len, *, group, sm_scale, km, w):
+    bh, m, hd = q_i8.shape
+    s, ng, bs = kp.shape[1], hd // group, port_mm.ATTN_BS
+    kp, ks, vp, vs = (t.permute(0, 2, 1, 3).reshape(bh, s, t.shape[-1]) for t in (kp, ks, vp, vs))
+    lens = kv_len.to(torch.int64)
+    nblk = -(-int(lens.max()) // bs) if bh else 0
+    pad = nblk * bs - s if nblk * bs > s else 0
+    # zero-padded to whole blocks; positions past a row's kv_len are zeros,
+    # as the kernel stages them
+    pos = torch.arange(s + pad)
+    live = pos[None, :] < lens[:, None]  # (BH, S')
+
+    def staged(t):
+        t = torch.nn.functional.pad(t, (0, 0, 0, pad))[:, : nblk * bs]
+        return torch.where(live[:, : nblk * bs, None], t, torch.zeros_like(t))
+
+    kp, vp = staged(kp.to(torch.int32)), staged(vp.to(torch.int32))
+    ks, vs = staged(ks.float()), staged(vs.float())
+    acc = torch.zeros((bh, m, hd))
+    m_run = torch.full((bh, m, 1), port_mm.ATTN_NEG_INF)
+    l_run = torch.zeros((bh, m, 1))
+    for r0 in range(0, m, km):  # one CTA per (row, tile of km query rows)
+        rs = slice(r0, min(r0 + km, m))
+        q, ar = q_i8[:, rs].to(torch.int32), a[:, rs].float()
+        for p0 in range(0, nblk, w):  # passes of w blocks
+            blocks = range(p0, min(p0 + w, nblk))
+            scores, bmax = [], []
+            for b in blocks:  # each block's scores, independently
+                cols = slice(b * bs, (b + 1) * bs)
+                sc = torch.zeros((bh, q.shape[1], bs))
+                for g in range(ng):
+                    sl = slice(g * group, (g + 1) * group)
+                    dot = (q[:, :, None, sl] * kp[:, None, cols, sl]).sum(-1).float()
+                    sc = sc + dot * ks[:, None, cols, g]
+                sc = sc * ar * sm_scale
+                valid = live[:, None, cols]
+                sc = torch.where(valid, sc, torch.full_like(sc, port_mm.ATTN_NEG_INF))
+                scores.append((sc, valid))
+                bmax.append(sc.amax(-1, keepdim=True))
+            parts = []
+            for i in reversed(range(len(blocks))):  # given the prefix max, in any order
+                b = blocks[i]
+                sc, valid = scores[i]
+                m_prev = m_run[:, rs]
+                for bm in bmax[:i]:
+                    m_prev = torch.maximum(m_prev, bm)
+                m_new = torch.maximum(m_prev, bmax[i])
+                pr = torch.where(valid, port_mm.exp_nonpos(sc - m_new), torch.zeros_like(sc))
+                lanes = pr.reshape(*pr.shape[:-1], 4, 32)
+                t = (lanes[..., 0, :] + lanes[..., 2, :]) + (lanes[..., 1, :] + lanes[..., 3, :])
+                while t.shape[-1] > 1:
+                    t = t[..., : t.shape[-1] // 2] + t[..., t.shape[-1] // 2:]
+                cols = slice(b * bs, (b + 1) * bs)
+                outs = []
+                for g in range(ng):
+                    sl = slice(g * group, (g + 1) * group)
+                    pg = pr * vs[:, None, cols, g]
+                    amax = pg.abs().amax(-1, keepdim=True)
+                    s_p = amax / torch.full_like(amax, 127.0)
+                    inv = torch.where(s_p > 0, 1.0 / torch.clamp(s_p, min=1e-30),
+                                      torch.zeros_like(s_p))
+                    pq = torch.clamp(torch.round(pg * inv), -127, 127).to(torch.int32)
+                    o = (pq[:, :, :, None] * vp[:, None, cols, sl]).sum(-2).float()
+                    outs.append(o * s_p)
+                alpha = port_mm.exp_nonpos(m_prev - m_new)
+                parts.insert(0, (b, alpha, t, torch.cat(outs, -1), m_new))
+            for b, alpha, psum, o, m_new in parts:  # the fold, in block order
+                upd = (b * bs < lens)[:, None, None]  # blocks past kv_len are skipped
+                l_run[:, rs] = torch.where(upd, l_run[:, rs] * alpha + psum, l_run[:, rs])
+                acc[:, rs] = torch.where(upd, acc[:, rs] * alpha + o, acc[:, rs])
+                m_run[:, rs] = torch.where(upd, m_new, m_run[:, rs])
+    return acc, m_run, l_run
+
+
+# (b, n_kv, m, hd, group, S): smollm's decode and CI's prompt-512 smoke at
+# full width, smollm's published context, a chunked prefill's rows, the
+# reduced model's head dim
+_V4_SHAPES = [(4, 5, 3, 64, 32, 160), (1, 5, 3, 64, 32, 520), (1, 2, 3, 64, 32, 2048),
+              (2, 3, 12, 64, 32, 1000), (3, 1, 4, 16, 16, 300), (1, 1, 20, 16, 8, 385)]
+
+
+def _v4_case(b, n_kv, m, hd, group, s, seed=0):
+    """Random int8 queries and K/V planes in the cache layout; kv_len takes
+    0, 1, 127, 128, 129 and S among its rows."""
+    rng = np.random.default_rng(seed + s + m)
+    bh, ng = b * n_kv, hd // group
+    q_i8, a = port_q.quantize_activations(torch.from_numpy(rng.normal(size=(bh, m, hd)).astype(np.float32)))
+    lead = (b, s, n_kv)
+    kp = torch.from_numpy(rng.integers(-20, 21, size=(*lead, hd)).astype(np.int8))
+    vp = torch.from_numpy(rng.integers(-20, 21, size=(*lead, hd)).astype(np.int8))
+    ks = torch.from_numpy(rng.uniform(0.0, 0.2, size=(*lead, ng)).astype(np.float32))
+    vs = torch.from_numpy(rng.uniform(0.0, 0.2, size=(*lead, ng)).astype(np.float32))
+    lens = [n for n in (0, 1, 127, 128, 129, s) if n <= s]
+    lens += [int(n) for n in rng.integers(0, s + 1, size=max(bh - len(lens), 0))]
+    kv_len = torch.tensor(lens[:bh], dtype=torch.int32)
+    return q_i8, a, kp, ks, vp, vs, kv_len
+
+
+@pytest.mark.parametrize("shape", _V4_SHAPES)
+@pytest.mark.parametrize("w", ["plan", 1, 2, 3])
+def test_v4_block_and_pass_order_is_the_plain_version_bit_for_bit(shape, w):
+    """The redesigned kernel's order (blocks side by side given the prefix
+    max, lane-layout tree sums, passes carrying (acc, m, l), the fold in
+    block order) equals ``pvq_attn_q_plain`` bit for bit."""
+    b, n_kv, m, hd, group, s = shape
+    args = _v4_case(*shape)
+    km, plan_w, _ = port_mm._v4_plan(m, s, hd, group)
+    want = port_mm.pvq_attn_q_plain(*args, group=group, sm_scale=hd ** -0.5)
+    got = _v4_emulate(*args, group=group, sm_scale=hd ** -0.5, km=km,
+                      w=plan_w if w == "plan" else w)
+    for name, g_, w_ in zip(("acc", "m", "l"), got, want):
+        assert torch.equal(g_, w_), name
+
+
+@pytest.mark.parametrize("m", [1, 3, 9, 768, 4096])
+@pytest.mark.parametrize("s", [1, 129, 160, 520, 2048, 32768])
+@pytest.mark.parametrize("hd,group", [(64, 32), (16, 16), (128, 32), (36, 12)])
+def test_v4_plan_covers_every_block_and_row_within_shared_memory(m, s, hd, group):
+    km, w, passes = port_mm._v4_plan(m, s, hd, group)
+    nblk = -(-s // port_mm.ATTN_BS)
+    assert km == min(m, port_mm.V4_KM_MAX)  # a decode row's query rows share one CTA
+    assert -(-m // km) * km >= m > (-(-m // km) - 1) * km  # tiles cover every row once
+    assert passes * w >= nblk > (passes - 1) * w  # passes cover every block once
+    assert km * w <= port_mm.V4_WARPS_MAX
+    assert port_mm._v4_smem_bytes(km, w, hd, group) <= port_mm.V4_SMEM_MAX
+    assert port_mm._check_v4_plan((km, w, passes), s, hd, group) == (km, w, passes)
+
+
+def test_v4_plan_on_the_timed_decode_rows():
+    """smollm's decode (S 160) and CI's prompt-512 smoke take one pass; its
+    published context (S 2048) makes balanced passes; a chunked prefill's
+    768 query rows take tiles of 8."""
+    assert port_mm._v4_plan(3, 160, 64, 32) == (3, 2, 1)
+    assert port_mm._v4_plan(3, 520, 64, 32) == (3, 5, 1)
+    assert port_mm._v4_plan(3, 2048, 64, 32) == (3, 4, 4)
+    assert port_mm._v4_plan(768, 2048, 64, 32) == (8, 2, 8)
+    # shared memory caps the blocks a pass at wide head dims
+    assert port_mm._v4_plan(3, 160, 512, 32) == (3, 1, 2)
+
+
+def test_v4_shared_memory_does_not_grow_with_m():
+    sizes = {port_mm._v4_smem_bytes(*port_mm._v4_plan(m, 160, 64, 32)[:2], 64, 32)
+             for m in (8, 9, 649, 650, 768, 4096)}
+    assert len(sizes) == 1
+
+
+@pytest.mark.parametrize("plan", [(9, 1, 2), (4, 5, 1), (2, 1, 1), (0, 2, 1), (1, 1, 2)])
+def test_check_v4_plan_refuses_what_the_kernel_cannot_take(plan):
+    # S 160 is two blocks: w 1 takes 2 passes, w 2 one; hd 1024 leaves no room
+    hd = 1024 if plan == (1, 1, 2) else 64
+    with pytest.raises(ValueError, match="does not fit"):
+        port_mm._check_v4_plan(plan, 160, hd, 32)
+
+
 # ---------------------------------------------------------------------------
 # routing
 # ---------------------------------------------------------------------------

@@ -6,11 +6,14 @@
 * The port's ``teacher_forced_logits`` on the reference's generated tokens,
   with the same (converted) packed parameters, against the reference's
   own: top-1 agreement >= 0.99 (free-running tokens need not match: one
-  int8 rounding flip at a random-init near-tie rewrites the suffix).
+  int8 rounding flip at a random-init near-tie rewrites the suffix), at
+  the CI flags' shape and at CI's long-context smoke's (prompt 512).
+* CI's long-context ``--kv-pvq`` smoke through the port's CLI on the CPU.
 * No module of the port, nor ``chip_smoke.py``, imports JAX or the
   reference package.
 * ``tools/profile_decode``: ``--f32`` traces the f32 leg's decode too, and
-  its report splits kernel v2's device time by route and by body.
+  its report splits kernel v2's device time by route and by body and
+  counts kernel v4's.
 """
 
 import json
@@ -65,6 +68,29 @@ def test_serve_cli_runs_the_quantized_path_on_cpu():
     assert set(report["kernel_launches"].values()) == {0}
 
 
+# CI's long-context PVQ-KV serve smoke (ci.yml:88-98) as CI runs it
+CI_LONG_FLAGS = [
+    "--arch", "smollm-360m", "--reduced", "--batch", "1", "--prompt-len", "512", "--gen", "8",
+    "--pvq", "--act-int8", "--kv-pvq", "--agreement-min", "0.99",
+]
+
+
+def test_serve_cli_runs_cis_long_context_kv_pvq_smoke_on_cpu():
+    """16 full KV blocks plus the tail: the packed leg (kernel v4's plain
+    version on the CPU) crosses four 128-column attention blocks."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu", *CI_LONG_FLAGS],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report["generated_shape"] == [1, 520]
+    assert report["kv_bytes_ratio_vs_f32"] <= 0.35
+    assert report["act_int8_top1_agreement"] >= 0.99
+    assert set(report["kernel_launches"].values()) == {0}
+
+
 def test_serve_refuses_to_fall_back_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -83,28 +109,45 @@ def _to_numpy_tree(tree):
     return np.asarray(tree)
 
 
-def test_teacher_forced_agreement_with_reference():
+def _agreement_with_reference(batch, prompt, gen, kv_block, kv_group):
+    """The reference's generated tokens and teacher-forced logits (reduced
+    smollm, packed, int8 activations, PVQ KV cache), and the port's
+    teacher-forced logits on the same tokens and converted parameters."""
     ref_cfg = ref_get_config("smollm-360m").reduced()
     ref_model = RefModel(ref_cfg)
     policy = ref_q.QuantPolicy(
         rules=(("embedding", 0.5, 256), ("kernel|experts", 1.0, 256)), scale_mode="ls"
     )
     ref_params = ref_packed.quantize_params(ref_model.init(jax.random.PRNGKey(0)), policy)
-    tokens = np.random.default_rng(0).integers(0, 128, size=(2, 20)).astype(np.int32)
-    with ref_q.act_quant_scope(ref_q.ActQuant()), ref_q.kv_quant_scope(ref_q.KVQuant(8, 16)):
-        seq = ref_serve.generate(ref_model, ref_params, jnp.asarray(tokens), gen=6, cache_len=26)
-        want = ref_serve.teacher_forced_logits(ref_model, ref_params, seq, prompt_len=20)
+    tokens = np.random.default_rng(0).integers(0, 128, size=(batch, prompt)).astype(np.int32)
+    with ref_q.act_quant_scope(ref_q.ActQuant()), \
+            ref_q.kv_quant_scope(ref_q.KVQuant(kv_block, kv_group)):
+        seq = ref_serve.generate(ref_model, ref_params, jnp.asarray(tokens), gen=gen,
+                                 cache_len=prompt + gen)
+        want = ref_serve.teacher_forced_logits(ref_model, ref_params, seq, prompt_len=prompt)
     port_model = Model(get_config("smollm-360m").reduced())
     port_params = from_reference_params(_to_numpy_tree(ref_params))
-    with port_q.act_quant_scope(port_q.ActQuant()), port_q.kv_quant_scope(port_q.KVQuant(8, 16)):
+    with port_q.act_quant_scope(port_q.ActQuant()), \
+            port_q.kv_quant_scope(port_q.KVQuant(kv_block, kv_group)):
         got = port_serve.teacher_forced_logits(
-            port_model, port_params, torch.from_numpy(np.asarray(seq, np.int64)), prompt_len=20
+            port_model, port_params, torch.from_numpy(np.asarray(seq, np.int64)), prompt_len=prompt
         )
-    assert got.shape == want.shape == (2, 6, 128)
+    assert got.shape == want.shape == (batch, gen, 128)
     ag = port_serve.top1_agreement(torch.from_numpy(np.array(want)), got)
     assert ag["top1_agreement"] >= 0.99, ag
     ref_ag = ref_serve.top1_agreement(want, jnp.asarray(got.numpy()))
     assert ref_ag["top1_agreement"] == ag["top1_agreement"]
+
+
+def test_teacher_forced_agreement_with_reference():
+    _agreement_with_reference(batch=2, prompt=20, gen=6, kv_block=8, kv_group=16)
+
+
+def test_teacher_forced_agreement_with_reference_at_cis_long_context():
+    """CI's prompt-512 smoke's shape and KV contract (serve's defaults:
+    block 32, group 32 fitted to the head dim): 16 packed blocks, so the
+    packed leg runs four 128-column attention blocks in both packages."""
+    _agreement_with_reference(batch=1, prompt=512, gen=8, kv_block=32, kv_group=32)
 
 
 def test_bucket_len_matches_reference():
@@ -169,3 +212,28 @@ def test_profile_report_splits_v2_by_route_and_body(monkeypatch):
     assert report["v3_ms_per_step"] == pytest.approx(0.0025)
     assert report["kernel_launches_per_step"] == 3.0
     assert report["leg"] == "f32"
+    assert report["v4_ms_per_step"] == 0.0 and report["v4_calls_per_step"] == 0.0
+
+
+def test_profile_report_counts_v4(monkeypatch):
+    """Kernel v4's device time and calls, from the kernel names that hold
+    ``pvq_attn``; the matmul kernels apart."""
+    from types import SimpleNamespace
+
+    from repro_torch.tools import profile_decode
+
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda i: "test")
+    cuda = torch.autograd.DeviceType.CUDA
+    traced = [("void pvq::pvq_attn_q_kernel<16>(signed char const*)", 12.0),
+              ("void pvq::pvq_attn_q_kernel<16>(signed char const*)", 14.0),
+              ("void pvq::pvq_matmul_q_splitk_kernel<pvq::OneMatrix, 4, float>(char)", 4.0)]
+    events = [SimpleNamespace(device_type=cuda, name=name, device_time_total=us)
+              for name, us in traced]
+    report = profile_decode._report(
+        SimpleNamespace(events=lambda: events), 1.0, 2,
+        SimpleNamespace(batch=4, prompt_len=128, top=3, f32=False), SimpleNamespace(name="m"),
+        "step")
+    assert report["v4_ms_per_step"] == pytest.approx(0.013)
+    assert report["v4_calls_per_step"] == 1.0
+    assert report["v4_share_of_device_time"] == pytest.approx(26.0 / 30.0)
+    assert report["v3_calls_per_step"] == 0.5
