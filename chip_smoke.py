@@ -15,7 +15,8 @@ order, it:
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds every hand-written kernel from ``src/repro_torch/kernels/csrc``,
    and prints what ``nvcc -Xptxas -v`` reports for kernels v3's and v2's
-   decode bodies and for kernel v4 (registers, spills);
+   decode bodies, for kernel v4 and for each instance of the encoder
+   (registers, spills);
 3. holds each kernel against its plain PyTorch version on the card at the
    full-width main-path shapes (smollm-360m for the encoder, v2, v3 and v4;
    deepseek-v2-lite-16b's 2-D decode matrices for v3 and v2 too, and its
@@ -36,7 +37,10 @@ order, it:
    prefill (one smollm layer's 7 matmuls and deepseek's lm_head at m 512,
    one MoE layer's banks at m 60; v2's banks in f32 and bf16 x) must take
    their tensor-core bodies (int8 for v3, f64 for v2), and are timed beside
-   their direct bodies on the same inputs;
+   their direct bodies on the same inputs; v2's 2-D prefill rows also give
+   ``device_ms``.  The encoder is held identical and timed (``ms`` and
+   ``device_ms``) on one smollm layer's weights, the tied embedding, a
+   smollm block-fill step's KV encode and one deepseek MoE layer's up bank;
 4. serves full-width smollm-360m from random weights (``--pvq --act-int8
    --kv-pvq --agreement-min 0.99``, batch 4, prompt 128, 32 new tokens)
    with every kernel launch count set to 0 just before and read just after;
@@ -455,6 +459,7 @@ def check_matmuls(torch, timer, mm, ops, quantize, kernels_mod):
     # v3 and v2 at prefill: one layer's 7 matmuls, then deepseek's lm_head
     prefill = {"smollm_layer_m512": _new_total(), "deepseek_lm_head_m512": _new_total()}
     v2_prefill = {"smollm_layer_m512": _new_total(), "deepseek_lm_head_m512": _new_total()}
+    v2_device = []
     lm_pulses = torch.randint(-9, 10, LM_HEAD, generator=gen, device="cuda", dtype=torch.int8)
     lm_scales = torch.rand(LM_HEAD[0] // GROUP, LM_HEAD[1], generator=gen, device="cuda") * 0.01
     shapes = [("smollm_layer_m512", k, n, layer[i]) for i, (k, n) in enumerate(LAYER_SHAPES)]
@@ -477,7 +482,11 @@ def check_matmuls(torch, timer, mm, ops, quantize, kernels_mod):
                           call_f, plain_f, lambda: torch.matmul(x, w_deq), v2_bytes(m, k, n),
                           2.0 * m * k * n, rtol=1e-5, rate=F64_TC_FLOPS_PER_S,
                           total=v2_prefill[key])
-        rows.append({"kernel": "pvq_matmul", "m": m, "k": k, "n": n, **row})
+        row.update(kernel="pvq_matmul", m=m, k=k, n=n)
+        rows.append(row)
+        # the kernel and the yardstick, for their device times (queued below)
+        v2_device.append((key, row, partial(mm.pvq_matmul_cuda, x, pulses, scales, group=GROUP),
+                          partial(torch.matmul, x, w_deq)))
         del w_deq
     del lm_pulses, lm_scales
     entries = {}
@@ -509,6 +518,10 @@ def check_matmuls(torch, timer, mm, ops, quantize, kernels_mod):
         for key, shape in (("smollm_layer_m512", "one decoder layer's 7 matmuls"),
                            ("deepseek_lm_head_m512", f"lm_head k {LM_HEAD[0]} n {LM_HEAD[1]}"))
     }
+    for key, row, kern, library in v2_device:
+        entry = entries["pvq_matmul"]["prefill"][key]
+        timer.device_later(kern, (row, "device_ms", 1), (entry, "device_ms", 1))
+        timer.device_later(library, (row, "library_device_ms", 1), (entry, "library_device_ms", 1))
     return entries, rows
 
 
@@ -699,39 +712,57 @@ def _encode_ops(torch, w, k, delta_max):
     return float(g * n * (8 + 64 + 8) + 6 * n * rem.sum())
 
 
+# the encoder's rows: (what, groups, n, K, the weights' scale, in the
+# entry's total).  One smollm layer's weights and the tied embedding (the
+# entry's numbers, as the encoder was first timed); a smollm block-fill
+# step's KV encode (K and V of 4 sequences x 32 positions x 5 kv heads x 2
+# groups of 32, one of its 64 launches); one deepseek MoE layer's up bank
+# (64 experts x 2048 x 1408 in groups of 256)
+ENCODE_ROWS = [("layer", 40320, 256, 256, 0.03, True),
+               ("embedding", 737280, 64, 128, 0.02, True),
+               ("kv block-fill", 1280, 32, 127, 1.0, False),
+               ("deepseek moe up bank", 720896, 256, 256, 0.03, False)]
+
+
 def check_encode(torch, timer, enc):
-    """The encoder on one layer's weights (40320 groups of 256, K 256) and
-    on the tied embedding (737280 groups of 64, K 128)."""
+    """The encoder at each of ``ENCODE_ROWS``: identical to its plain
+    version, timed by events (``ms``, median of 5) and by torch.profiler
+    (``device_ms``) beside the plain version.  The entry totals the layer
+    and embedding rows, so its numbers compare with earlier runs."""
     gen = torch.Generator(device="cuda").manual_seed(3)
-    cases = [
-        ("layer", torch.randn(40320, 256, generator=gen, device="cuda") * 0.03, 256),
-        ("embedding", torch.randn(737280, 64, generator=gen, device="cuda") * 0.02, 128),
-    ]
-    ms = plain_ms = nbytes = nops = 0.0
+    entry = {"name": "pvq_encode_batch", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/pvq_encode.cu",
+             "replaces": "src/repro/kernels/pvq_encode.py:177",
+             "shape": "one layer's weights (40320 x 256, K 256) + embedding (737280 x 64, K 128)",
+             "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None,
+             "device_ms_by": DEVICE_MS_BY}
+    nbytes = nops = 0.0
     rows = []
-    for what, w, k in cases:
+    for what, g, n, k, scale, in_total in ENCODE_ROWS:
+        w = torch.randn(g, n, generator=gen, device="cuda") * scale
         p, rho = enc.pvq_encode_batch_cuda(w, k_pulses=k)
         p_ref, rho_ref = enc.pvq_encode_batch_plain(w, k_pulses=k)
         bad = int((p != p_ref).any(-1).sum())
         if bad or not torch.equal(rho, rho_ref):
-            fail(f"pvq_encode_batch ({what}): {bad} of {w.shape[0]} groups differ from the plain version")
-        t_k = timer(lambda: enc.pvq_encode_batch_cuda(w, k_pulses=k), reps=5)
-        t_p = timer(lambda: enc.pvq_encode_batch_plain(w, k_pulses=k), reps=3, warmup=1)
-        g, n = w.shape
+            fail(f"pvq_encode_batch ({what}): {bad} of {g} groups differ from the plain version")
+        del p, rho, p_ref, rho_ref
+        kern = partial(enc.pvq_encode_batch_cuda, w, k_pulses=k)
+        t_k = timer(kern, reps=5)
+        t_p = timer(partial(enc.pvq_encode_batch_plain, w, k_pulses=k), reps=3, warmup=1)
         b = 4 * g * n + 4 * g * n + 4 * g
         o = _encode_ops(torch, w, k, enc.DELTA_MAX)
-        rows.append({"kernel": "pvq_encode_batch", "case": what, "groups": g, "n": n, "k": k,
-                     "ms": t_k, "plain_ms": t_p, "bound_ms": bound_ms(b, o, F32_FLOPS_PER_S)[0]})
-        ms, plain_ms, nbytes, nops = ms + t_k, plain_ms + t_p, nbytes + b, nops + o
-    b_ms, b_by = bound_ms(nbytes, nops, F32_FLOPS_PER_S)
-    return {
-        "name": "pvq_encode_batch", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/pvq_encode.cu",
-        "replaces": "src/repro/kernels/pvq_encode.py:177",
-        "shape": "one layer's weights (40320 x 256, K 256) + embedding (737280 x 64, K 128)",
-        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-    }, rows
+        row = {"kernel": "pvq_encode_batch", "case": what, "groups": g, "n": n, "k": k,
+               "ms": t_k, "plain_ms": t_p, "bound_ms": bound_ms(b, o, F32_FLOPS_PER_S)[0],
+               "max_abs_err": 0.0}
+        timer.device_later(kern, (row, "device_ms", 1),
+                           *([(entry, "device_ms", 1)] if in_total else []))
+        rows.append(row)
+        if in_total:
+            entry["ms"] += t_k
+            entry["plain_ms"] += t_p
+            nbytes, nops = nbytes + b, nops + o
+    entry["bound_ms"], entry["bound_by"] = bound_ms(nbytes, nops, F32_FLOPS_PER_S)
+    return entry, rows
 
 
 @contextlib.contextmanager
@@ -1004,10 +1035,8 @@ def ptxas_report(proc, part="splitk"):
         names = subprocess.run([filt], input="\n".join(f["kernel"] for f in found),
                                capture_output=True, text=True, timeout=60).stdout.splitlines()
         if len(names) == len(found):
-            anon = "(anonymous namespace)::"
             for f, demangled in zip(found, names):
-                inner = demangled[len(anon):] if demangled.startswith(anon) else demangled
-                f["kernel"] = demangled[:len(demangled) - len(inner)] + inner.split("(")[0]
+                f["kernel"] = demangled.replace("(anonymous namespace)::", "").split("(")[0]
     return found
 
 
@@ -1051,13 +1080,15 @@ def main() -> int:
     t0 = time.time()
     ptxas = start_ptxas_report(build)
     ptxas_attn = start_ptxas_report(build, "pvq_attn")
+    ptxas_enc = start_ptxas_report(build, "pvq_encode")
     build.build_all()
     print(json.dumps({"phase": "build", "tree": str(tree), "seconds": round(time.time() - t0, 2)}),
           flush=True)
-    decode_bodies = ptxas_report(ptxas) + ptxas_report(ptxas_attn, "pvq_attn_q")
+    decode_bodies = (ptxas_report(ptxas) + ptxas_report(ptxas_attn, "pvq_attn_q")
+                     + ptxas_report(ptxas_enc, "pvq_encode"))
     for key, part in (("ptxas_v3_decode_body", "pvq_matmul_q_splitk"),
                       ("ptxas_v2_decode_body", "pvq_matmul_f_splitk"),
-                      ("ptxas_v4", "pvq_attn_q")):
+                      ("ptxas_v4", "pvq_attn_q"), ("ptxas_encoder", "pvq_encode")):
         found = [f for f in decode_bodies if part in f["kernel"]]
         if not found:
             fail(f"nvcc -Xptxas -v reported no {part} kernel")

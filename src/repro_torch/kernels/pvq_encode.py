@@ -1,8 +1,10 @@
 """Batched PVQ encode (port of ``repro.kernels.pvq_encode.pvq_encode_batch``).
 
 ``pvq_encode_batch_cuda`` launches the hand-written kernel
-(``csrc/pvq_encode.cu``); ``pvq_encode_batch_plain`` is the same function
-in plain PyTorch.  Both return ``(pulses int32 (g, n), rho_ls f32 (g,))``:
+(``csrc/pvq_encode.cu``: one warp per group row, every reduction in
+registers, shuffles and warp votes; bit-identical to the plain version);
+``pvq_encode_batch_plain`` is the same function in plain PyTorch.  Both
+return ``(pulses int32 (g, n), rho_ls f32 (g,))``:
 floor allocation, largest-remainder bulk allocation of all but the last
 ``delta_max`` pulses (bisection over bit patterns, ties to the lower lane),
 exact greedy for the rest (first lane wins), sign, and

@@ -5,6 +5,7 @@
     python -m repro_torch.tools.profile_decode --arch deepseek-v2-lite-16b --prefill
     python -m repro_torch.tools.profile_decode --arch deepseek-v2-lite-16b --prefill --f32
     python -m repro_torch.tools.profile_decode --arch deepseek-v2-lite-16b --f32 --steps 4
+    python -m repro_torch.tools.profile_decode --prompt-len 157 --steps 1
 
 Packs the model (as ``serve --pvq``), prefills with ``--act-int8 --kv-pvq``
 in effect (an MLA model's latent cache stays dense), runs two warm-up
@@ -18,8 +19,12 @@ summed over every CUDA kernel (ours included: CUPTI traces them by name),
 the device's idle share, the launch count, kernels v3's and v2's device
 time, calls and share, each also by route (the 2-D matrices against the
 expert-batched banks, told apart by the Route tag in the kernels' names)
-and by body, kernel v4's (packed-KV attention) device time, calls and
-share, and the kernels with the most device time.
+and by body, kernel v4's (packed-KV attention) and the encoder's device
+time, calls and share, and the kernels with the most device time.  The
+traced steps start at position ``prompt_len + 2``: the step at a position
+p with (p + 1) % 32 == 0 completes a KV block and PVQ-encodes it, so
+``--prompt-len 157 --steps 1`` traces that block-fill step alone and
+``--prompt-len 158 --steps 1`` the step after it, which fills none.
 """
 
 from __future__ import annotations
@@ -131,6 +136,7 @@ def _report(prof, wall: float, units: int, args, cfg, unit: str) -> dict:
                         ("mma", by_name("pvq_matmul_f_mma")),
                         ("direct", by_name("pvq_matmul_f_kernel"))))
     v4_us, v4_calls = by_name("pvq_attn")
+    enc_us, enc_calls = by_name("pvq_encode")
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[: args.top]
     unit_ms = 1e3 * wall / units
     device_ms = device_us / 1e3 / units
@@ -154,6 +160,9 @@ def _report(prof, wall: float, units: int, args, cfg, unit: str) -> dict:
         f"v4_ms_per_{unit}": v4_us / 1e3 / units,
         f"v4_calls_per_{unit}": v4_calls / units,
         "v4_share_of_device_time": v4_us / device_us if device_us else None,
+        f"encode_ms_per_{unit}": enc_us / 1e3 / units,
+        f"encode_calls_per_{unit}": enc_calls / units,
+        "encode_share_of_device_time": enc_us / device_us if device_us else None,
         "leg": "f32" if args.f32 else "served",
         "top_kernels": [
             {"name": name[:80], f"ms_per_{unit}": us / 1e3 / units, f"calls_per_{unit}": n / units}

@@ -22,6 +22,7 @@ one bf16 ulp, 2^-8 relative).
 import numpy as np
 import pytest
 import torch
+from _encode_rows import encode_rows
 
 from repro_torch.core import quantize as port_q
 from repro_torch.kernels import LAUNCHES, V2_BODY_LAUNCHES, V3_BODY_LAUNCHES, ops
@@ -128,16 +129,61 @@ def test_cuda_mma_body_matches_plain(m, k, n, group):
     assert _body_launches_since(before) == {"splitk": 0, "direct": 0, "mma": calls}
 
 
+# (g, n, K, delta_max); rows of every kind of ``encode_rows`` (exact ties,
+# zero rows, rows whose bulk is 0) wherever g >= 6
+_ENCODE_CASES = [
+    # the served shapes: the KV cache's groups, the embedding's, a layer's
+    (40, 32, 127, 32), (50, 64, 128, 32), (64, 256, 256, 32), (30, 16, 12, 32),
+    # n not a power of two, and the widest n
+    (30, 12, 12, 32), (13, 48, 96, 32), (21, 200, 256, 32), (7, 1000, 1024, 32),
+    (9, 1024, 1024, 32),
+    # K 1, and a large bulk
+    (25, 64, 1, 32), (33, 16, 1024, 32), (18, 16, 4096, 32),
+    # delta_max 0 (bulk only), 1, and >= K (greedy only)
+    (26, 64, 128, 0), (26, 64, 128, 1), (26, 256, 256, 300), (26, 32, 127, 127),
+    # one row, and row counts that are not a multiple of a CTA's rows
+    (1, 256, 256, 32), (1, 32, 127, 32), (6, 64, 128, 32), (4097, 64, 128, 32),
+]
+
+
 @needs_cuda
-@pytest.mark.parametrize("g,n,k", [(64, 256, 256), (50, 64, 128), (40, 32, 127), (30, 16, 12)])
-def test_cuda_encode_matches_plain_bit_for_bit(g, n, k):
-    dev = torch.device("cuda")
-    w = torch.randn(g, n, generator=torch.Generator().manual_seed(g + n)).to(dev)
-    w[3] = 0.0
-    p, rho = port_enc.pvq_encode_batch_cuda(w, k_pulses=k)
-    p_ref, rho_ref = port_enc.pvq_encode_batch_plain(w, k_pulses=k)
+@pytest.mark.parametrize("g,n,k,delta_max", _ENCODE_CASES)
+def test_cuda_encode_matches_plain_bit_for_bit(g, n, k, delta_max):
+    w = torch.from_numpy(encode_rows(g * n + k + delta_max, g, n)).cuda()
+    p, rho = port_enc.pvq_encode_batch_cuda(w, k_pulses=k, delta_max=delta_max)
+    p_ref, rho_ref = port_enc.pvq_encode_batch_plain(w, k_pulses=k, delta_max=delta_max)
     assert torch.equal(p, p_ref)
     assert torch.equal(rho, rho_ref)
+
+
+@needs_cuda
+def test_cuda_encode_replays_from_a_cuda_graph():
+    """The KV encode's call (a block-fill's 1280 groups of 32, K 127)
+    captured in a CUDA graph and replayed on other rows gives the eager
+    result for those rows, bit for bit."""
+    g, n, k = 1280, 32, 127
+    w = torch.from_numpy(encode_rows(5, g, n)).cuda()
+    def call(): return port_enc.pvq_encode_batch_cuda(w, k_pulses=k)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()  # warm up off the default stream, as graph capture asks
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = LAUNCHES["pvq_encode_batch"]
+    with torch.cuda.graph(graph):
+        p, rho = call()
+    assert LAUNCHES["pvq_encode_batch"] == before + 1
+    for seed in (6, 7):
+        w.copy_(torch.from_numpy(encode_rows(seed, g, n)))
+        p.fill_(-99)
+        rho.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        p_eager, rho_eager = call()
+        assert torch.equal(p, p_eager)
+        assert torch.equal(rho, rho_eager)
+        assert torch.equal(p, port_enc.pvq_encode_batch_plain(w, k_pulses=k)[0])
 
 
 def _attn_case(b, n_kv, m, s, hd, group, seed):

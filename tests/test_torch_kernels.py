@@ -18,6 +18,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _encode_rows import encode_rows
+from _hyp import given, settings, st
 
 from repro.core import quantize as ref_q
 from repro.kernels import ops as ref_ops
@@ -55,6 +57,7 @@ def _weight(seed, k, n, group, k_pulses):
         (12, 64, 96),    # K > delta_max: bisection bulk + greedy tail
         (9, 256, 256),   # K > 127, full-width matmul group
         (8, 64, 128),    # full-width embedding group
+        (10, 32, 127),   # the KV cache's group (mostly bulk 0: greedy only)
     ],
 )
 def test_encode_plain_matches_reference_kernel(g, n, k):
@@ -77,6 +80,146 @@ def test_encode_weight_matrix_matches_reference(k_dim, n, group):
     assert kp == kp_ref
     np.testing.assert_array_equal(p.numpy(), np.asarray(p_ref))
     np.testing.assert_allclose(s.numpy(), np.asarray(s_ref), rtol=0, atol=1e-6)
+
+
+# the encode kernel's order (csrc/pvq_encode.cu), emulated in torch: lane l
+# of a row's warp holds columns l + 32 i (slot i); a tree sum folds the
+# slots, then runs a butterfly over the lanes; bisection counts are warp
+# sums, equal-ranks come from ballots; a greedy step takes each lane's first
+# maximum over its slots (score patterns as ints), then the top pattern and
+# the lowest column holding it
+_LANES = torch.arange(32)
+_ENC_TOP, _INT_MIN, _INT_MAX = 0x7F7FFFFF, -2**31, 2**31 - 1
+
+
+def _enc_row_sum(t):
+    """(g, S, 32) -> (g,): slot i += slot i + h, then lane l += lane l ^ h;
+    every lane ends with the same sum."""
+    while t.shape[1] > 1:
+        h = t.shape[1] // 2
+        t = t[:, :h] + t[:, h:]
+    v = t[:, 0]
+    for h in (16, 8, 4, 2, 1):
+        v = v + v[:, _LANES ^ h]
+    assert torch.equal(v, v[:, :1].expand_as(v))
+    return v[:, 0]
+
+
+def _popc(masks):
+    """Set bits of each 32-bit mask in an int64 tensor."""
+    return sum((masks >> b) & 1 for b in range(32))
+
+
+def _ballot(pred):
+    """(g, 32) bool -> (g,) int64 mask, bit l for lane l."""
+    return (pred.to(torch.int64) << _LANES).sum(-1)
+
+
+def _encode_emulate(w, k, delta_max):
+    g, n = w.shape
+    p = 32
+    while p < n:
+        p *= 2
+    s = p // 32
+
+    def slots(x):
+        return torch.nn.functional.pad(x, (0, p - n)).reshape(g, s, 32)
+
+    wv = slots(w.to(torch.float32))
+    live = slots(torch.ones((g, n), dtype=torch.bool))
+    absw = wv.abs()
+    l1 = _enc_row_sum(absw)
+    pos = (l1 > 0)[:, None, None]
+    kq = torch.full_like(l1, float(k)) / torch.where(l1 > 0, l1, torch.ones_like(l1))
+    target = absw * kq[:, None, None]
+    y = torch.where(live & pos, torch.floor(target), torch.zeros_like(target))
+    fb = torch.where(live, (target - y).view(torch.int32),
+                     torch.full(target.shape, _INT_MIN, dtype=torch.int32))
+    bulk = torch.clamp(k - _enc_row_sum(y).to(torch.int32) - delta_max, min=0)
+    # bisection, skipped (hi stays at the top) where bulk == 0
+    lo = torch.full((g,), -1, dtype=torch.int32)
+    hi = torch.full((g,), _ENC_TOP, dtype=torch.int32)
+    run = bulk > 0
+    for _ in range(32):
+        mid = lo + torch.div(hi - lo, 2, rounding_mode="floor")
+        cnt = (fb > mid[:, None, None]).to(torch.int32).sum(1).sum(-1)  # lanes, then the warp
+        ok = cnt <= bulk
+        hi = torch.where(run & ok, mid, hi)
+        lo = torch.where(run & ~ok, mid, lo)
+    extra = bulk - (fb > hi[:, None, None]).to(torch.int32).sum(1).sum(-1)
+    le = (2 << _LANES) - 1
+    below = torch.zeros((g,), dtype=torch.int64)
+    for i in range(s):
+        eq = fb[:, i] == hi[:, None]
+        ballot = _ballot(eq)
+        rank = below[:, None] + _popc(ballot[:, None] & le)
+        bump = (fb[:, i] > hi[:, None]) | (eq & (rank <= extra[:, None]))
+        below = below + _popc(ballot)
+        y[:, i] = torch.where(pos[:, 0] & bump, y[:, i] + 1.0, y[:, i])
+    # greedy steps
+    corr = _enc_row_sum(absw * y)
+    energy = _enc_row_sum(y * y)
+    rem = torch.clamp(k - _enc_row_sum(y).to(torch.int32), max=delta_max)
+    cols = _LANES + 32 * torch.arange(s)[:, None]  # (S, 32)
+    for _ in range(min(delta_max, k)):
+        do = rem > 0
+        if not bool(do.any()):
+            break
+        c = corr[:, None, None] + absw
+        score = ((c * c) / (energy[:, None, None] + 2.0 * y + 1.0)).view(torch.int32)
+        best = torch.full((g, 32), -1, dtype=torch.int32)
+        col = torch.full((g, 32), _INT_MAX, dtype=torch.int32)
+        for i in range(s):  # each lane's slots in ascending column order, strict >
+            take = live[:, i] & (score[:, i] > best)
+            best = torch.where(take, score[:, i], best)
+            col = torch.where(take, cols[i].to(torch.int32), col)
+        top = best.amax(-1, keepdim=True)
+        j = torch.where(best == top, col, torch.full_like(col, _INT_MAX)).amin(-1)
+        jj = j.to(torch.int64)[:, None]  # a slot-major flat index is the column
+        yf = y.reshape(g, p).scatter_add(1, jj, do.to(torch.float32)[:, None])
+        y = yf.reshape(g, s, 32)
+        aj = absw.reshape(g, p).gather(1, jj)[:, 0]
+        yj = yf.gather(1, jj)[:, 0]
+        corr = torch.where(do, corr + aj, corr)
+        energy = torch.where(do, energy + (2.0 * yj - 1.0), energy)
+        rem = rem - do.to(torch.int32)
+    pv = torch.sign(wv) * y
+    yn2 = _enc_row_sum(pv * pv)
+    dot = _enc_row_sum(wv * pv)
+    rho = torch.clamp(dot / torch.where(yn2 > 0, yn2, torch.ones_like(yn2)), min=0.0)
+    rho = torch.where(yn2 > 0, rho, torch.zeros_like(rho))
+    return pv.reshape(g, p)[:, :n].to(torch.int32), rho
+
+
+_EMULATE_N = [12, 32, 64, 200, 256]
+
+
+def _emulate_case(seed, g, n, k, delta_max):
+    w = torch.from_numpy(encode_rows(seed, g, n))
+    got = _encode_emulate(w, k, delta_max)
+    want = port_enc.pvq_encode_batch_plain(w, k_pulses=k, delta_max=delta_max)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+
+
+@settings(max_examples=12, deadline=None)
+@given(seed=st.integers(0, 2**32 - 1), k=st.sampled_from([1, 16, 127, 128, 256, 1100]),
+       delta_max=st.sampled_from([0, 1, 32, 2000]))
+@pytest.mark.parametrize("n", _EMULATE_N)
+def test_encode_kernel_order_is_the_plain_version_bit_for_bit(n, seed, k, delta_max):
+    """The warp-per-row kernel's order (slot layout, register-then-butterfly
+    tree sums, warp-sum bisection counts skipped at bulk 0, ballot
+    equal-ranks, the lane-then-warp argmax with ties to the lower column)
+    equals ``pvq_encode_batch_plain`` bit for bit on rows with exact ties,
+    zero rows and rows whose bulk is 0."""
+    _emulate_case(seed, 13, n, k, delta_max)
+
+
+@pytest.mark.parametrize("n,k,delta_max", [(32, 127, 32), (64, 128, 32), (256, 256, 32),
+                                           (16, 1024, 32), (16, 1, 32), (48, 96, 0),
+                                           (1000, 512, 32), (7, 40, 40)])
+def test_encode_kernel_order_on_the_served_and_edge_shapes(n, k, delta_max):
+    _emulate_case(n + k, 25, n, k, delta_max)
 
 
 # ---------------------------------------------------------------------------

@@ -237,3 +237,29 @@ def test_profile_report_counts_v4(monkeypatch):
     assert report["v4_calls_per_step"] == 1.0
     assert report["v4_share_of_device_time"] == pytest.approx(26.0 / 30.0)
     assert report["v3_calls_per_step"] == 0.5
+
+
+def test_profile_report_counts_the_encoder(monkeypatch):
+    """The encoder's device time, calls and share of the device time, from
+    the kernel names that hold ``pvq_encode``; the other kernels apart."""
+    from types import SimpleNamespace
+
+    from repro_torch.tools import profile_decode
+
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda i: "test")
+    cuda = torch.autograd.DeviceType.CUDA
+    traced = [("void pvq_encode_warp<1>(float const*, int, int, int, int, int*, float*)", 5.0),
+              ("void pvq_encode_warp<1>(float const*, int, int, int, int, int*, float*)", 5.0),
+              ("void at::native::elementwise_kernel<128, 2>()", 10.0),
+              ("void at::native::elementwise_kernel<128, 2>()", 20.0)]
+    events = [SimpleNamespace(device_type=cuda, name=name, device_time_total=us)
+              for name, us in traced]
+    report = profile_decode._report(
+        SimpleNamespace(events=lambda: events), 1.0, 2,
+        SimpleNamespace(batch=4, prompt_len=157, top=3, f32=False), SimpleNamespace(name="m"),
+        "step")
+    assert report["device_ms_per_step"] == pytest.approx(0.020)
+    assert report["encode_ms_per_step"] == pytest.approx(0.005)
+    assert report["encode_calls_per_step"] == 1.0
+    assert report["encode_share_of_device_time"] == pytest.approx(0.25)
+    assert report["v4_calls_per_step"] == 0.0 and report["v3_calls_per_step"] == 0.0
