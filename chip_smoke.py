@@ -63,8 +63,29 @@ order, it:
    agreement >= 0.99 of the served leg with the f32 leg, CI's
    configuration) must hold, then CI's long-context ``--kv-pvq`` smoke
    (reduced smollm, batch 1, prompt 512, 8 new tokens) under the same
-   gate, with kernel v4 launched and ``kv_bytes_ratio_vs_f32 <= 0.35``;
-7. prints the ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
+   gate, with kernel v4 launched and ``kv_bytes_ratio_vs_f32 <= 0.35``,
+   and CI's prompt-8 ``--pvq --act-int8`` smoke (batch 2, 8 new tokens);
+7. runs the continuous-batching engine (``serve --engine``), each run with
+   the launch counts set to 0 just before it and read just after, and each
+   rerun on the same trace through the plain versions on the card, where
+   its tokens must be identical: CI's two engine smokes at reduced size
+   with CI's flags; the first must pass its agreement and speedup gates, the
+   chunked one its prefix-hit gate, and prints its agreement (the JAX
+   reference's own run misses that gate, 0.9792 at CI's seed) and its
+   speedup (the eager engine against the eager sequential loop at this
+   size: host noise around 1), then full-width smollm-360m: run (a),
+   batched admission
+   (``--engine-slots 4 --requests 8 --prompt-len 128 --gen 32
+   --prefill-batch 2``), and run (b), the same with chunked prefill and
+   prefix hits (``--prefill-chunk 4 --shared-prefix 128``: kernel v4 at
+   its chunk caller with 384 query rows); each prints its engine report,
+   the launches of v4 from the chunk caller and of the encoder from graft
+   and append, and its ``engine_token_agreement`` (printed at full width,
+   like the fixed-batch phases' f32-leg agreement); before that, the
+   kernel phase times v4 at the chunk caller's shape (BH 5, m 384, hd 64,
+   kv_len 256 of 416 and 1920 of 2048 positions) against SDPA under the
+   same length mask;
+8. prints the ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
 
 Any failed phase, kernel mismatch or missed gate raises.  The full-width
 served legs' agreement with their f32 legs is printed, not gated: the JAX
@@ -111,6 +132,45 @@ CI_LONG_SERVE = [
     "--pvq", "--act-int8", "--kv-pvq", "--agreement-min", "0.99",
 ]
 KV_BYTES_RATIO_MAX = 0.35  # CI's gate on that smoke
+# CI's int8-activation serve smoke (ci.yml:79-87): dense KV cache
+CI_PROMPT8_SERVE = [
+    "--arch", "smollm-360m", "--reduced", "--batch", "2", "--prompt-len", "8", "--gen", "8",
+    "--pvq", "--act-int8", "--agreement-min", "0.99",
+]
+# CI's two engine smokes (ci.yml:99-132) with CI's flags, and the
+# full-width engine runs (a) batched admission and (b) chunked prefill with
+# prefix hits; each: (argv, agreement gated, kernels its path must launch)
+ENGINE_KERNELS = ("pvq_encode_batch", "pvq_matmul_q", "pvq_attn_q")
+CI_ENGINE_SATURATE = [
+    "--arch", "smollm-360m", "--reduced", "--prompt-len", "12", "--gen", "8", "--engine",
+    "--engine-slots", "3", "--requests", "6", "--rate", "0", "--pvq", "--act-int8", "--kv-pvq",
+    "--kv-block", "8", "--kv-group", "16", "--agreement-min", "0.99", "--min-speedup", "1.0",
+]
+CI_ENGINE_CHUNKED = [
+    "--arch", "smollm-360m", "--reduced", "--prompt-len", "24", "--gen", "8", "--engine",
+    "--engine-slots", "2", "--requests", "6", "--rate", "0", "--pvq", "--act-int8", "--kv-pvq",
+    "--kv-block", "8", "--kv-group", "16", "--prefill-chunk", "2", "--prefill-batch", "2",
+    "--shared-prefix", "64", "--agreement-min", "0.99", "--min-speedup", "1.0",
+    "--min-prefix-hits", "1",
+]
+FULL_ENGINE_A = [
+    "--arch", "smollm-360m", "--engine", "--engine-slots", "4", "--requests", "8", "--rate", "0",
+    "--prompt-len", str(PROMPT), "--gen", str(GEN), "--pvq", "--act-int8", "--kv-pvq",
+    "--kv-block", str(KV_BLOCK), "--kv-group", str(KV_GROUP), "--prefill-batch", "2",
+    "--agreement-min", "0.99",
+]
+FULL_ENGINE_B = FULL_ENGINE_A + ["--prefill-chunk", "4", "--shared-prefix", "128",
+                                 "--min-prefix-hits", "1"]
+# (what, argv, the serve gates that must hold).  CI's chunked smoke prints
+# its agreement and speedup: the JAX reference's own run misses the former
+# at CI's seed (REFERENCE_CI_CHUNKED_AGREEMENT, python -m repro.launch.serve
+# with those flags on the CPU), and the eager engine's speedup over the
+# eager sequential loop at this size is host noise around 1 (PERF.md)
+ENGINE_RUNS = [("ci engine saturate", CI_ENGINE_SATURATE, ("agreement", "speedup")),
+               ("ci engine chunked", CI_ENGINE_CHUNKED, ("prefix_cache",)),
+               ("smollm-360m engine (a)", FULL_ENGINE_A, ()),
+               ("smollm-360m engine (b)", FULL_ENGINE_B, ("prefix_cache",))]
+REFERENCE_CI_CHUNKED_AGREEMENT = 0.9792
 MOE_ARCH = "deepseek-v2-lite-16b"
 MOE_FULL_SERVE = [
     "--arch", MOE_ARCH, "--batch", str(BATCH), "--prompt-len", str(PROMPT), "--gen", str(GEN),
@@ -609,6 +669,61 @@ def check_attention(torch, timer, mm, quant):
     return entry
 
 
+# kernel v4 at its chunked-prefill caller (attention_prefill_chunk): one
+# slot's gather at smollm's full width (batch 1 x 5 kv heads), a 128-token
+# chunk's 128 x 3 query rows, kv_len = the chunk's start: (what, S, kv_len)
+ATTN_CHUNK_ROWS = [("chunk at 256, 416-position gather", 416, 256),
+                   ("chunk at 1920, smollm's published context", 2048, 1920)]
+ATTN_CHUNK_M = 128 * ATTN_M
+
+
+def check_attention_chunk(torch, timer, mm, quant):
+    """Kernel v4 at each of ``ATTN_CHUNK_ROWS``: identical to its plain
+    version, timed (events and device) beside it and beside
+    ``scaled_dot_product_attention`` on the dequantized f32 K/V under the
+    same ``kv_len`` mask.  The bound counts the ``kv_len`` live positions."""
+    n_kv, m, hd, group = ATTN_N_KV, ATTN_CHUNK_M, ATTN_HD, ATTN_GROUP
+    ng, bh = hd // group, ATTN_N_KV
+    scale = hd ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    plan = getattr(mm, "_v4_plan", None)
+    rows = {}
+    for what, s, kv_len in ATTN_CHUNK_ROWS:
+        q_i8, a = quant(torch.randn(bh, m, hd, generator=gen, device="cuda"))
+        planes = [torch.randint(-20, 21, (1, s, n_kv, hd), generator=gen, device="cuda",
+                                dtype=torch.int8) for _ in range(2)]
+        scales = [torch.rand(1, s, n_kv, ng, generator=gen, device="cuda") * 0.1
+                  for _ in range(2)]
+        kv = torch.full((bh,), kv_len, dtype=torch.int32, device="cuda")
+        args = (q_i8, a, planes[0], scales[0], planes[1], scales[1], kv)
+        kern = partial(mm.pvq_attn_q_cuda, *args, group=group, sm_scale=scale)
+        plain = partial(mm.pvq_attn_q_plain, *args, group=group, sm_scale=scale)
+        err = 0.0
+        for name, got, want in zip(("acc", "m", "l"), kern(), plain()):
+            err = max(err, check_close(f"pvq_attn_q {what} {name}", got, want, 0.0))
+
+        def dense(pl, sc):  # (1, S, n_kv, X) -> (BH, 1, S, hd) f32
+            d = pl.float() * torch.repeat_interleave(sc, group, dim=-1)
+            return d[0].permute(1, 0, 2)[:, None]
+
+        mask = (torch.arange(s, device="cuda") < kv_len)[None, None, None, :]
+        library = partial(torch.nn.functional.scaled_dot_product_attention,
+                          (q_i8.float() * a)[:, None], dense(planes[0], scales[0]),
+                          dense(planes[1], scales[1]), attn_mask=mask, scale=scale)
+        b_ms, b_by = bound_ms(attn_bytes(bh, m, kv_len, hd, ng), 2.0 * 2 * bh * m * kv_len * hd,
+                              INT8_OPS_PER_S)
+        row = {"what": what, "shape": f"BH {bh} (one slot x {n_kv} kv heads), m {m} "
+                                      f"(128 tokens x {ATTN_M}), hd {hd}, group {group}, "
+                                      f"S {s}, kv_len {kv_len}",
+               "plan": list(plan(m, s, hd, group)) if plan else None,
+               "max_abs_err": err, "ms": timer(kern), "plain_ms": timer(plain, reps=5),
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": timer(library)}
+        timer.device_later(kern, (row, "device_ms", 1))
+        timer.device_later(library, (row, "library_device_ms", 1))
+        rows[f"S{s}_kv{kv_len}"] = row
+    return rows
+
+
 def check_batched(torch, timer, mm, quantize, kernels_mod):
     """Batched kernels v3 and v2 at one MoE layer's expert-bank shapes, at
     decode and prefill; the entries total one decode step's MoE layer (up,
@@ -996,6 +1111,135 @@ def serve_reduced(serve, argv, kernels_mod, expect=(), what="reduced"):
     return report
 
 
+@contextlib.contextmanager
+def launches_by_caller(kernels_mod, attention, paged_cls, model_cls):
+    """Counts kernel v4's launches from ``attention_prefill_chunk``, the
+    encoder's from ``PagedKV.graft_chunk`` (graft and chunk grafts) and
+    ``PagedKV.append``, and the calls of ``Model.prefill_chunk`` (engine
+    chunks, warm-up ones included) while active (harness-only wrappers of
+    those attributes, which their callers look up at each call)."""
+    counts = {"v4_from_chunk": 0, "encoder_from_graft": 0, "encoder_from_append": 0,
+              "chunks_run": 0}
+    chunk = model_cls.prefill_chunk
+
+    def counted_chunk(*a, **kw):
+        counts["chunks_run"] += 1
+        return chunk(*a, **kw)
+
+    saved = [(attention, "attention_prefill_chunk", "pvq_attn_q", "v4_from_chunk"),
+             (paged_cls, "graft_chunk", "pvq_encode_batch", "encoder_from_graft"),
+             (paged_cls, "append", "pvq_encode_batch", "encoder_from_append")]
+    inner = [getattr(owner, name) for owner, name, _, _ in saved]
+
+    def wrap(fn, kernel, key):
+        def counted(*a, **kw):
+            before = kernels_mod.LAUNCHES[kernel]
+            try:
+                return fn(*a, **kw)
+            finally:
+                counts[key] += kernels_mod.LAUNCHES[kernel] - before
+        return counted
+
+    try:
+        for (owner, name, kernel, key), fn in zip(saved, inner):
+            setattr(owner, name, wrap(fn, kernel, key))
+        model_cls.prefill_chunk = counted_chunk
+        yield counts
+    finally:
+        for (owner, name, _, _), fn in zip(saved, inner):
+            setattr(owner, name, fn)
+        model_cls.prefill_chunk = chunk
+
+
+def serve_engine(torch, serve, kernels_mod, mm, enc, quant, argv, what, gates):
+    """One ``serve --engine`` run with the launch counts set to 0 just
+    before it and read just after, then the same trace through the plain
+    versions on the card: the tokens must be identical.  The serve gates
+    named in ``gates`` (``agreement``, ``speedup``, ``prefix_cache``) must
+    hold, the others are printed; every kernel of ``ENGINE_KERNELS`` must
+    launch (v4 from the chunk caller where the run chunks), the encoder from
+    graft and append.  Returns the launch counts and the printed summary."""
+    from repro_torch.core.packed import PagedKV
+    from repro_torch.launch.engine import PVQEngine, Request
+    from repro_torch.nn import attention
+    from repro_torch.nn.models import Model
+
+    flag = {f: argv[argv.index(f) + 1] for f in ("--kv-block", "--kv-group")}
+    metrics = None
+    if what == "ci engine saturate":  # CI runs this smoke with --metrics-out
+        metrics = str(ROOT / "build" / "engine_obs")
+        argv = argv + ["--metrics-out", metrics]
+    torch.cuda.reset_peak_memory_stats()
+    kernels_mod.reset_launches()
+    t0 = time.time()
+    with launches_by_caller(kernels_mod, attention, PagedKV, Model) as by_caller:
+        report, rc, state = serve.run(argv, return_state=True)
+    counts = kernels_mod.launches()
+    report["phase_wall_s"] = round(time.time() - t0, 2)
+    print(json.dumps({"serve": what, **report}), flush=True)
+    if not state:
+        fail(f"{what} stopped early: {report}")
+    failed = [k for k in ("agreement", "speedup", "prefix_cache") if f"{k}_fail" in report]
+    if rc != 0 and not failed or set(failed) & set(gates):
+        fail(f"{what} exited {rc}: {report}")
+    # serve stops checking its gates at the first that fails
+    if "prefix_cache" in gates and report["engine_prefix_hits"] < 1:
+        fail(f"{what}: no prefix hit")
+    if "speedup" in gates and report["engine_speedup_vs_fixed_batch"] < 1.0:
+        fail(f"{what}: engine speedup {report['engine_speedup_vs_fixed_batch']} < 1.0")
+    missing = [name for name in ENGINE_KERNELS if counts[name] <= 0]
+    if missing:
+        fail(f"{what} never launched {missing}: {counts}")
+    if by_caller["encoder_from_graft"] <= 0 or by_caller["encoder_from_append"] <= 0:
+        fail(f"{what}: the encoder did not run from both graft and append: {by_caller}")
+    if report["engine_chunks"] and by_caller["v4_from_chunk"] <= 0:
+        fail(f"{what}: {report['engine_chunks']} chunks launched no v4: {by_caller}")
+    if metrics:
+        from repro_torch.runtime import telemetry
+
+        names = {r["name"] for r in telemetry.validate_metrics_jsonl(metrics + "/metrics.jsonl")}
+        spans = {e["name"] for e in telemetry.validate_chrome_trace(metrics + "/trace.json")}
+        need = set(telemetry.ENGINE_REQUIRED_METRICS) - {"autotune.lookups"}
+        if not need <= names or not set(telemetry.ENGINE_REQUIRED_SPANS) <= spans:
+            fail(f"{what}: telemetry lacks {sorted(need - names)} "
+                 f"{sorted(set(telemetry.ENGINE_REQUIRED_SPANS) - spans)}")
+
+    t0 = time.time()
+    kvq = quant.KVQuant(int(flag["--kv-block"]), int(flag["--kv-group"]))
+    with plain_versions(mm, enc), quant.act_quant_scope(quant.ActQuant()), \
+            quant.kv_quant_scope(kvq):
+        eng = PVQEngine(state["model"], state["params"], **state["engine_kwargs"])
+        plain = eng.run([Request(rid=r.rid, prompt=list(r.prompt),
+                                 max_new_tokens=r.max_new_tokens) for r in state["trace"]])
+    del eng
+    identical = plain["outputs"] == state["outputs"]
+    summary = {
+        "engine_run": what, "device": report["device"],
+        "tokens_per_s": report["engine_tokens_per_s"],
+        "ttft_p50_s": report["engine_ttft_p50_s"], "ttft_p99_s": report["engine_ttft_p99_s"],
+        "itl_p99_s": report["engine_itl_p99_s"],
+        "itl_with_prefill_p99_s": report["engine_itl_with_prefill_p99_s"],
+        "decode_steps": report["engine_decode_steps"], "chunks": report["engine_chunks"],
+        "prefill_batches": report["engine_prefill_batches"],
+        "prefix_hits": report["engine_prefix_hits"],
+        "speedup_vs_fixed_batch": report["engine_speedup_vs_fixed_batch"],
+        "baseline_tokens_per_s": report["baseline_tokens_per_s"],
+        "engine_token_agreement": report.get("engine_token_agreement"),
+        "gates": list(gates),
+        "peak_device_memory_bytes": report.get("peak_device_memory_bytes"),
+        "kernel_launches": counts, "engine_kernel_launches": report["engine_kernel_launches"],
+        "v3_body_launches": report["v3_body_launches"], **by_caller,
+        "tokens_identical_to_plain_on_card": identical,
+        "plain_rerun_seconds": round(time.time() - t0, 2),
+    }
+    if what == "ci engine chunked":
+        summary["reference_agreement_at_ci_seed"] = REFERENCE_CI_CHUNKED_AGREEMENT
+    print(json.dumps(summary), flush=True)
+    if not identical:
+        fail(f"{what}: engine tokens through the kernels differ from the plain versions'")
+    return counts, summary
+
+
 def start_ptxas_report(build, source="pvq_matmul"):
     """Starts ``nvcc -Xptxas -v`` on ``csrc/<source>.cu`` (a cubin under the
     build directory), beside the library builds."""
@@ -1097,11 +1341,13 @@ def main() -> int:
     timer = Timer(torch)
     entries, rows = check_matmuls(torch, timer, mm, ops, quantize_activations, kernels_mod)
     entries["pvq_attn_q"] = check_attention(torch, timer, mm, quantize_activations)
+    entries["pvq_attn_q"]["prefill_chunk"] = check_attention_chunk(torch, timer, mm,
+                                                                   quantize_activations)
     entries["pvq_encode_batch"], enc_rows = check_encode(torch, timer, enc)
     batched, batched_rows = check_batched(torch, timer, mm, quantize_activations, kernels_mod)
     entries.update(batched)
     timer.measure_device()
-    for row in rows + enc_rows + batched_rows:
+    for row in rows + enc_rows + batched_rows + list(entries["pvq_attn_q"]["prefill_chunk"].values()):
         print(json.dumps({"kernel_check": row}), flush=True)
     del timer
     if kernels_only:  # the kernels' numbers, without main-path launches
@@ -1126,6 +1372,17 @@ def main() -> int:
     if not long_ctx.get("kv_bytes_ratio_vs_f32", 1.0) <= KV_BYTES_RATIO_MAX:
         fail(f"ci long-context smoke: kv_bytes_ratio_vs_f32 "
              f"{long_ctx.get('kv_bytes_ratio_vs_f32')} > {KV_BYTES_RATIO_MAX}")
+    serve_reduced(serve, CI_PROMPT8_SERVE, kernels_mod, expect=("pvq_matmul_q", "pvq_matmul"),
+                  what="ci prompt-8")
+    engine = {}
+    for what, argv, gate in ENGINE_RUNS:
+        counts[what], engine[what] = serve_engine(torch, serve, kernels_mod, mm, enc, quant,
+                                                  argv, what, gate)
+        torch.cuda.empty_cache()
+    run_b = engine["smollm-360m engine (b)"]
+    entries["pvq_attn_q"]["launches_from_chunk_caller"] = {
+        what: e["v4_from_chunk"] for what, e in engine.items()}
+    entries["pvq_attn_q"]["launches_per_chunk"] = run_b["v4_from_chunk"] / run_b["chunks_run"]
 
     # each kernel's launches come from the main path that first ported it;
     # launches_by_path has every full-width path's count

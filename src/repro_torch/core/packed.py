@@ -1,6 +1,6 @@
 """Packed PVQ weights and the PVQ-compressed KV cache (PyTorch port of
-``repro.core.packed``: ``PackedPVQ``, ``PackedKV``, the pack functions and
-``quantize_params``; the paged pool waits for the engine slice).
+``repro.core.packed``: ``PackedPVQ``, ``PackedKV``, the engine's paged
+pool ``PagedKV``, the pack functions and ``quantize_params``).
 
 ``PackedPVQ`` is int8 pulses plus per-group f32 scales and the metadata to
 consume them.  Layouts:
@@ -21,6 +21,7 @@ import math
 import re
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .quantize import KVQuant, QuantPolicy, k_for
@@ -147,16 +148,21 @@ def _kv_encode_planes(x: torch.Tensor, group: int, k: int) -> Tuple[torch.Tensor
     least-squares rho fitted against the int8 pulses actually stored.  The
     projection is the encode kernel's function (the reference computes the
     same ``pvq_quantize_direction_fast`` in jnp), so on a card it runs
-    through the kernel."""
+    through the kernel.  For ``k <= 127`` (every ``KVQuant``) the int8
+    pulses are the encoder's, whose rho is that fit (the same elementwise
+    sum tree as ``pvq._scales``), so it is taken as it comes."""
     from ..kernels import ops
     from .pvq import _scales
 
     shp = x.shape
     ng = shp[-1] // group
     xg = x.to(torch.float32).reshape(shp[:-1] + (ng, group))
-    pulses, _ = ops.pvq_encode(xg.reshape(-1, group), k_pulses=k)
+    pulses, rho = ops.pvq_encode(xg.reshape(-1, group), k_pulses=k)
     p8 = ops.pulses_to_int8(pulses).reshape(xg.shape)
-    scales = _scales(xg, p8, "ls").to(torch.float32)
+    if k <= 127:
+        scales = rho.reshape(xg.shape[:-1])
+    else:
+        scales = _scales(xg, p8, "ls").to(torch.float32)
     _probe_kv_encode(xg, p8, scales)
     return p8.reshape(shp), scales
 
@@ -307,22 +313,26 @@ class PackedKV:
             self.v_scales[:, start : start + blk] = sv
         return self
 
-    def dense_kv(self, filled: int, dtype=torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
+    def dense_kv(self, filled, dtype=torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
         """Exact dense view ``(k, v)`` of shape ``(b, S, n_kv, hd)``: planes
-        below ``packed_end(filled)``, the tail ring at and above it.  Rows
-        beyond ``filled`` carry garbage and must stay length-masked."""
+        below ``packed_end(filled)``, the tail ring at and above it.
+        ``filled`` is a host int (lockstep batch) or a per-row ``(b,)``
+        tensor (the engine's slots).  Rows beyond ``filled`` carry garbage
+        and must stay length-masked."""
         blk = self.block
-        s = self.max_len
-        pe = self.packed_end(filled)
-        posn = torch.arange(s, device=self.k_pulses.device)
-        tidx = torch.remainder(posn - pe, blk)
-        mask = (posn >= pe)[None, :, None, None]
+        dev = self.k_pulses.device
+        pe = torch.as_tensor(self.packed_end(filled), device=dev)
+        pe = pe.expand(self.k_pulses.shape[0])[:, None]  # (b, 1)
+        posn = torch.arange(self.max_len, device=dev)[None, :]
+        tidx = torch.remainder(posn - pe, blk)  # (b, S) ring slot of each position
+        mask = (posn >= pe)[:, :, None, None]
 
         def expand(pulses, scales):
             return pulses.to(torch.float32) * torch.repeat_interleave(scales, self.group, dim=-1)
 
         def overlay(deq, tail):
-            return torch.where(mask, tail.to(torch.float32)[:, tidx], deq)
+            idx = tidx[:, :, None, None].expand(-1, -1, *tail.shape[2:])
+            return torch.where(mask, torch.gather(tail.to(torch.float32), 1, idx), deq)
 
         k = overlay(expand(self.k_pulses, self.k_scales), self.tail_k)
         v = overlay(expand(self.v_pulses, self.v_scales), self.tail_v)
@@ -337,6 +347,252 @@ class PackedKV:
 
 def is_packed_kv(leaf: Any) -> bool:
     return isinstance(leaf, PackedKV)
+
+
+# ---------------------------------------------------------------------------
+# PagedKV: the physical-page pool of the continuous-batching engine
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(eq=False)
+class PagedKV:
+    """Physical-page pool view of :class:`PackedKV` for a slot-pool engine
+    (``launch.engine``): one attention layer's PVQ-encoded KV blocks live
+    in a pool of pages shared by ``n_slots`` decode slots, with **page size
+    = kv block size**, so a page is one PVQ encode unit and stays packed.
+
+    * ``k_pages``/``v_pages`` ``(P + 1, page, n_kv, hd)`` int8 and
+      ``k_page_scales``/``v_page_scales`` ``(P + 1, page, n_kv, ng)`` f32:
+      the pool.  Page ``P`` (the last) is the *trash page*: page-table
+      entries of unallocated logical blocks point at it, and whatever it
+      holds stays behind the length masks.
+    * ``tail_k``/``tail_v`` ``(n_slots, page, n_kv, hd)``: each slot's
+      in-flight partial block in the cache dtype (ring slot ``p % page``).
+    * ``page_table`` ``(n_slots, max_pages)`` int32 on the pool's device:
+      the physical page of each slot's logical block (trash where
+      unallocated), read by :meth:`gather`.
+    * ``write_page`` ``(n_slots,)`` int32 **on the host**: the page a slot
+      completes in this decode step, trash for the slots that complete
+      none.  The engine's allocator owns both tables and hands them over
+      with :meth:`with_tables` before each step; :meth:`append` takes the
+      completing slots from ``write_page``, so a step reads nothing back
+      from the device.
+
+    Like :class:`PackedKV` (and unlike the reference's immutable pytree),
+    every update is in place.
+    """
+
+    k_pages: torch.Tensor
+    k_page_scales: torch.Tensor
+    v_pages: torch.Tensor
+    v_page_scales: torch.Tensor
+    tail_k: torch.Tensor
+    tail_v: torch.Tensor
+    page_table: torch.Tensor
+    write_page: np.ndarray
+    page: int
+    group: int
+    k: int
+    dtype: str
+
+    @property
+    def n_pages(self) -> int:
+        """Usable physical pages (the trash page excluded)."""
+        return int(self.k_pages.shape[0]) - 1
+
+    @property
+    def trash_page(self) -> int:
+        return self.n_pages
+
+    @property
+    def n_slots(self) -> int:
+        return int(self.tail_k.shape[0])
+
+    @property
+    def block(self) -> int:
+        """The :class:`PackedKV` name of the PVQ encode granularity."""
+        return self.page
+
+    def packed_end(self, filled):
+        return (filled // self.page) * self.page
+
+    @classmethod
+    def init(
+        cls, n_slots: int, n_pages: int, max_pages: int, n_kv: int, head_dim: int, *,
+        kvq: KVQuant, dtype=torch.bfloat16, device="cuda",
+    ) -> "PagedKV":
+        g = _fit_group(kvq.group, head_dim)
+        page = int(kvq.block)
+        ng = head_dim // g
+
+        def z(shape, dt):
+            return torch.zeros(shape, dtype=dt, device=device)
+
+        return cls(
+            k_pages=z((n_pages + 1, page, n_kv, head_dim), torch.int8),
+            k_page_scales=z((n_pages + 1, page, n_kv, ng), torch.float32),
+            v_pages=z((n_pages + 1, page, n_kv, head_dim), torch.int8),
+            v_page_scales=z((n_pages + 1, page, n_kv, ng), torch.float32),
+            tail_k=z((n_slots, page, n_kv, head_dim), dtype),
+            tail_v=z((n_slots, page, n_kv, head_dim), dtype),
+            page_table=torch.full((n_slots, max_pages), int(n_pages), dtype=torch.int32,
+                                  device=device),
+            write_page=np.full((n_slots,), int(n_pages), np.int32),
+            page=page, group=g, k=int(kvq.k), dtype=dtype_name(dtype),
+        )
+
+    def with_tables(self, page_table, write_page) -> "PagedKV":
+        """Take the allocator's tables (in place): ``page_table`` as a
+        tensor on the pool's device (one tensor may serve every layer),
+        ``write_page`` as host integers."""
+        self.page_table = torch.as_tensor(page_table, dtype=torch.int32,
+                                          device=self.k_pages.device)
+        self.write_page = np.asarray(write_page, np.int32).reshape(self.n_slots)
+        return self
+
+    # ---------------------------------------------------------------- views
+
+    def _pick(self, pool: torch.Tensor, pt: torch.Tensor) -> torch.Tensor:
+        """``pool[pt]`` as ``(rows, max_pages * page, n_kv, X)`` (one
+        ``index_select``: advanced indexing costs several launches)."""
+        g = pool.index_select(0, pt.reshape(-1))
+        return g.reshape(pt.shape[0], pt.shape[1] * self.page, g.shape[-2], g.shape[-1])
+
+    def gather(self) -> PackedKV:
+        """Slot-major :class:`PackedKV` view through the page table:
+        ``k_pulses[slot, b * page + t] = k_pages[page_table[slot, b], t]``.
+        Unallocated blocks read the trash page, behind the length mask.
+        The planes are a gathered copy; the tails are the pool's own."""
+        pt = self.page_table
+        return PackedKV(
+            k_pulses=self._pick(self.k_pages, pt), k_scales=self._pick(self.k_page_scales, pt),
+            v_pulses=self._pick(self.v_pages, pt), v_scales=self._pick(self.v_page_scales, pt),
+            tail_k=self.tail_k, tail_v=self.tail_v,
+            block=self.page, group=self.group, k=self.k, dtype=self.dtype,
+        )
+
+    def gather_slot(self, slot: int) -> PackedKV:
+        """Batch-1 :class:`PackedKV` view of one slot (the chunked-prefill
+        read leg attends only to the slot it extends)."""
+        pt = self.page_table[slot : slot + 1]
+        return PackedKV(
+            k_pulses=self._pick(self.k_pages, pt), k_scales=self._pick(self.k_page_scales, pt),
+            v_pulses=self._pick(self.v_pages, pt), v_scales=self._pick(self.v_page_scales, pt),
+            tail_k=self.tail_k[slot : slot + 1], tail_v=self.tail_v[slot : slot + 1],
+            block=self.page, group=self.group, k=self.k, dtype=self.dtype,
+        )
+
+    def dense_kv(self, filled, dtype=torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Exact dense oracle view (through the gathered :class:`PackedKV`)."""
+        return self.gather().dense_kv(filled, dtype=dtype)
+
+    # -------------------------------------------------------------- updates
+
+    def _write_pages(self, ids: np.ndarray, k_rows: torch.Tensor, v_rows: torch.Tensor) -> None:
+        """PVQ-encode blocks ``(n, page, n_kv, hd)`` of K and V (one encode
+        for both: the code is per group row) into pages ``ids``.  Every
+        index is a host integer, so nothing is copied to the device."""
+        n = k_rows.shape[0]
+        pulses, scales = _kv_encode_planes(
+            torch.cat([k_rows, v_rows]).to(torch.float32), self.group, self.k)
+        for i, j, pid in _runs(ids):
+            dst = slice(pid, pid + j - i)
+            self.k_pages[dst] = pulses[i:j]
+            self.k_page_scales[dst] = scales[i:j]
+            self.v_pages[dst] = pulses[n + i : n + j]
+            self.v_page_scales[dst] = scales[n + i : n + j]
+
+    def append(self, k_new: torch.Tensor, v_new: torch.Tensor, pos: torch.Tensor) -> "PagedKV":
+        """Write one decode step ``(n_slots, 1, n_kv, hd)`` at per-slot
+        positions ``pos (n_slots,)`` (a device tensor), in place.  Each
+        slot's row lands in its tail ring at ``pos % page``; the slots whose
+        ``write_page`` is not the trash page complete a block in this step
+        and have their ring PVQ-encoded into that page.  The reference
+        encodes every ring and scatters the non-completing ones to the
+        trash page; encoding only the completing rings writes the same
+        bytes to every real page."""
+        ns, page = self.n_slots, self.page
+        ring = torch.arange(0, ns * page, page, device=self.tail_k.device) \
+            + torch.remainder(pos.to(torch.int64), page)
+        self.tail_k.view(ns * page, *self.tail_k.shape[2:]).index_copy_(
+            0, ring, k_new[:, 0].to(self.tail_k.dtype))
+        self.tail_v.view(ns * page, *self.tail_v.shape[2:]).index_copy_(
+            0, ring, v_new[:, 0].to(self.tail_v.dtype))
+        done = np.nonzero(self.write_page != self.trash_page)[0]
+        if done.size:
+            self._write_pages(self.write_page[done], _rows(self.tail_k, done),
+                              _rows(self.tail_v, done))
+        return self
+
+    def graft(self, k_dense, v_dense, slot: int, page_ids, real_len: int) -> "PagedKV":
+        """Graft one prefilled request into decode slot ``slot``: the
+        ``start = 0`` case of :meth:`graft_chunk`, so whole-prompt and
+        chunked prefill share one encode and cannot drift apart."""
+        return self.graft_chunk(k_dense, v_dense, slot, page_ids, 0, real_len)
+
+    def graft_chunk(self, k_dense, v_dense, slot: int, page_ids, start: int,
+                    real_len: int) -> "PagedKV":
+        """Graft one page-aligned prefill chunk into slot ``slot`` (in place).
+
+        ``k_dense``/``v_dense`` ``(1, C, n_kv, hd)`` hold the chunk's exact
+        KV for positions ``[start, start + C)``, ``C`` a page multiple and
+        ``start`` page-aligned.  ``page_ids (C // page,)`` (host integers)
+        are the physical pages of the chunk's logical blocks, trash for the
+        blocks at and after ``real_len // page``; the real ones are
+        PVQ-encoded with the same ``_kv_encode_planes`` every write path
+        uses (the trash blocks are not encoded: nothing reads them).
+
+        The tail ring takes the page window at ``packed_end(real_len) -
+        start``, clamped into the chunk as the reference's dynamic slice
+        clamps it: only the final chunk writes the real partial block;
+        earlier ones write a clamped window that it overwrites, masked by
+        length until then.
+        """
+        page = self.page
+        kf = k_dense[0].to(torch.float32)
+        vf = v_dense[0].to(torch.float32)
+        c = kf.shape[0]
+        ids = np.asarray(page_ids, np.int64).reshape(c // page)
+        live = np.nonzero(ids != self.trash_page)[0]
+        if live.size:
+            blocks = (c // page, page) + tuple(kf.shape[1:])
+            self._write_pages(ids[live], _rows(kf.reshape(blocks), live),
+                              _rows(vf.reshape(blocks), live))
+        off = min(max(int(self.packed_end(int(real_len))) - int(start), 0), c - page)
+        self.tail_k[slot] = kf[off : off + page].to(self.tail_k.dtype)
+        self.tail_v[slot] = vf[off : off + page].to(self.tail_v.dtype)
+        return self
+
+    def __repr__(self) -> str:
+        return (
+            f"PagedKV(pages={self.n_pages}, page={self.page}, slots={tuple(self.tail_k.shape)}, "
+            f"dtype={self.dtype}, group={self.group}, k={self.k})"
+        )
+
+
+def is_paged_kv(leaf: Any) -> bool:
+    return isinstance(leaf, PagedKV)
+
+
+def _runs(ids: np.ndarray):
+    """``(i, j, first id)`` of each maximal run ``ids[i:j]`` of consecutive
+    ascending ids (pages from a fresh free list come out in one run)."""
+    out, i = [], 0
+    while i < len(ids):
+        j = i + 1
+        while j < len(ids) and ids[j] == ids[j - 1] + 1:
+            j += 1
+        out.append((i, j, int(ids[i])))
+        i = j
+    return out
+
+
+def _rows(t: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
+    """``t[idx]`` for host indices: a slice where they run consecutively,
+    else a stack of views; no index tensor is copied to the device."""
+    if idx[-1] - idx[0] == len(idx) - 1:
+        return t[int(idx[0]) : int(idx[-1]) + 1]
+    return torch.stack([t[int(i)] for i in idx])
 
 
 # ---------------------------------------------------------------------------

@@ -162,15 +162,21 @@ def packed_matmul_stacked(
 
 def pvq_attn_decode(q: torch.Tensor, kv, kv_len: torch.Tensor, *, sm_scale: float):
     """Packed flash-decode contraction of ``q (b, q_len, n_heads, hd)`` against
-    a ``PackedKV``'s planes for ``kv_len (b,)`` packed positions.
+    a ``PackedKV``'s planes (a ``PagedKV`` is gathered through its page
+    table first) for ``kv_len (b,)`` packed positions.
 
     The grouped-query layout is folded into the kernel's rows as
     ``(b * n_kv, q_len * gpr, hd)``; the cache is never expanded to
     ``n_heads``.  Returns UNNORMALIZED ``(acc, m, l)`` shaped
     ``(b, q_len, n_kv, gpr, hd)`` / ``(..., 1)`` / ``(..., 1)``.
     """
+    from ..core.packed import is_paged_kv
     from ..core.quantize import ActQuant, quantize_activations
 
+    if is_paged_kv(kv):
+        # the slot-major view through the page table (a paged v4 would read
+        # the pages through the table itself)
+        kv = kv.gather()
     b, q_len, n_heads, hd = q.shape
     n_kv = kv.k_pulses.shape[2]
     if n_heads % n_kv:

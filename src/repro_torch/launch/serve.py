@@ -8,6 +8,17 @@ PVQ weights, int8 activations and a PVQ-compressed KV cache.
     python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b \\
         --batch 4 --prompt-len 128 --gen 32 --pvq --act-int8 --agreement-min 0.99
 
+``--engine`` (with ``--kv-pvq``) serves a Poisson request trace through the
+continuous-batching engine (``launch.engine``) instead, times the
+fixed-batch ``generate`` loop run sequentially over the same trace, and
+with ``--agreement-min`` scores every engine token against that fixed-batch
+oracle (``engine_token_agreement``)::
+
+    python -m repro_torch.launch.serve --arch smollm-360m --engine \
+        --engine-slots 4 --requests 8 --rate 0 --prompt-len 128 --gen 32 \
+        --pvq --act-int8 --kv-pvq --prefill-chunk 4 --shared-prefix 128 \
+        --agreement-min 0.99 --min-prefix-hits 1
+
 It runs on the CUDA card unless ``--device cpu`` is given, and never drops
 to the CPU by itself.  ``--agreement-min T`` also scores the same tokens on
 the reference leg (f32 activations, dense KV cache: kernel v2 on the packed
@@ -42,12 +53,7 @@ from ..core.quantize import (
 from ..kernels import launches, reset_launches, v2_body_launches, v3_body_launches
 from ..nn.models import build_model
 from ..runtime import obs
-
-
-def bucket_len(n: int, multiple: int) -> int:
-    """Round ``n`` up to a positive multiple (the cache-length buckets)."""
-    m = max(int(multiple), 1)
-    return max(m, -(-int(n) // m) * m)
+from .engine import param_device, bucket_len
 
 
 def serving_policy(cfg, n_over_k: float = 1.0) -> QuantPolicy:
@@ -160,6 +166,46 @@ def top1_agreement(logits_a, logits_b) -> dict:
     return out
 
 
+def engine_token_agreement(model, params, requests, outputs) -> dict:
+    """Token-level agreement of the engine with the fixed-batch decode
+    oracle: each request's prompt and engine output are teacher-forced
+    through the fixed-batch path (prefill and lockstep ``decode_step``,
+    same quantized contracts) and each engine token is compared with the
+    oracle's argmax on the identical context.  A disagreement is excused
+    when the oracle calls it a near-tie: its margin over the engine's pick
+    is at most 5% of the logits' (population) std."""
+    agree = total = excused = 0
+    device = param_device(params)
+    for req in requests:
+        gen = outputs.get(req.rid)
+        if not gen:
+            continue
+        seq = torch.tensor([list(req.prompt) + list(gen)], dtype=torch.int64, device=device)
+        lg = teacher_forced_logits(model, params, seq, prompt_len=len(req.prompt))[0]
+        lg = lg.to(torch.float32)
+        oracle = torch.argmax(lg, dim=-1)
+        toks = torch.tensor(gen, dtype=torch.int64, device=lg.device)
+        match = oracle == toks
+        margin = (torch.gather(lg, -1, oracle[:, None])[:, 0]
+                  - torch.gather(lg, -1, toks[:, None])[:, 0])
+        tie = margin <= 0.05 * torch.std(lg, dim=-1, correction=0)
+        n_agree = int((match | tie).sum())
+        n_excused = int((~match & tie).sum())
+        agree += n_agree
+        excused += n_excused
+        total += len(gen)
+        if obs.enabled():
+            obs.counter("quality.tokens_total").add(len(gen))
+            obs.counter("quality.tokens_agree").add(n_agree)
+            obs.counter("quality.ties_excused").add(n_excused)
+            obs.gauge("quality.agreement_running").set(agree / max(total, 1))
+    return {
+        "engine_token_agreement": agree / max(total, 1),
+        "engine_tokens_compared": total,
+        "engine_ties_excused": excused,
+    }
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="smollm-360m")
@@ -182,14 +228,43 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--metrics-out", default=None, metavar="DIR")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a card) or 'cpu' (plain versions)")
+    ap.add_argument("--engine", action="store_true",
+                    help="serve a Poisson request trace through the continuous-batching "
+                    "engine (paged PVQ KV cache); requires --kv-pvq.  Also times the "
+                    "fixed-batch generate() loop run sequentially over the same trace")
+    ap.add_argument("--engine-slots", type=int, default=4,
+                    help="with --engine: decode slot-pool size")
+    ap.add_argument("--engine-pages", type=int, default=None,
+                    help="with --engine: physical KV pages (default slots x max_pages; "
+                    "fewer oversubscribes the pool and exercises eviction)")
+    ap.add_argument("--requests", type=int, default=16, help="with --engine: trace length")
+    ap.add_argument("--rate", type=float, default=0.0,
+                    help="with --engine: Poisson arrival rate (req/s); 0 or inf: all at t=0")
+    ap.add_argument("--min-speedup", type=float, default=None, metavar="S",
+                    help="with --engine: exit 1 if engine tokens/s is below S x the "
+                    "sequential fixed-batch baseline")
+    ap.add_argument("--prefill-chunk", type=int, default=None, metavar="P",
+                    help="with --engine: prompts longer than P pages stream in P-page "
+                    "chunks interleaved with decode; also enables the prefix page cache")
+    ap.add_argument("--prefill-batch", type=int, default=1, metavar="B",
+                    help="with --engine: admit up to B same-bucket waiting requests "
+                    "through one prefill")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="with --engine --prefill-chunk: disable the shared-prefix page cache")
+    ap.add_argument("--shared-prefix", type=int, default=0, metavar="N",
+                    help="with --engine: prepend one common N-token prefix to every prompt")
+    ap.add_argument("--min-prefix-hits", type=int, default=None, metavar="H",
+                    help="with --engine: exit 1 if the prefix page cache recorded fewer "
+                    "than H page hits")
     return ap
 
 
 def run(argv=None, *, return_state: bool = False):
     """Parse ``argv``, serve, and return ``(report, exit_code)`` (plus, with
     ``return_state``, a dict holding the model, packed params, generated
-    tokens and both legs' teacher-forced logits); the process quantization
-    defaults are restored afterwards."""
+    tokens and both legs' teacher-forced logits, or with ``--engine`` what
+    ``_serve_engine`` returns); the process quantization defaults and the
+    telemetry switch are restored afterwards."""
     ap = build_parser()
     args = ap.parse_args(argv)
     if args.act_int8 and not args.pvq:
@@ -197,10 +272,12 @@ def run(argv=None, *, return_state: bool = False):
     if args.agreement_min is not None and not (args.act_int8 or args.kv_pvq):
         ap.error("--agreement-min compares a quantized path against the f32 reference; "
                  "it requires --act-int8 and/or --kv-pvq")
+    if args.engine and not args.kv_pvq:
+        ap.error("--engine pages the PVQ-compressed KV cache (page = kv block); "
+                 "it requires --kv-pvq")
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to run the plain versions")
-    if args.metrics_out:
-        obs.set_enabled(True)
+    prev_obs = obs.set_enabled(True) if args.metrics_out else None
     prev_aq, prev_kvq = set_default_act_quant(None), set_default_kv_quant(None)
     try:
         report, rc, state = _serve(args)
@@ -210,6 +287,7 @@ def run(argv=None, *, return_state: bool = False):
         set_default_kv_quant(prev_kvq)
         if args.metrics_out:
             obs.write(args.metrics_out)
+            obs.set_enabled(prev_obs)
 
 
 def main(argv=None) -> int:
@@ -266,6 +344,9 @@ def _serve(args):
             )
             return report, 1, {}
 
+    if args.engine:
+        return _serve_engine(args, cfg, model, params, report, device)
+
     gen = torch.Generator(device="cpu")
     gen.manual_seed(args.seed + 1)
     tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len), generator=gen).to(device)
@@ -309,6 +390,84 @@ def _serve(args):
     report["v2_body_launches"] = v2_body_launches()
     if device.type == "cuda":
         report["peak_device_memory_bytes"] = torch.cuda.max_memory_allocated(device)
+    return report, rc, state
+
+
+def _serve_engine(args, cfg, model, params, report, device):
+    """``--engine``: the trace through ``PVQEngine``, then the fixed-batch
+    baseline (``generate`` over the same trace, one request at a time,
+    warmed on the first request), then the gates.  Returns ``(report,
+    exit_code, state)``; ``state`` holds the model, params, trace, the
+    engine's outputs and its constructor arguments."""
+    from .engine import PVQEngine, poisson_trace
+
+    max_len = bucket_len(args.shared_prefix + args.prompt_len + args.gen, args.kv_block)
+    trace = poisson_trace(
+        args.requests, rate=args.rate, vocab=cfg.vocab_size,
+        prompt_lens=(max(args.prompt_len // 2, 1), args.prompt_len),
+        max_new=args.gen, seed=args.seed + 2, shared_prefix=args.shared_prefix,
+    )
+    engine_kwargs = dict(
+        n_slots=args.engine_slots, max_len=max_len, n_pages=args.engine_pages,
+        prefill_chunk=args.prefill_chunk, prefill_batch=args.prefill_batch,
+        prefix_cache=not args.no_prefix_cache,
+    )
+    eng = PVQEngine(model, params, **engine_kwargs)
+    eng.warmup(prompt_lens=[len(r.prompt) for r in trace])
+    _sync(device)
+    launches_before = launches()
+    res = eng.run(trace)
+    engine_launches = {k: v - launches_before[k] for k, v in launches().items()}
+    outputs = res.pop("outputs")
+    report["arch"] = cfg.name
+    report.update({f"engine_{k}": v for k, v in res.items()})
+    report["engine_kernel_launches"] = engine_launches
+    del eng
+
+    prompts = {r.rid: torch.tensor([r.prompt], dtype=torch.int64, device=device) for r in trace}
+    for r in trace[:1]:
+        generate(model, params, prompts[r.rid], gen=args.gen, cache_len=len(r.prompt) + args.gen)
+    _sync(device)
+    t0 = time.time()
+    base_tokens = 0
+    for r in trace:
+        out = generate(model, params, prompts[r.rid], gen=args.gen,
+                       cache_len=len(r.prompt) + args.gen)
+        base_tokens += out.shape[1] - len(r.prompt)
+    _sync(device)
+    base_dt = time.time() - t0
+    report["baseline_tokens_per_s"] = round(base_tokens / max(base_dt, 1e-9), 2)
+    report["baseline_wall_s"] = round(base_dt, 2)
+    speedup = res["tokens_per_s"] / max(report["baseline_tokens_per_s"], 1e-9)
+    report["engine_speedup_vs_fixed_batch"] = round(speedup, 3)
+
+    rc = 0
+    if args.agreement_min is not None:
+        ag = engine_token_agreement(model, params, trace, outputs)
+        report["engine_token_agreement"] = round(ag["engine_token_agreement"], 4)
+        report["engine_tokens_compared"] = ag["engine_tokens_compared"]
+        report["engine_ties_excused"] = ag["engine_ties_excused"]
+        if ag["engine_token_agreement"] < args.agreement_min:
+            report["agreement_fail"] = (
+                f"engine token agreement {ag['engine_token_agreement']:.4f}"
+                f" < required {args.agreement_min}"
+            )
+            rc = 1
+    if rc == 0 and args.min_speedup is not None and speedup < args.min_speedup:
+        report["speedup_fail"] = f"engine speedup {speedup:.3f}x < required {args.min_speedup}x"
+        rc = 1
+    if rc == 0 and args.min_prefix_hits is not None and res["prefix_hits"] < args.min_prefix_hits:
+        report["prefix_cache_fail"] = (
+            f"prefix cache hits {res['prefix_hits']} < required {args.min_prefix_hits}"
+        )
+        rc = 1
+    report["kernel_launches"] = launches()
+    report["v3_body_launches"] = v3_body_launches()
+    report["v2_body_launches"] = v2_body_launches()
+    if device.type == "cuda":
+        report["peak_device_memory_bytes"] = torch.cuda.max_memory_allocated(device)
+    state = {"model": model, "params": params, "trace": trace, "outputs": outputs,
+             "engine_kwargs": engine_kwargs}
     return report, rc, state
 
 

@@ -1,7 +1,7 @@
-"""Attention: GQA with RoPE, causal prefill, and KV-cache decode over a dense
-or a PVQ-packed cache (port of the dense/``PackedKV`` parts of
-``repro.nn.attention``).  Float matmuls here run in full f32 (TF32 is off
-for the package)."""
+"""Attention: GQA with RoPE, causal prefill, and KV-cache decode over a dense,
+a PVQ-packed or a paged PVQ cache, plus the engine's chunked prefill (port
+of the dense, ``PackedKV`` and ``PagedKV`` parts of ``repro.nn.attention``).
+Float matmuls here run in full f32 (TF32 is off for the package)."""
 
 from __future__ import annotations
 
@@ -10,7 +10,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-from ..core.packed import PackedKV, is_packed_kv
+from ..core.packed import PackedKV, PagedKV, is_packed_kv, is_paged_kv
 from .layers import Params, dense, init_dense
 
 NEG_INF = -1e30
@@ -117,13 +117,16 @@ def decode_attention(q, cache_k, cache_v, *, scale: float, length: Optional[torc
 
 
 def decode_attention_packed(
-    q: torch.Tensor, kv: PackedKV, *, scale: float, length: torch.Tensor,
-    filled: Optional[int] = None, exact: bool = False,
+    q: torch.Tensor, kv, *, scale: float, length: torch.Tensor,
+    filled=None, exact: bool = False,
 ) -> torch.Tensor:
-    """Decode attention over a PVQ-packed cache: the packed leg (kernel v4,
-    positions below ``packed_end(filled)``) and the exact f32 tail leg,
-    merged by logsumexp.  ``exact=True`` dequantizes the whole cache and
-    runs the dense path (the oracle)."""
+    """Decode attention over a PVQ-packed cache (``PackedKV``, or the
+    engine's ``PagedKV``, gathered at the kernel's dispatch): the packed
+    leg (kernel v4, positions below ``packed_end(filled)``) and the exact
+    f32 tail leg, merged by logsumexp.  ``filled`` is the physical fill: a
+    host int on the lockstep path, a per-slot ``(b,)`` tensor on the
+    engine's.  ``exact=True`` dequantizes the whole cache and runs the
+    dense path (the oracle)."""
     from ..kernels import ops
 
     if filled is None:
@@ -136,7 +139,10 @@ def decode_attention_packed(
     n_kv = kv.tail_k.shape[-2]
     blk = kv.block
     pe = kv.packed_end(filled)
-    kv_len = torch.clamp(length, max=pe)
+    if isinstance(pe, torch.Tensor):
+        kv_len = torch.minimum(length, pe)
+    else:
+        kv_len = torch.clamp(length, max=pe)
     acc_p, m_p, l_p = ops.pvq_attn_decode(q, kv, kv_len, sm_scale=scale)
 
     qg = _group_q(q, n_kv).to(torch.float32)
@@ -208,11 +214,17 @@ def attention_prefill_cache(
 
 
 def attention_decode(
-    p: Params, x: torch.Tensor, cache, pos: int, *, n_heads: int, n_kv_heads: int,
+    p: Params, x: torch.Tensor, cache, pos, *, n_heads: int, n_kv_heads: int,
     head_dim: int, rope_theta: Optional[float] = 10000.0,
 ) -> Tuple[torch.Tensor, Any]:
-    """Single-token decode with a cache append at host position ``pos``
-    (lockstep batch; the cache is updated in place)."""
+    """Single-token decode with a cache append at ``pos`` (the cache is
+    updated in place).  ``pos`` is a host int (lockstep batch) or a
+    ``(b,)`` tensor of per-slot positions over the engine's ``PagedKV``
+    slot pool: RoPE, the append and the length mask are then per row."""
+    if isinstance(pos, torch.Tensor):
+        return _attention_decode_slots(p, x, cache, pos, n_heads=n_heads,
+                                       n_kv_heads=n_kv_heads, head_dim=head_dim,
+                                       rope_theta=rope_theta)
     b = x.shape[0]
     q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim)
     posb = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
@@ -229,4 +241,85 @@ def attention_decode(
         cache["v"][:, pos : pos + 1] = v.to(cache["v"].dtype)
         out = decode_attention(q, cache["k"], cache["v"], scale=scale, length=length)
     y = dense(p["wo"], out.reshape(b, 1, n_heads * head_dim))
+    return y, cache
+
+
+def _attention_decode_slots(p, x, cache, pos, *, n_heads, n_kv_heads, head_dim, rope_theta):
+    """:func:`attention_decode` at per-slot positions ``pos (b,)`` over the
+    ``PagedKV`` pool: a per-slot ring append, then kernel v4 through the
+    page table.  Dense and ``PackedKV`` caches append in lockstep only."""
+    if not is_paged_kv(cache):
+        raise NotImplementedError(
+            "per-slot positions need the paged slot-pool cache (PagedKV); "
+            "dense and PackedKV caches append in lockstep (host int pos)"
+        )
+    b = x.shape[0]
+    q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim)
+    posb = pos.to(torch.int64).reshape(b, 1)
+    if rope_theta is not None:
+        q = apply_rope(q, posb, rope_theta)
+        k = apply_rope(k, posb, rope_theta)
+    scale = 1.0 / math.sqrt(head_dim)
+    length = posb[:, 0] + 1
+    cache.append(k, v, posb[:, 0])
+    out = decode_attention_packed(q, cache, scale=scale, length=length, filled=length)
+    y = dense(p["wo"], out.reshape(b, 1, n_heads * head_dim))
+    return y, cache
+
+
+def attention_prefill_chunk(
+    p: Params, x: torch.Tensor, cache: PagedKV, *, slot: int, start: int, page_ids,
+    real_len: int, n_heads: int, n_kv_heads: int, head_dim: int,
+    rope_theta: Optional[float] = 10000.0,
+) -> Tuple[torch.Tensor, PagedKV]:
+    """Chunked prefill of ``x (1, C, d)``, one slot's ``C`` (a page
+    multiple) tokens at absolute positions ``start .. start + C - 1``
+    (``start`` page-aligned), over the paged pool (updated in place):
+
+    1. project and rope the chunk;
+    2. graft its complete blocks into the allocator's pages ``page_ids``
+       (:meth:`PagedKV.graft_chunk`);
+    3. attend with two legs merged by online softmax:
+
+       * packed: the slot's prior context ``[0, start)`` through its page
+         table, kernel v4 with ``C x gpr`` query rows on the slot's gather
+         and ``kv_len = start`` (0 on the first chunk: the kernel returns
+         the empty row, ``m = ATTN_NEG_INF`` and ``l = 0``, and the merge
+         weight ``alpha`` is 0);
+       * chunk: exact causal f32 attention within the chunk (rows past
+         ``real_len`` compute garbage that stays behind the engine's masks).
+
+    Returns ``(y (1, C, d), cache)``.
+    """
+    from ..kernels import ops
+
+    b, c, _ = x.shape
+    q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim)
+    if rope_theta is not None:
+        positions = (int(start) + torch.arange(c, device=x.device))[None, :]
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+    scale = 1.0 / math.sqrt(head_dim)
+
+    cache.graft_chunk(k, v, slot, page_ids, start, real_len)
+
+    kv_len = torch.full((1,), int(start), dtype=torch.int32, device=x.device)
+    acc_p, m_p, l_p = ops.pvq_attn_decode(q, cache.gather_slot(slot), kv_len, sm_scale=scale)
+
+    # every query row sees at least its own diagonal, so the merged
+    # denominator is never zero
+    qg = _group_q(q, n_kv_heads).to(torch.float32)
+    s_c = torch.einsum("bqhgd,bkhd->bqhgk", qg, k.to(torch.float32)) * scale
+    idx = torch.arange(c, device=x.device)
+    mask = (idx[None, :] <= idx[:, None])[None, :, None, None, :]
+    s_c = torch.where(mask, s_c, torch.full_like(s_c, NEG_INF))
+    m_c = s_c.amax(dim=-1, keepdim=True)
+    m_tot = torch.maximum(m_p, m_c)
+    p_c = torch.where(mask, torch.exp(s_c - m_tot), torch.zeros_like(s_c))
+    l_c = p_c.sum(dim=-1, keepdim=True)
+    acc_c = torch.einsum("bqhgk,bkhd->bqhgd", p_c, v.to(torch.float32))
+    alpha = torch.exp(m_p - m_tot)
+    out = (acc_p * alpha + acc_c) / (l_p * alpha + l_c)
+    out = out.reshape(b, c, n_heads, head_dim).to(q.dtype)
+    y = dense(p["wo"], out.reshape(b, c, n_heads * head_dim))
     return y, cache

@@ -6,8 +6,10 @@
     logits, cache = model.prefill(params, {"tokens": tokens}, cache_len)
     logits, cache = model.decode_step(params, cache, token, pos)
 
-``pos`` is a host integer: the port's lockstep decode branches on it in
-Python where the reference traces ``lax.cond``.
+``pos`` is a host integer on the lockstep path (the port's decode branches
+on it in Python where the reference traces ``lax.cond``), or a ``(b,)``
+tensor of per-slot positions over the continuous-batching engine's paged
+cache (``init_paged_cache``, ``prefill_bucketed``, ``prefill_chunk``).
 """
 
 from __future__ import annotations
@@ -99,20 +101,65 @@ class Model:
                             }
         return logits[:, -1:, :], caches
 
-    def decode_step(self, params: Params, cache: Any, token: torch.Tensor, pos: int):
-        """token: (b, 1) int64; pos: host int (next position, lockstep batch)."""
+    def decode_step(self, params: Params, cache: Any, token: torch.Tensor, pos):
+        """token: (b, 1) int64; pos: host int (next position, lockstep batch)
+        or a ``(b,)`` tensor of per-slot positions (the engine's slot pool:
+        per-row RoPE, append and length mask)."""
         cfg = self.cfg
+        if not isinstance(pos, torch.Tensor) or pos.ndim == 0:
+            pos = int(pos)
         x = self._embed_tokens(params, token)
         new_cache = {}
         for i, seg in enumerate(self.plan):
             x, new_cache[f"seg{i}"] = T.decode_segment(
-                cfg, seg, params["segments"][f"seg{i}"], cache[f"seg{i}"], x, int(pos)
+                cfg, seg, params["segments"][f"seg{i}"], cache[f"seg{i}"], x, pos
             )
         x = T._norm(cfg, params["final_norm"], x)
         return self._head(params, x), new_cache
 
     def init_cache(self, batch: int, cache_len: int, device="cuda") -> Any:
         return T.init_plan_cache(self.cfg, self.plan, batch, cache_len, device)
+
+    def init_paged_cache(self, n_slots: int, n_pages: int, max_pages: int, device="cuda") -> Any:
+        """Slot-pool decode cache of the continuous-batching engine: every
+        attention layer's cache is a ``PagedKV`` page pool (needs an active
+        ``KVQuant``: pages are PVQ blocks)."""
+        return T.init_plan_cache(self.cfg, self.plan, n_slots, max_pages, device,
+                                 paged=(n_pages, max_pages))
+
+    def prefill_bucketed(self, params: Params, batch: Dict[str, torch.Tensor],
+                         real_len: torch.Tensor):
+        """The engine's prefill: prompts padded to a page-aligned bucket
+        length, logits read at each row's last real position ``real_len - 1``
+        (causal attention keeps the padding out of every earlier position).
+        Returns ``(logits (b, 1, vocab), caches)``; the caches cover the
+        bucket, and rows at and after ``real_len`` are garbage behind the
+        engine's length masks."""
+        logits, caches = self.forward(params, batch, mode="prefill")
+        idx = (real_len.to(torch.int64) - 1).reshape(-1, 1, 1).expand(-1, 1, logits.shape[-1])
+        return torch.gather(logits, 1, idx), caches
+
+    def prefill_chunk(self, params: Params, cache: Any, tokens: torch.Tensor, slot: int,
+                      start: int, page_ids, real_len: int):
+        """One chunked-prefill step over the paged slot pool: ``tokens (1, C)``
+        (``C`` a page multiple, ``start`` page-aligned) at absolute positions
+        ``start .. start + C - 1`` for slot ``slot``, attending to the slot's
+        packed context ``[0, start)`` through its page table and grafting
+        the chunk's blocks into ``page_ids``.  Returns ``(logits (1, 1,
+        vocab), cache)``, read at ``real_len - 1 - start`` clamped into the
+        chunk: meaningful on a context's final chunk only."""
+        cfg = self.cfg
+        x = self._embed_tokens(params, tokens)
+        new_cache = {}
+        for i, seg in enumerate(self.plan):
+            x, new_cache[f"seg{i}"] = T.chunk_segment(
+                cfg, seg, params["segments"][f"seg{i}"], cache[f"seg{i}"], x,
+                slot, start, page_ids, real_len,
+            )
+        x = T._norm(cfg, params["final_norm"], x)
+        logits = self._head(params, x)
+        idx = min(max(int(real_len) - 1 - int(start), 0), tokens.shape[1] - 1)
+        return logits[:, idx : idx + 1], new_cache
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -154,7 +154,9 @@ def block_forward(cfg, spec: BlockSpec, p: Params, x: torch.Tensor, *, mode: str
     return x, (cache if mode == "prefill" else None)
 
 
-def block_decode(cfg, spec: BlockSpec, p: Params, x: torch.Tensor, cache: Dict[str, Any], pos: int):
+def block_decode(cfg, spec: BlockSpec, p: Params, x: torch.Tensor, cache: Dict[str, Any], pos):
+    """``pos``: a host int (lockstep batch) or a ``(b,)`` tensor of per-slot
+    positions (the engine's paged cache; attention blocks only)."""
     new_cache = dict(cache)
     h = _norm(cfg, p["ln_mix"], x)
     if spec.mixer == "attn":
@@ -173,10 +175,33 @@ def block_decode(cfg, spec: BlockSpec, p: Params, x: torch.Tensor, cache: Dict[s
     return x, new_cache
 
 
-def init_block_cache(cfg, spec: BlockSpec, batch: int, cache_len: int, device) -> Dict[str, Any]:
+def init_block_cache(cfg, spec: BlockSpec, batch: int, cache_len: int, device, *,
+                     paged: Optional[Tuple[int, int]] = None) -> Dict[str, Any]:
     """Zero decode cache of one block: the attention KV cache (dense or
-    packed, by the process ``KVQuant``) or the dense MLA latent cache."""
+    packed, by the process ``KVQuant``) or the dense MLA latent cache.
+    ``paged=(n_pages, max_pages)`` builds the engine's slot-pool cache
+    instead (``batch`` is the slot count): a ``PagedKV`` page pool, which
+    needs an active ``KVQuant`` (pages are PVQ blocks) and plain attention
+    blocks."""
     dtype = getattr(torch, cfg.compute_dtype)
+    if paged is not None:
+        from ..core.packed import PagedKV
+        from ..core.quantize import default_kv_quant
+
+        if spec.mixer != "attn" or spec.cross:
+            raise NotImplementedError(
+                f"paged slot-pool cache supports plain attention blocks only, "
+                f"got mixer={spec.mixer!r} cross={spec.cross}"
+            )
+        kvq = default_kv_quant()
+        if kvq is None:
+            raise ValueError(
+                "paged slot-pool cache needs an active KVQuant default "
+                "(pages are PVQ blocks) — set_default_kv_quant(...) first"
+            )
+        n_pages, max_pages = paged
+        return {"kv": PagedKV.init(batch, n_pages, max_pages, cfg.n_kv_heads,
+                                   cfg.resolved_head_dim, kvq=kvq, dtype=dtype, device=device)}
     if spec.mixer == "mla":
         return {"mla": mla_lib.MLACache(
             c_kv=torch.zeros((batch, cache_len, cfg.mla.kv_lora_rank), dtype=dtype, device=device),
@@ -205,7 +230,7 @@ def run_segment(cfg, seg: Segment, seg_params: Params, x: torch.Tensor, *, mode:
 
 
 def decode_segment(cfg, seg: Segment, seg_params: Params, seg_cache: List[Dict[str, Any]],
-                   x: torch.Tensor, pos: int):
+                   x: torch.Tensor, pos):
     repeats, pattern = seg
     new_cache = []
     for r in range(repeats):
@@ -217,10 +242,49 @@ def decode_segment(cfg, seg: Segment, seg_params: Params, seg_cache: List[Dict[s
     return x, new_cache
 
 
-def init_plan_cache(cfg, plan: List[Segment], batch: int, cache_len: int, device="cuda"):
+def block_chunk(cfg, spec: BlockSpec, p: Params, x: torch.Tensor, cache: Dict[str, Any],
+                slot: int, start: int, page_ids, real_len: int):
+    """Chunked-prefill twin of :func:`block_decode` over the paged cache:
+    plain attention blocks only (``init_block_cache(paged=...)`` rejects
+    every other mixer)."""
+    if spec.mixer != "attn" or spec.cross:
+        raise NotImplementedError(
+            f"chunked prefill supports plain attention blocks only, "
+            f"got mixer={spec.mixer!r} cross={spec.cross}"
+        )
+    new_cache = dict(cache)
+    h = _norm(cfg, p["ln_mix"], x)
+    y, new_cache["kv"] = attn_lib.attention_prefill_chunk(
+        p["mixer"], h, cache["kv"], slot=slot, start=start, page_ids=page_ids,
+        real_len=real_len, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+    )
+    x = x + y
+    h = _norm(cfg, p["ln_ffn"], x)
+    x = x + _ffn(cfg, spec, p["ffn"], h)
+    return x, new_cache
+
+
+def chunk_segment(cfg, seg: Segment, seg_params: Params, seg_cache: List[Dict[str, Any]],
+                  x: torch.Tensor, slot: int, start: int, page_ids, real_len: int):
+    repeats, pattern = seg
+    new_cache = []
+    for r in range(repeats):
+        p_r = layer_params(seg_params, r)
+        c_r = {}
+        for i, spec in enumerate(pattern):
+            x, c_r[f"b{i}"] = block_chunk(cfg, spec, p_r[f"b{i}"], x, seg_cache[r][f"b{i}"],
+                                          slot, start, page_ids, real_len)
+        new_cache.append(c_r)
+    return x, new_cache
+
+
+def init_plan_cache(cfg, plan: List[Segment], batch: int, cache_len: int, device="cuda", *,
+                    paged: Optional[Tuple[int, int]] = None):
     return {
         f"seg{si}": [
-            {f"b{i}": init_block_cache(cfg, spec, batch, cache_len, device) for i, spec in enumerate(pattern)}
+            {f"b{i}": init_block_cache(cfg, spec, batch, cache_len, device, paged=paged)
+             for i, spec in enumerate(pattern)}
             for _ in range(repeats)
         ]
         for si, (repeats, pattern) in enumerate(plan)

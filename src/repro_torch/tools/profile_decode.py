@@ -6,6 +6,8 @@
     python -m repro_torch.tools.profile_decode --arch deepseek-v2-lite-16b --prefill --f32
     python -m repro_torch.tools.profile_decode --arch deepseek-v2-lite-16b --f32 --steps 4
     python -m repro_torch.tools.profile_decode --prompt-len 157 --steps 1
+    python -m repro_torch.tools.profile_decode --engine --steps 4
+    python -m repro_torch.tools.profile_decode --engine --prefill --prompt-len 256
 
 Packs the model (as ``serve --pvq``), prefills with ``--act-int8 --kv-pvq``
 in effect (an MLA model's latent cache stays dense), runs two warm-up
@@ -25,6 +27,15 @@ traced steps start at position ``prompt_len + 2``: the step at a position
 p with (p + 1) % 32 == 0 completes a KV block and PVQ-encodes it, so
 ``--prompt-len 157 --steps 1`` traces that block-fill step alone and
 ``--prompt-len 158 --steps 1`` the step after it, which fills none.
+
+``--engine`` traces the continuous-batching engine instead (``launch.engine``,
+KV block 32, group 32): ``--batch`` slots, each admitted with a
+``--prompt-len`` prompt through one batched prefill, two warm decode steps,
+then ``--steps`` engine decode steps over the paged pool; with
+``--prefill``, one request of ``--prompt-len`` tokens in 128-token chunks
+(``--prefill-chunk 4``), the last chunk traced after the earlier ones ran
+(so it reads ``prompt_len - 128`` packed positions through kernel v4).
+The report adds the page gather's device time (``index_select``'s kernels).
 """
 
 from __future__ import annotations
@@ -55,9 +66,14 @@ def main(argv=None) -> int:
                     help="trace one prefill (after a warm one) instead of decode steps")
     ap.add_argument("--f32", action="store_true",
                     help="the f32 leg (f32 activations, dense cache): kernel v2")
+    ap.add_argument("--engine", action="store_true",
+                    help="trace the continuous-batching engine's decode steps (or, with "
+                    "--prefill, one chunk)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_decode measures the card: no CUDA device")
+    if args.engine and args.f32:
+        ap.error("--engine serves the quantized path; it takes no --f32")
     from torch.profiler import ProfilerActivity, profile
 
     cfg = get_config(args.arch)
@@ -70,6 +86,9 @@ def main(argv=None) -> int:
     kv_block = 32
     kvq = None if args.f32 else KVQuant(block=kv_block, group=32)
     warm = 2
+    if args.engine:
+        with act_quant_scope(ActQuant()), kv_quant_scope(kvq):
+            return _profile_engine(args, cfg, model, params, tokens, profile, ProfilerActivity)
     with act_quant_scope(None if args.f32 else ActQuant()), kv_quant_scope(kvq):
         cache_len = bucket_len(args.prompt_len + warm + args.steps, kv_block)
         logits, cache = model.prefill(params, {"tokens": tokens}, cache_len=cache_len)
@@ -99,6 +118,42 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     print(json.dumps(_report(prof, wall, args.steps, args, cfg, "step")))
+    return 0
+
+
+def _profile_engine(args, cfg, model, params, tokens, profile, activity) -> int:
+    """``--engine``: trace engine decode steps, or one chunk (``--prefill``)."""
+    from ..launch.engine import PVQEngine, Request
+
+    chunk = 4  # pages a chunk: 128 tokens at KV block 32
+    prompts = [[int(t) for t in row] for row in tokens.cpu()]
+    if args.prefill:
+        eng = PVQEngine(model, params, n_slots=args.batch, max_len=args.prompt_len + 32,
+                        prefill_chunk=chunk)
+        eng.pending.append(Request(rid=0, prompt=prompts[0], max_new_tokens=1))
+        eng.admit_pending()
+        n_chunks = -(-args.prompt_len // eng.chunk_tokens)
+        for _ in range(n_chunks - 1):
+            eng._prefill_step()
+        traced, unit = eng._prefill_step, "chunk"
+    else:
+        eng = PVQEngine(model, params, n_slots=args.batch,
+                        max_len=args.prompt_len + 2 + args.steps + 1, prefill_batch=args.batch)
+        for i, prompt in enumerate(prompts):
+            eng.pending.append(Request(rid=i, prompt=prompt, max_new_tokens=4 + args.steps))
+        eng.admit_pending()
+        for _ in range(2):
+            eng.step()
+        traced, unit = eng.step, "engine_step"
+    units = 1 if args.prefill else args.steps
+    torch.cuda.synchronize()
+    with profile(activities=[activity.CPU, activity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(units):
+            traced()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    print(json.dumps(_report(prof, wall, units, args, cfg, unit)))
     return 0
 
 
@@ -137,6 +192,9 @@ def _report(prof, wall: float, units: int, args, cfg, unit: str) -> dict:
                         ("direct", by_name("pvq_matmul_f_kernel"))))
     v4_us, v4_calls = by_name("pvq_attn")
     enc_us, enc_calls = by_name("pvq_encode")
+    # the page gather (index_select): one of two kernels, by shape
+    gather_us, gather_calls = (a + b for a, b in zip(by_name("indexSelect"),
+                                                     by_name("vectorized_gather")))
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[: args.top]
     unit_ms = 1e3 * wall / units
     device_ms = device_us / 1e3 / units
@@ -163,6 +221,9 @@ def _report(prof, wall: float, units: int, args, cfg, unit: str) -> dict:
         f"encode_ms_per_{unit}": enc_us / 1e3 / units,
         f"encode_calls_per_{unit}": enc_calls / units,
         "encode_share_of_device_time": enc_us / device_us if device_us else None,
+        f"gather_ms_per_{unit}": gather_us / 1e3 / units,
+        f"gather_calls_per_{unit}": gather_calls / units,
+        "gather_share_of_device_time": gather_us / device_us if device_us else None,
         "leg": "f32" if args.f32 else "served",
         "top_kernels": [
             {"name": name[:80], f"ms_per_{unit}": us / 1e3 / units, f"calls_per_{unit}": n / units}

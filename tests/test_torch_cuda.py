@@ -5,7 +5,9 @@ dependencies:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
-Every test skips without a CUDA card.  Tolerances: the encoder, kernel v3
+Every test skips without a CUDA card.  The continuous-batching engine on
+the reduced model gives the same tokens on the kernels as on their plain
+versions, with kernel v4 at its chunked-prefill caller among them.  Tolerances: the encoder, kernel v3
 (each of its three bodies: splitk, direct, mma) and its expert-batched form
 (without the tanh-gelu epilogue) and kernel v4
 are identical to their plain versions (same float operation order, no FMA
@@ -18,6 +20,8 @@ and v3's after a gelu epilogue, within ``rtol=1e-2`` (``tanhf``/``expf``
 differ from PyTorch's in the last f32 bits, which moves a bf16 rounding by
 one bf16 ulp, 2^-8 relative).
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -224,6 +228,87 @@ def test_cuda_attention_matches_plain(s, m, hd, group, n_kv):
     assert LAUNCHES["pvq_attn_q"] == before + 1
     _attn_equal(got, port_mm.pvq_attn_q_plain(*args, group=group, sm_scale=0.125),
                 port_mm._v4_plan(m, s, hd, group))
+
+
+@needs_cuda
+@pytest.mark.parametrize("s,kv_len", [(288, 0), (288, 128), (416, 256), (2048, 1920)])
+def test_cuda_attention_at_the_chunk_caller_matches_plain(s, kv_len):
+    """Kernel v4 as ``attention_prefill_chunk`` calls it at smollm's full
+    width: one slot's gather (batch 1, 5 KV heads), a 128-token chunk's
+    128 x 3 query rows, ``kv_len`` = the chunk's start (0 on a first chunk:
+    the empty row, ``m = ATTN_NEG_INF`` and ``l = 0``)."""
+    args = _attn_case(1, 5, 384, s, 64, 32, seed=s + kv_len)
+    args[-1].fill_(kv_len)
+    got = port_mm.pvq_attn_q_cuda(*args, group=32, sm_scale=0.125)
+    want = port_mm.pvq_attn_q_plain(*args, group=32, sm_scale=0.125)
+    _attn_equal(got, want, (s, kv_len))
+    if kv_len == 0:
+        assert bool((got[1] == port_mm.ATTN_NEG_INF).all()) and not bool(got[2].any())
+
+
+@contextlib.contextmanager
+def _plain_versions():
+    """Each kernel wrapper's CUDA entry point answered by its plain version
+    on the same CUDA tensors (a test-only patch of what ``ops`` reads)."""
+    saved = [(mod, name, getattr(mod, name + "_cuda"))
+             for mod, name in ((port_mm, "pvq_matmul"), (port_mm, "pvq_matmul_q"),
+                               (port_mm, "pvq_attn_q"), (port_enc, "pvq_encode_batch"))]
+    try:
+        for mod, name, _ in saved:
+            setattr(mod, name + "_cuda", getattr(mod, name + "_plain"))
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name + "_cuda", fn)
+
+
+@needs_cuda
+def test_cuda_engine_tokens_match_plain_versions():
+    """CI's chunked-prefill engine configuration on the reduced model on the
+    card (chunks, prefix hits, batched admission, block-fill appends): the
+    tokens through the kernels equal those through their plain versions,
+    and kernel v4 ran from the chunk caller as well as from decode."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.packed import quantize_params
+    from repro_torch.launch.engine import PVQEngine, poisson_trace
+    from repro_torch.launch.serve import serving_policy
+    from repro_torch.nn import attention
+    from repro_torch.nn.models import Model
+
+    cfg = get_config("smollm-360m").reduced()
+    model = Model(cfg)
+    params = quantize_params(model.init(0, device="cuda"), serving_policy(cfg))
+    chunk_v4 = []
+    inner = attention.attention_prefill_chunk
+
+    def counted(*a, **kw):
+        before = LAUNCHES["pvq_attn_q"]
+        out = inner(*a, **kw)
+        chunk_v4.append(LAUNCHES["pvq_attn_q"] - before)
+        return out
+
+    def run():
+        trace = poisson_trace(6, rate=0.0, vocab=cfg.vocab_size, prompt_lens=(12, 24),
+                              max_new=8, seed=2, shared_prefix=64)
+        eng = PVQEngine(model, params, n_slots=2, max_len=96, prefill_chunk=2, prefill_batch=2)
+        return eng.run(trace)
+
+    with port_q.act_quant_scope(port_q.ActQuant()), port_q.kv_quant_scope(port_q.KVQuant(8, 16)):
+        attention.attention_prefill_chunk = counted
+        try:
+            before = dict(LAUNCHES)
+            kernels = run()
+        finally:
+            attention.attention_prefill_chunk = inner
+        launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+        with _plain_versions():
+            before = dict(LAUNCHES)
+            plain = run()
+            assert LAUNCHES == before
+    assert kernels["chunks"] > 0 and kernels["prefix_hits"] > 0
+    assert kernels["outputs"] == plain["outputs"]
+    assert launched["pvq_attn_q"] > sum(chunk_v4) > 0
+    assert launched["pvq_encode_batch"] > 0 and launched["pvq_matmul_q"] > 0
 
 
 def _every_v4_plan(s, hd, group):

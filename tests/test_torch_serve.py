@@ -8,7 +8,9 @@
   own: top-1 agreement >= 0.99 (free-running tokens need not match: one
   int8 rounding flip at a random-init near-tie rewrites the suffix), at
   the CI flags' shape and at CI's long-context smoke's (prompt 512).
-* CI's long-context ``--kv-pvq`` smoke through the port's CLI on the CPU.
+* CI's long-context ``--kv-pvq`` smoke and its prompt-8 ``--pvq --act-int8``
+  smoke through the port's CLI on the CPU; the latter's teacher-forced
+  logits against the reference's on the same parameters and tokens.
 * No module of the port, nor ``chip_smoke.py``, imports JAX or the
   reference package.
 * ``tools/profile_decode``: ``--f32`` traces the f32 leg's decode too, and
@@ -91,6 +93,28 @@ def test_serve_cli_runs_cis_long_context_kv_pvq_smoke_on_cpu():
     assert set(report["kernel_launches"].values()) == {0}
 
 
+# CI's int8-activation serve smoke (ci.yml:79-87) as CI runs it: no KV
+# quantization, the dense cache
+CI_PROMPT8_FLAGS = [
+    "--arch", "smollm-360m", "--reduced", "--batch", "2", "--prompt-len", "8", "--gen", "8",
+    "--pvq", "--act-int8", "--agreement-min", "0.99",
+]
+
+
+def test_serve_cli_runs_cis_prompt_8_smoke_on_cpu():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu", *CI_PROMPT8_FLAGS],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report["generated_shape"] == [2, 16]
+    assert "kv_quant" not in report
+    assert report["act_int8_top1_agreement"] >= 0.99
+    assert set(report["kernel_launches"].values()) == {0}
+
+
 def test_serve_refuses_to_fall_back_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -111,8 +135,9 @@ def _to_numpy_tree(tree):
 
 def _agreement_with_reference(batch, prompt, gen, kv_block, kv_group):
     """The reference's generated tokens and teacher-forced logits (reduced
-    smollm, packed, int8 activations, PVQ KV cache), and the port's
-    teacher-forced logits on the same tokens and converted parameters."""
+    smollm, packed, int8 activations, PVQ KV cache unless ``kv_block`` is
+    None), and the port's teacher-forced logits on the same tokens and
+    converted parameters."""
     ref_cfg = ref_get_config("smollm-360m").reduced()
     ref_model = RefModel(ref_cfg)
     policy = ref_q.QuantPolicy(
@@ -121,14 +146,14 @@ def _agreement_with_reference(batch, prompt, gen, kv_block, kv_group):
     ref_params = ref_packed.quantize_params(ref_model.init(jax.random.PRNGKey(0)), policy)
     tokens = np.random.default_rng(0).integers(0, 128, size=(batch, prompt)).astype(np.int32)
     with ref_q.act_quant_scope(ref_q.ActQuant()), \
-            ref_q.kv_quant_scope(ref_q.KVQuant(kv_block, kv_group)):
+            ref_q.kv_quant_scope(kv_block and ref_q.KVQuant(kv_block, kv_group)):
         seq = ref_serve.generate(ref_model, ref_params, jnp.asarray(tokens), gen=gen,
                                  cache_len=prompt + gen)
         want = ref_serve.teacher_forced_logits(ref_model, ref_params, seq, prompt_len=prompt)
     port_model = Model(get_config("smollm-360m").reduced())
     port_params = from_reference_params(_to_numpy_tree(ref_params))
     with port_q.act_quant_scope(port_q.ActQuant()), \
-            port_q.kv_quant_scope(port_q.KVQuant(kv_block, kv_group)):
+            port_q.kv_quant_scope(kv_block and port_q.KVQuant(kv_block, kv_group)):
         got = port_serve.teacher_forced_logits(
             port_model, port_params, torch.from_numpy(np.asarray(seq, np.int64)), prompt_len=prompt
         )
@@ -148,6 +173,12 @@ def test_teacher_forced_agreement_with_reference_at_cis_long_context():
     block 32, group 32 fitted to the head dim): 16 packed blocks, so the
     packed leg runs four 128-column attention blocks in both packages."""
     _agreement_with_reference(batch=1, prompt=512, gen=8, kv_block=32, kv_group=32)
+
+
+def test_teacher_forced_agreement_with_reference_at_cis_prompt_8():
+    """CI's prompt-8 smoke's shape and contract: int8 activations, the dense
+    KV cache."""
+    _agreement_with_reference(batch=2, prompt=8, gen=8, kv_block=None, kv_group=None)
 
 
 def test_bucket_len_matches_reference():
@@ -263,3 +294,27 @@ def test_profile_report_counts_the_encoder(monkeypatch):
     assert report["encode_calls_per_step"] == 1.0
     assert report["encode_share_of_device_time"] == pytest.approx(0.25)
     assert report["v4_calls_per_step"] == 0.0 and report["v3_calls_per_step"] == 0.0
+
+
+def test_profile_report_counts_the_page_gather(monkeypatch):
+    """The engine's page gather (``index_select``: one of two kernels by
+    shape) by device time, calls and share; other index kernels apart."""
+    from types import SimpleNamespace
+
+    from repro_torch.tools import profile_decode
+
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda i: "test")
+    cuda = torch.autograd.DeviceType.CUDA
+    traced = [("void at::native::(anonymous namespace)::indexSelectSmallIndex<signed char>()", 3.0),
+              ("void at::native::vectorized_gather_kernel<16, long>(char*, char*, long*)", 5.0),
+              ("void at::native::index_elementwise_kernel<128, 4>()", 7.0),
+              ("void at::native::elementwise_kernel<128, 2>()", 25.0)]
+    events = [SimpleNamespace(device_type=cuda, name=name, device_time_total=us)
+              for name, us in traced]
+    report = profile_decode._report(
+        SimpleNamespace(events=lambda: events), 1.0, 2,
+        SimpleNamespace(batch=4, prompt_len=128, top=3, f32=False), SimpleNamespace(name="m"),
+        "engine_step")
+    assert report["gather_ms_per_engine_step"] == pytest.approx(0.004)
+    assert report["gather_calls_per_engine_step"] == 1.0
+    assert report["gather_share_of_device_time"] == pytest.approx(0.2)
