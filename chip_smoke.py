@@ -49,11 +49,19 @@ order, it:
    splitk and tensor-core bodies among them (v2's in the f32 leg's decode
    and prefill), no call of at most 8 rows on v3's or v2's direct body
    where its splitk body fits it, and no v2 call above 8 rows on v2's
-   direct body; then
+   direct body.  Its decode steps are replays of captured CUDA graphs
+   (``launch.capture``); then ``generate`` and both legs'
+   ``teacher_forced_logits`` run again on the same parameters and prompts,
+   captured (a second ``generate`` of the shape: no capture) and through
+   the eager step: the tokens, each step's logits and both legs'
+   teacher-forced logits must be identical, the captured and the eager
+   calls' kernel launch counts equal (replays accounted) and at most 2
+   graphs a key; ``decode_ms_per_step`` both ways, the captures and the
+   peak memory are printed beside the card's name and power limit; then
    runs the same tokens and packed weights through the
-   plain versions on the card: the served leg's teacher-forced logits must
-   be identical to the kernel path's, and the f32 leg (kernel v2) must
-   agree with its plain path at CI's top-1 threshold (0.99);
+   plain versions on the card (eager): the served leg's teacher-forced
+   logits must be identical to the kernel path's, and the f32 leg (kernel
+   v2) must agree with its plain path at CI's top-1 threshold (0.99);
 5. frees that model and does the same for full-width deepseek-v2-lite-16b
    (``--pvq --act-int8 --agreement-min 0.99``, batch 4, prompt 128, 32 new
    tokens; its MLA latent cache is dense, so kernel v4 is not on this
@@ -65,15 +73,18 @@ order, it:
    (reduced smollm, batch 1, prompt 512, 8 new tokens) under the same
    gate, with kernel v4 launched and ``kv_bytes_ratio_vs_f32 <= 0.35``,
    and CI's prompt-8 ``--pvq --act-int8`` smoke (batch 2, 8 new tokens);
-7. runs the continuous-batching engine (``serve --engine``), each run with
-   the launch counts set to 0 just before it and read just after, and each
-   rerun on the same trace through the plain versions on the card, where
-   its tokens must be identical: CI's two engine smokes at reduced size
+7. runs the continuous-batching engine (``serve --engine``, its decode
+   step captured: the warm-up's two graphs and no capture in the run),
+   each run with the launch counts set to 0 just before it and read just
+   after, each rerun on the same trace through the eager engine, where its
+   tokens and every real page must be identical, and through the plain
+   versions on the card, where its tokens must be identical: CI's two
+   engine smokes at reduced size
    with CI's flags; the first must pass its agreement and speedup gates, the
    chunked one its prefix-hit gate, and prints its agreement (the JAX
    reference's own run misses that gate, 0.9792 at CI's seed) and its
-   speedup (the eager engine against the eager sequential loop at this
-   size: host noise around 1), then full-width smollm-360m: run (a),
+   speedup over the sequential loop (both captured), then full-width
+   smollm-360m: run (a),
    batched admission
    (``--engine-slots 4 --requests 8 --prompt-len 128 --gen 32
    --prefill-batch 2``), and run (b), the same with chunked prefill and
@@ -97,6 +108,7 @@ int8 activations and the packed KV cache flip.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 from functools import partial
 import re
@@ -992,18 +1004,96 @@ class RoutingLog:
         self.moe._topk_argmax = self.inner
 
 
-def serve_full(torch, serve, kernels_mod, mm, enc, quant, routing, argv, *, kvq, expect):
-    """The main path at full width, then the same teacher-forced tokens and
-    packed parameters through the plain versions on the card.  ``kvq`` is
-    the served leg's KV contract (None: dense cache); ``expect`` names the
-    kernels the path must launch.  Returns the launch counts, kernel v3's by
-    body and kernel v2's by body."""
+def _launch_counts(kernels_mod):
+    return (kernels_mod.launches(), kernels_mod.v3_body_launches(),
+            kernels_mod.v2_body_launches())
+
+
+def decode_legs(torch, serve, quant, kernels_mod, state, prompt, gen, kvq, *, eager):
+    """The full-width path's decode work again on its model, parameters and
+    tokens: ``generate`` on the prompt (its tokens, each step's logits and
+    ``decode_ms_per_step``), then the served leg's and the f32 leg's
+    teacher-forced logits; captured (replays of the serve's graphs) or, with
+    ``eager``, the host-int step.  Also returns the launch counts of these
+    calls and their peak device memory."""
+    model, params, seq = state["model"], state["params"], state["seq"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels_mod.reset_launches()
+    timings, logits = {}, []
+    with quant.act_quant_scope(quant.ActQuant()), quant.kv_quant_scope(kvq):
+        tokens = serve.generate(model, params, seq[:, :prompt], gen=gen, cache_len=prompt + gen,
+                               timings=timings, eager=eager, step_logits=logits)
+        lg_q = serve.teacher_forced_logits(model, params, seq, prompt_len=prompt, eager=eager)
+    with quant.act_quant_scope(None), quant.kv_quant_scope(None):
+        lg_f = serve.teacher_forced_logits(model, params, seq, prompt_len=prompt, eager=eager)
+    torch.cuda.synchronize()
+    return {"tokens": tokens, "step_logits": torch.stack(logits, 1), "logits_q": lg_q,
+            "logits_f": lg_f, "decode_ms_per_step": 1e3 * timings["decode_s"] / gen,
+            "launches": _launch_counts(kernels_mod),
+            "peak_device_memory_bytes": torch.cuda.max_memory_allocated()}
+
+
+def captured_vs_eager(torch, serve, quant, kernels_mod, state, report, prompt, gen, kvq, smi):
+    """The full-width serve ran captured: its tokens and both legs'
+    teacher-forced logits must equal the eager step's on the same
+    parameters and prompts bit for bit, and so must a second captured
+    ``generate`` of the same shape, which must capture nothing and launch
+    on the card (replays accounted) what the eager calls launch.  Prints
+    ``decode_ms_per_step`` both ways, the captures per key and the peak
+    memory, beside the card's name and power limit.  Returns the eager
+    run's outputs (for the plain-path comparison)."""
+    captures = serve.TRACE_COUNTS["decode_step"]
+    cap = decode_legs(torch, serve, quant, kernels_mod, state, prompt, gen, kvq, eager=False)
+    recaptured = serve.TRACE_COUNTS["decode_step"] - captures
+    eager = decode_legs(torch, serve, quant, kernels_mod, state, prompt, gen, kvq, eager=True)
+    keys = serve._captured_step(state["model"])
+    per_key = sorted(len(static.graphs) for static in keys.values())
+    same = {
+        "served_tokens": torch.equal(state["seq"], eager["tokens"])
+        and torch.equal(cap["tokens"], eager["tokens"]),
+        "served_step_logits": torch.equal(cap["step_logits"], eager["step_logits"]),
+        "served_leg_teacher_forced": torch.equal(state["logits_q"], eager["logits_q"])
+        and torch.equal(cap["logits_q"], eager["logits_q"]),
+        "f32_leg_teacher_forced": torch.equal(state["logits_f"], eager["logits_f"])
+        and torch.equal(cap["logits_f"], eager["logits_f"]),
+        "kernel_launches": cap["launches"] == eager["launches"],
+    }
+    print(json.dumps({"captured_vs_eager": {
+        "arch": report["arch"], "card": smi, "identical": same,
+        "decode_ms_per_step": {"serve_first_generate_captured": report["decode_ms_per_step"],
+                               "captured": cap["decode_ms_per_step"],
+                               "eager": eager["decode_ms_per_step"]},
+        "decode_step_captures": report["decode_step_captures"],
+        "captures_by_second_generate": recaptured, "graphs_per_key": per_key,
+        "kernel_launches": {"captured": cap["launches"][0], "eager": eager["launches"][0]},
+        "v3_body_launches": {"captured": cap["launches"][1], "eager": eager["launches"][1]},
+        "v2_body_launches": {"captured": cap["launches"][2], "eager": eager["launches"][2]},
+        "peak_device_memory_bytes": {"serve_captured": report["peak_device_memory_bytes"],
+                                     "decode_legs_captured": cap["peak_device_memory_bytes"],
+                                     "decode_legs_eager": eager["peak_device_memory_bytes"]},
+    }}), flush=True)
+    if not all(same.values()):
+        fail(f"{report['arch']}: the captured step differs from the eager step: {same}")
+    if recaptured or not per_key or max(per_key) > 2:
+        fail(f"{report['arch']}: {recaptured} captures in a second generate of the same shape, "
+             f"graphs per key {per_key}")
+    return eager
+
+
+def serve_full(torch, serve, kernels_mod, mm, enc, quant, routing, argv, *, kvq, expect, smi):
+    """The main path at full width (the decode step captured), then the same
+    prompts and tokens through the eager step (identical, see
+    ``captured_vs_eager``), then the teacher-forced tokens and packed
+    parameters through the plain versions on the card.  ``kvq`` is the
+    served leg's KV contract (None: dense cache); ``expect`` names the
+    kernels the path must launch.  Returns the launch counts, kernel v3's
+    by body and kernel v2's by body."""
     batch, prompt, gen = (int(argv[argv.index(f) + 1]) for f in ("--batch", "--prompt-len", "--gen"))
     torch.cuda.reset_peak_memory_stats()
-    routing.calls.clear()
     kernels_mod.reset_launches()
     t0 = time.time()
-    with routing.recording(), v2_direct_above_eight(mm) as v2_direct, \
+    with v2_direct_above_eight(mm) as v2_direct, \
             v2_direct_where_splitk_fits(mm) as v2_direct_small, \
             v3_direct_where_splitk_fits(mm) as v3_direct:
         report, rc, state = serve.run(argv, return_state=True)
@@ -1042,6 +1132,15 @@ def serve_full(torch, serve, kernels_mod, mm, enc, quant, routing, argv, *, kvq,
              f"direct body where the splitk body fits: {sorted(v2_direct_small['shapes'])}")
     if rc != 0 and "agreement_fail" not in report:
         fail(f"full serve exited {rc}: {report}")
+    if report["decode_step_captures"] < 1:
+        fail(f"full serve captured no decode step: {report}")
+
+    # the eager step's legs, with their routing decisions recorded (the
+    # captured run's equal them: captured_vs_eager)
+    routing.calls.clear()
+    with routing.recording():
+        eager = captured_vs_eager(torch, serve, quant, kernels_mod, state, report, prompt, gen,
+                                  kvq, smi)
     kernel_routes = list(routing.calls)
 
     t0 = time.time()
@@ -1049,14 +1148,15 @@ def serve_full(torch, serve, kernels_mod, mm, enc, quant, routing, argv, *, kvq,
     with plain_versions(mm, enc), routing.recording():
         with quant.act_quant_scope(quant.ActQuant()), quant.kv_quant_scope(kvq):
             plain_q = serve.teacher_forced_logits(state["model"], state["params"], state["seq"],
-                                                  prompt_len=prompt)
+                                                  prompt_len=prompt, eager=True)
         n_q = len(routing.calls)
         with quant.act_quant_scope(None), quant.kv_quant_scope(None):
             plain_f = serve.teacher_forced_logits(state["model"], state["params"], state["seq"],
-                                                  prompt_len=prompt)
+                                                  prompt_len=prompt, eager=True)
     legs = {}
     served = "int8_kv_pvq" if kvq else "int8"
-    for leg, kern, plain in ((served, state["logits_q"], plain_q), ("f32", state["logits_f"], plain_f)):
+    for leg, kern, plain in ((served, eager["logits_q"], plain_q),
+                             ("f32", eager["logits_f"], plain_f)):
         ag = serve.top1_agreement(plain, kern)
         legs[leg] = {
             "identical": torch.equal(kern, plain),
@@ -1151,16 +1251,33 @@ def launches_by_caller(kernels_mod, attention, paged_cls, model_cls):
         model_cls.prefill_chunk = chunk
 
 
+def same_pages(torch, engine_a, engine_b, paged_leaves) -> bool:
+    """Whether two engines' paged layers hold the same bytes in every real
+    page (the trash page excluded: only the captured fill writes it) and in
+    every tail ring."""
+    for a, b in zip(paged_leaves(engine_a.cache), paged_leaves(engine_b.cache)):
+        real = slice(0, a.trash_page)
+        for name in ("k_pages", "k_page_scales", "v_pages", "v_page_scales"):
+            if not torch.equal(getattr(a, name)[real], getattr(b, name)[real]):
+                return False
+        if not (torch.equal(a.tail_k, b.tail_k) and torch.equal(a.tail_v, b.tail_v)):
+            return False
+    return True
+
+
 def serve_engine(torch, serve, kernels_mod, mm, enc, quant, argv, what, gates):
-    """One ``serve --engine`` run with the launch counts set to 0 just
-    before it and read just after, then the same trace through the plain
-    versions on the card: the tokens must be identical.  The serve gates
-    named in ``gates`` (``agreement``, ``speedup``, ``prefix_cache``) must
-    hold, the others are printed; every kernel of ``ENGINE_KERNELS`` must
-    launch (v4 from the chunk caller where the run chunks), the encoder from
-    graft and append.  Returns the launch counts and the printed summary."""
+    """One ``serve --engine`` run (its decode step captured: both graphs by
+    the warm-up, none in the run) with the launch counts set to 0 just
+    before it and read just after, then the same trace through the eager
+    engine, whose tokens and real pages must be identical, and through the
+    plain versions on the card (eager), whose tokens must be identical.
+    The serve gates named in ``gates`` (``agreement``, ``speedup``,
+    ``prefix_cache``) must hold, the others are printed; every kernel of
+    ``ENGINE_KERNELS`` must launch (v4 from the chunk caller where the run
+    chunks), the encoder from graft and append.  Returns the launch counts
+    and the printed summary."""
     from repro_torch.core.packed import PagedKV
-    from repro_torch.launch.engine import PVQEngine, Request
+    from repro_torch.launch.engine import PVQEngine, Request, _paged_leaves
     from repro_torch.nn import attention
     from repro_torch.nn.models import Model
 
@@ -1199,19 +1316,33 @@ def serve_engine(torch, serve, kernels_mod, mm, enc, quant, argv, what, gates):
 
         names = {r["name"] for r in telemetry.validate_metrics_jsonl(metrics + "/metrics.jsonl")}
         spans = {e["name"] for e in telemetry.validate_chrome_trace(metrics + "/trace.json")}
-        need = set(telemetry.ENGINE_REQUIRED_METRICS) - {"autotune.lookups"}
+        # the captures' counter and gauge beside what CI's schema gate requires
+        need = (set(telemetry.ENGINE_REQUIRED_METRICS) - {"autotune.lookups"}
+                | {"serve.decode_step_traces", "engine.trace_count"})
         if not need <= names or not set(telemetry.ENGINE_REQUIRED_SPANS) <= spans:
             fail(f"{what}: telemetry lacks {sorted(need - names)} "
                  f"{sorted(set(telemetry.ENGINE_REQUIRED_SPANS) - spans)}")
 
-    t0 = time.time()
+    if report["engine_trace_counts"] != {"decode": 2, "prefill": 0, "graft": 0, "chunk": 0}:
+        fail(f"{what}: the engine's captures are {report['engine_trace_counts']}, not the "
+             f"warm-up's two decode graphs")
+
+    def rerun():
+        eng = PVQEngine(state["model"], state["params"], eager=True, **state["engine_kwargs"])
+        out = eng.run([Request(rid=r.rid, prompt=list(r.prompt),
+                               max_new_tokens=r.max_new_tokens) for r in state["trace"]])
+        return eng, out
+
     kvq = quant.KVQuant(int(flag["--kv-block"]), int(flag["--kv-group"]))
-    with plain_versions(mm, enc), quant.act_quant_scope(quant.ActQuant()), \
-            quant.kv_quant_scope(kvq):
-        eng = PVQEngine(state["model"], state["params"], **state["engine_kwargs"])
-        plain = eng.run([Request(rid=r.rid, prompt=list(r.prompt),
-                                 max_new_tokens=r.max_new_tokens) for r in state["trace"]])
-    del eng
+    with quant.act_quant_scope(quant.ActQuant()), quant.kv_quant_scope(kvq):
+        eager_eng, eager = rerun()
+        t0 = time.time()
+        with plain_versions(mm, enc):
+            _, plain = rerun()
+    eager_identical = (eager["outputs"] == state["outputs"]
+                       and same_pages(torch, eager_eng, state["engine"], _paged_leaves))
+    del eager_eng
+    state.pop("engine")
     identical = plain["outputs"] == state["outputs"]
     summary = {
         "engine_run": what, "device": report["device"],
@@ -1231,12 +1362,19 @@ def serve_engine(torch, serve, kernels_mod, mm, enc, quant, argv, what, gates):
         "v3_body_launches": report["v3_body_launches"], **by_caller,
         "tokens_identical_to_plain_on_card": identical,
         "plain_rerun_seconds": round(time.time() - t0, 2),
+        "trace_counts": report["engine_trace_counts"],
+        "tokens_and_pages_identical_to_eager": eager_identical,
+        "eager_tokens_per_s": eager["tokens_per_s"],
+        "eager_decode_steps": eager["decode_steps"],
+        "decode_step_captures_of_the_fixed_batch_legs": report["decode_step_captures"],
     }
     if what == "ci engine chunked":
         summary["reference_agreement_at_ci_seed"] = REFERENCE_CI_CHUNKED_AGREEMENT
     print(json.dumps(summary), flush=True)
     if not identical:
         fail(f"{what}: engine tokens through the kernels differ from the plain versions'")
+    if not eager_identical:
+        fail(f"{what}: the captured engine's tokens or real pages differ from the eager engine's")
     return counts, summary
 
 
@@ -1309,8 +1447,8 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
-    )
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
 
     import repro_torch.kernels as kernels_mod
     from repro_torch.core import quantize as quant
@@ -1358,12 +1496,14 @@ def main() -> int:
     counts, bodies, v2_bodies = {}, {}, {}
     counts["smollm-360m"], bodies["smollm-360m"], v2_bodies["smollm-360m"] = serve_full(
         torch, serve, kernels_mod, mm, enc, quant, routing, FULL_SERVE,
-        kvq=quant.KVQuant(KV_BLOCK, KV_GROUP), expect=SMOLLM_KERNELS)
-    torch.cuda.empty_cache()  # the smollm model is gone: the card is free for deepseek
+        kvq=quant.KVQuant(KV_BLOCK, KV_GROUP), expect=SMOLLM_KERNELS, smi=smi)
+    gc.collect()  # the smollm model and its graphs are gone: the card is free for deepseek
+    torch.cuda.empty_cache()
     counts[MOE_ARCH], bodies[MOE_ARCH], v2_bodies[MOE_ARCH] = serve_full(
         torch, serve, kernels_mod, mm, enc, quant, routing, MOE_FULL_SERVE, kvq=None,
-        expect=MOE_KERNELS)
+        expect=MOE_KERNELS, smi=smi)
     routing.close()
+    gc.collect()
     torch.cuda.empty_cache()
     serve_reduced(serve, REDUCED_SERVE, kernels_mod)
     serve_reduced(serve, MOE_REDUCED_SERVE, kernels_mod)
@@ -1378,6 +1518,7 @@ def main() -> int:
     for what, argv, gate in ENGINE_RUNS:
         counts[what], engine[what] = serve_engine(torch, serve, kernels_mod, mm, enc, quant,
                                                   argv, what, gate)
+        gc.collect()
         torch.cuda.empty_cache()
     run_b = engine["smollm-360m engine (b)"]
     entries["pvq_attn_q"]["launches_from_chunk_caller"] = {

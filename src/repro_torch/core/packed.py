@@ -24,7 +24,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from .quantize import KVQuant, QuantPolicy, k_for
+from .quantize import KVQuant, QuantPolicy, graph_capturing, k_for
 
 #: the MoE expert banks ``_pack_leaf`` packs into the expert-stacked matmul
 #: layout: the one predicate every expert-bank report filters with
@@ -168,10 +168,12 @@ def _kv_encode_planes(x: torch.Tensor, group: int, k: int) -> Tuple[torch.Tensor
 
 
 def _probe_kv_encode(xg, p8, scales) -> None:
-    """KV-block reconstruction SNR + saturation probe (telemetry only)."""
+    """KV-block reconstruction SNR + saturation probe (telemetry only).
+    It reads its values back to the host, so it bails while a CUDA graph
+    is being captured (a captured decode step's block fill)."""
     from ..runtime import obs, telemetry
 
-    if not obs.enabled():
+    if not obs.enabled() or graph_capturing():
         return
     ref = xg.detach().cpu().numpy()
     approx = (p8.to(torch.float32) * scales[..., None]).cpu().numpy()
@@ -183,6 +185,18 @@ def _probe_kv_encode(xg, p8, scales) -> None:
         obs.histogram("quant.kv_zero_scale_frac").record(
             float((scales == 0).sum()) / scales.numel()
         )
+
+
+def _ring_write(tail_k: torch.Tensor, tail_v: torch.Tensor, k_new: torch.Tensor,
+                v_new: torch.Tensor, pos: torch.Tensor) -> None:
+    """``tail[i, pos[i] % block] = new[i, 0]`` for every row ``i``, K and V,
+    in place: one ``index_copy_`` each on the flattened rings, at device
+    positions ``pos (rows,)``."""
+    n, blk = tail_k.shape[:2]
+    ring = torch.arange(0, n * blk, blk, device=tail_k.device) \
+        + torch.remainder(pos.to(torch.int64), blk)
+    tail_k.view(n * blk, *tail_k.shape[2:]).index_copy_(0, ring, k_new[:, 0].to(tail_k.dtype))
+    tail_v.view(n * blk, *tail_v.shape[2:]).index_copy_(0, ring, v_new[:, 0].to(tail_v.dtype))
 
 
 @dataclasses.dataclass(eq=False)
@@ -295,10 +309,27 @@ class PackedKV:
             v_pulses=pad(self.v_pulses), v_scales=pad(self.v_scales),
         )
 
-    def append(self, k_new: torch.Tensor, v_new: torch.Tensor, pos: int) -> "PackedKV":
-        """Write one decode step ``(b, 1, n_kv, hd)`` at host position ``pos``
-        (in place).  The row lands in the tail ring in the cache dtype; when
-        it completes a block, the whole ring is PVQ-encoded into the planes."""
+    def append(self, k_new: torch.Tensor, v_new: torch.Tensor, pos,
+               fill: Optional[bool] = None) -> "PackedKV":
+        """Write one decode step ``(b, 1, n_kv, hd)`` in place.  The row lands
+        in the tail ring in the cache dtype; when it completes a block, the
+        whole ring is PVQ-encoded into the planes.
+
+        ``pos`` is a host int (the eager lockstep step: the ring slot and
+        the block fill follow from it) or a ``(b,)`` device tensor (the
+        captured step, which reads no position on the host).  With a tensor,
+        ``fill`` is the host's choice (the lockstep loop knows the position,
+        and replays the graph captured with or without the fill): the ring
+        write is an ``index_copy_`` at ``pos % block``, and a fill writes the
+        encoded ring to rows ``pos + 1 - block ..`` computed on the device.
+        Both forms write the same bytes."""
+        if isinstance(pos, torch.Tensor):
+            if fill is None:
+                raise ValueError("PackedKV.append at device positions needs the host's fill flag")
+            _ring_write(self.tail_k, self.tail_v, k_new, v_new, pos)
+            if fill:
+                self._fill_at(pos)
+            return self
         blk = self.block
         slot = pos % blk
         self.tail_k[:, slot : slot + 1] = k_new.to(self.tail_k.dtype)
@@ -312,6 +343,21 @@ class PackedKV:
             self.v_pulses[:, start : start + blk] = pv
             self.v_scales[:, start : start + blk] = sv
         return self
+
+    def _fill_at(self, pos: torch.Tensor) -> None:
+        """Encode the ring of each row into its planes' rows ``pos + 1 -
+        block .. pos`` (device positions ``(b,)``)."""
+        blk = self.block
+        b, s = self.k_pulses.shape[:2]
+        dev = self.k_pulses.device
+        first = torch.arange(b, device=dev) * s + pos.to(torch.int64) + 1 - blk
+        rows = (first[:, None] + torch.arange(blk, device=dev)).reshape(-1)
+        pk, sk = _kv_encode_planes(self.tail_k, self.group, self.k)
+        pv, sv = _kv_encode_planes(self.tail_v, self.group, self.k)
+        for plane, val in ((self.k_pulses, pk), (self.k_scales, sk),
+                           (self.v_pulses, pv), (self.v_scales, sv)):
+            plane.view(b * s, *plane.shape[2:]).index_copy_(
+                0, rows, val.reshape(b * blk, *val.shape[2:]))
 
     def dense_kv(self, filled, dtype=torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
         """Exact dense view ``(k, v)`` of shape ``(b, S, n_kv, hd)``: planes
@@ -371,12 +417,16 @@ class PagedKV:
     * ``page_table`` ``(n_slots, max_pages)`` int32 on the pool's device:
       the physical page of each slot's logical block (trash where
       unallocated), read by :meth:`gather`.
-    * ``write_page`` ``(n_slots,)`` int32 **on the host**: the page a slot
-      completes in this decode step, trash for the slots that complete
-      none.  The engine's allocator owns both tables and hands them over
-      with :meth:`with_tables` before each step; :meth:`append` takes the
-      completing slots from ``write_page``, so a step reads nothing back
-      from the device.
+    * ``write_page`` ``(n_slots,)`` int32 **on the host**, and
+      ``write_page_dev`` the same as int64 on the pool's device: the page a
+      slot completes in this decode step, trash for the slots that
+      complete none.  The eager :meth:`append` takes the completing slots
+      from the host's, the captured one scatters through the device's.
+      The engine's allocator owns the tables and hands them over with
+      :meth:`with_tables` before each step (after :meth:`bind_tables`, one
+      pair of device buffers serves every layer), so a step reads nothing
+      back from the device.  The device tables are static buffers,
+      refilled in place: a captured step reads them by address.
 
     Like :class:`PackedKV` (and unlike the reference's immutable pytree),
     every update is in place.
@@ -390,6 +440,7 @@ class PagedKV:
     tail_v: torch.Tensor
     page_table: torch.Tensor
     write_page: np.ndarray
+    write_page_dev: torch.Tensor
     page: int
     group: int
     k: int
@@ -438,16 +489,29 @@ class PagedKV:
             page_table=torch.full((n_slots, max_pages), int(n_pages), dtype=torch.int32,
                                   device=device),
             write_page=np.full((n_slots,), int(n_pages), np.int32),
+            write_page_dev=torch.full((n_slots,), int(n_pages), dtype=torch.int64, device=device),
             page=page, group=g, k=int(kvq.k), dtype=dtype_name(dtype),
         )
 
     def with_tables(self, page_table, write_page) -> "PagedKV":
-        """Take the allocator's tables (in place): ``page_table`` as a
-        tensor on the pool's device (one tensor may serve every layer),
-        ``write_page`` as host integers."""
-        self.page_table = torch.as_tensor(page_table, dtype=torch.int32,
-                                          device=self.k_pages.device)
-        self.write_page = np.asarray(write_page, np.int32).reshape(self.n_slots)
+        """Take the allocator's tables, in place.  ``page_table`` is copied
+        into the pool's device table (nothing is copied where it is that
+        buffer).  ``write_page`` as host integers is kept on the host (the
+        eager append's); as a tensor it is copied into ``write_page_dev``
+        (nothing is copied where it is that buffer)."""
+        if page_table is not self.page_table:
+            self.page_table.copy_(torch.as_tensor(page_table, dtype=torch.int32))
+        if not isinstance(write_page, torch.Tensor):
+            self.write_page = np.asarray(write_page, np.int32).reshape(self.n_slots)
+        elif write_page is not self.write_page_dev:
+            self.write_page_dev.copy_(write_page)
+        return self
+
+    def bind_tables(self, page_table: torch.Tensor, write_page_dev: torch.Tensor) -> "PagedKV":
+        """Read the device tables from these buffers from now on (the engine
+        binds one pair to every layer, once, before any step is captured,
+        and refills it in place each step)."""
+        self.page_table, self.write_page_dev = page_table, write_page_dev
         return self
 
     # ---------------------------------------------------------------- views
@@ -502,26 +566,36 @@ class PagedKV:
             self.v_pages[dst] = pulses[n + i : n + j]
             self.v_page_scales[dst] = scales[n + i : n + j]
 
-    def append(self, k_new: torch.Tensor, v_new: torch.Tensor, pos: torch.Tensor) -> "PagedKV":
+    def append(self, k_new: torch.Tensor, v_new: torch.Tensor, pos: torch.Tensor,
+               fill: Optional[bool] = None) -> "PagedKV":
         """Write one decode step ``(n_slots, 1, n_kv, hd)`` at per-slot
         positions ``pos (n_slots,)`` (a device tensor), in place.  Each
-        slot's row lands in its tail ring at ``pos % page``; the slots whose
-        ``write_page`` is not the trash page complete a block in this step
-        and have their ring PVQ-encoded into that page.  The reference
-        encodes every ring and scatters the non-completing ones to the
-        trash page; encoding only the completing rings writes the same
-        bytes to every real page."""
-        ns, page = self.n_slots, self.page
-        ring = torch.arange(0, ns * page, page, device=self.tail_k.device) \
-            + torch.remainder(pos.to(torch.int64), page)
-        self.tail_k.view(ns * page, *self.tail_k.shape[2:]).index_copy_(
-            0, ring, k_new[:, 0].to(self.tail_k.dtype))
-        self.tail_v.view(ns * page, *self.tail_v.shape[2:]).index_copy_(
-            0, ring, v_new[:, 0].to(self.tail_v.dtype))
-        done = np.nonzero(self.write_page != self.trash_page)[0]
-        if done.size:
-            self._write_pages(self.write_page[done], _rows(self.tail_k, done),
-                              _rows(self.tail_v, done))
+        slot's row lands in its tail ring at ``pos % page``.
+
+        The slots that complete a block in this step have their ring
+        PVQ-encoded into the page they were assigned.  With ``fill`` None
+        (the eager step) the host's ``write_page`` names them and only
+        their rings are encoded.  The captured step cannot vary the number
+        of rings it encodes, so the host picks one of two graphs instead:
+        ``fill=False`` encodes nothing; ``fill=True`` encodes every ring and
+        scatters it through ``write_page_dev``, the rings of the slots that
+        complete no block to the trash page, as the reference does.  A real
+        page gets the same bytes either way."""
+        ns = self.n_slots
+        _ring_write(self.tail_k, self.tail_v, k_new, v_new, pos)
+        if fill is None:
+            done = np.nonzero(self.write_page != self.trash_page)[0]
+            if done.size:
+                self._write_pages(self.write_page[done], _rows(self.tail_k, done),
+                                  _rows(self.tail_v, done))
+        elif fill:
+            pulses, scales = _kv_encode_planes(
+                torch.cat([self.tail_k, self.tail_v]).to(torch.float32), self.group, self.k)
+            ids = self.write_page_dev
+            self.k_pages.index_copy_(0, ids, pulses[:ns])
+            self.k_page_scales.index_copy_(0, ids, scales[:ns])
+            self.v_pages.index_copy_(0, ids, pulses[ns:])
+            self.v_page_scales.index_copy_(0, ids, scales[ns:])
         return self
 
     def graft(self, k_dense, v_dense, slot: int, page_ids, real_len: int) -> "PagedKV":

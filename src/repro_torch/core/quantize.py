@@ -121,11 +121,20 @@ def quantize_activations(
     return q, scale
 
 
+def graph_capturing() -> bool:
+    """Whether a CUDA graph is being captured on the current stream (never
+    where torch has no card)."""
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+
+
 def _probe_act_quant(q: torch.Tensor, scale: torch.Tensor) -> None:
-    """Clamp-rate / zero-scale probe (no-op unless telemetry is enabled)."""
+    """Clamp-rate / zero-scale probe (no-op unless telemetry is enabled).
+    It reads its values back to the host, so it bails while a CUDA graph
+    is being captured (the captured decode step): the eager prefill and
+    graft feed it."""
     from repro_torch.runtime import obs
 
-    if not obs.enabled():
+    if not obs.enabled() or graph_capturing():
         return
     obs.counter("quant.act_quant_calls").inc()
     if q.numel():

@@ -189,7 +189,7 @@ def pvq_attn_decode(q: torch.Tensor, kv, kv_len: torch.Tensor, *, sm_scale: floa
 
     # the planes go in their own (b, S, n_kv, X) layout: row bh of the
     # kernel is (batch bh // n_kv, kv head bh % n_kv)
-    kv_len_bh = torch.repeat_interleave(kv_len.to(torch.int32), n_kv)
+    kv_len_bh = kv_len.to(torch.int32)[:, None].expand(b, n_kv).reshape(b * n_kv)
     fn = mm.pvq_attn_q_cuda if _route(q) == "cuda" else mm.pvq_attn_q_plain
     acc, m_run, l_run = fn(
         q_i8, a_scale, kv.k_pulses, kv.k_scales, kv.v_pulses, kv.v_scales, kv_len_bh,

@@ -15,9 +15,9 @@ admission -> batcher -> page table -> prefill/decode steps
 * **Paged KV**: each attention layer's cache is a
   :class:`~repro_torch.core.packed.PagedKV`, a pool of physical pages of
   one KV block each, packed at rest.  The host-side :class:`PageAllocator`
-  owns the free list; the device sees the page table, refreshed before
-  every step, and :meth:`PagedKV.append` gets the completing slots' pages
-  as host integers.
+  owns the free list; the device sees the page table and the pages the
+  step's completing slots write, in static buffers every layer shares,
+  refilled before every step.
 * **Prefill/decode disaggregation**: prompts run through
   ``Model.prefill_bucketed`` (padded to a page-multiple bucket, with a
   dense cache under ``kv_quant_scope(None)``); the prefilled KV is then
@@ -34,10 +34,17 @@ admission -> batcher -> page table -> prefill/decode steps
   the youngest active sequence is evicted and requeued at the head, its
   generated tokens kept.
 
-Every step is eager: where the reference jits decode, prefill, graft and
-chunk (and counts their traces), the port launches each op from Python
-and compiles nothing, so its report has no ``trace_counts`` key and its
-telemetry no ``engine.trace_count`` gauge.
+* **Captured decode**: on a card the decode step over the slot pool is a
+  replay of a captured CUDA graph (``launch.capture``), the argmax inside
+  it as in the reference's jitted step: one graph that encodes nothing and
+  one for the steps in which some slot completes a block, which encodes
+  every slot's ring and scatters the rings of the rest to the trash page
+  (``PagedKV.append(fill=True)``).  The tokens come back to the host once
+  a step, for the scheduler.  On the CPU that step runs eagerly;
+  ``eager=True`` runs the host-table step instead (only the completing
+  rings encoded).  ``trace_counts`` holds the reference's keys: ``decode``
+  counts captures; the prefill, graft and chunk steps stay eager, so
+  theirs stay 0.
 """
 
 from __future__ import annotations
@@ -53,9 +60,10 @@ import numpy as np
 import torch
 
 from ..core.packed import PackedPVQ, is_paged_kv
-from ..core.quantize import default_kv_quant, kv_quant_scope
+from ..core.quantize import default_act_quant, default_kv_quant, kv_quant_scope
 from ..runtime import obs
 from ..runtime.telemetry import Histogram
+from .capture import CapturedStep
 
 
 def bucket_len(n: int, multiple: int) -> int:
@@ -342,6 +350,9 @@ class PVQEngine:
     Slot invariant: an active slot holds ``length`` cache rows (prompt plus
     every generated token but the newest), and the next decode step feeds
     ``req.generated[-1]`` at position ``length``.
+
+    The decode step is captured on a card and run eagerly on the CPU, both
+    over static buffers (``eager=True``: the host-table step).
     """
 
     def __init__(
@@ -355,6 +366,7 @@ class PVQEngine:
         prefill_chunk: Optional[int] = None,
         prefill_batch: int = 1,
         prefix_cache: bool = True,
+        eager: bool = False,
     ):
         kvq = default_kv_quant()
         if kvq is None:
@@ -400,7 +412,19 @@ class PVQEngine:
             (self.n_slots, self.max_pages), self.alloc.trash, np.int32
         )
         self._pt_sent: Optional[np.ndarray] = None  # the table last copied to the device
-        self._pt_dev: Optional[torch.Tensor] = None
+        # the static device inputs of a decode step, bound to every paged
+        # layer: the page table, and the slots' tokens, positions and write
+        # pages in one buffer (one copy to the device a step)
+        ns = self.n_slots
+        self._pt_dev = torch.from_numpy(self._page_table.copy()).to(self.device)
+        self._step_in = torch.zeros((3 * ns,), dtype=torch.int64, device=self.device)
+        self._tok_in = self._step_in[:ns].view(ns, 1)
+        self._pos_in = self._step_in[ns : 2 * ns]
+        for leaf in self._paged:
+            leaf.bind_tables(self._pt_dev, self._step_in[2 * ns :])
+        self.eager = bool(eager)
+        self._graphs: Dict[tuple, CapturedStep] = {}
+        self.trace_counts: Dict[str, int] = {"decode": 0, "prefill": 0, "graft": 0, "chunk": 0}
         self._admit_seq = 0
         self.pending: deque = deque()
         self.finished: List[Request] = []
@@ -440,21 +464,43 @@ class PVQEngine:
 
     def _set_tables(self, write_page: np.ndarray) -> None:
         """Hand the allocator's tables to every paged layer: the page table
-        as one device copy (made again only when it changed), the write
-        pages as host integers."""
+        copied into the shared device buffer (only when it changed), the
+        write pages as host integers (the eager step's)."""
         if self._pt_sent is None or not np.array_equal(self._pt_sent, self._page_table):
             self._pt_sent = self._page_table.copy()
-            self._pt_dev = torch.from_numpy(self._pt_sent).to(self.device)
+            self._pt_dev.copy_(torch.from_numpy(self._pt_sent))
         for leaf in self._paged:
             leaf.with_tables(self._pt_dev, write_page)
 
-    def _decode(self, tokens: np.ndarray, pos: np.ndarray, write_page: np.ndarray) -> np.ndarray:
+    def _decode(self, tokens: np.ndarray, pos: np.ndarray, write_page: np.ndarray,
+                fill: Optional[bool] = None) -> np.ndarray:
+        """One decode step over the slot pool; the next tokens on the host.
+        ``fill`` (default: whether a slot writes a page) picks the graph."""
         self._set_tables(write_page)
-        # tokens and positions in one copy to the device
-        both = self._tokens(np.concatenate([tokens.reshape(-1), pos]))
-        logits, self.cache = self.model.decode_step(
-            self.params, self.cache, both[: self.n_slots, None], both[self.n_slots :])
-        return _argmax_last(logits)
+        step_in = np.concatenate([tokens.reshape(-1), pos, write_page]).astype(np.int64)
+        self._step_in.copy_(torch.from_numpy(step_in))
+        if self.eager:
+            logits, self.cache = self.model.decode_step(
+                self.params, self.cache, self._tok_in, self._pos_in)
+            return _argmax_last(logits)
+        if fill is None:
+            fill = bool((write_page != self.alloc.trash).any())
+        if self.device.type != "cuda":
+            return self._decode_body(fill).cpu().numpy()
+        key = (fill, default_act_quant(), default_kv_quant())
+        graph = self._graphs.get(key)
+        if graph is None:
+            graph = self._graphs[key] = CapturedStep(lambda: self._decode_body(fill), self.device)
+            self.trace_counts["decode"] += 1
+            return graph.take_first().cpu().numpy()
+        return graph.replay().cpu().numpy()
+
+    def _decode_body(self, fill: bool) -> torch.Tensor:
+        """The step a graph captures: every input from the static buffers,
+        the argmax inside."""
+        logits, _ = self.model.decode_step(self.params, self.cache, self._tok_in, self._pos_in,
+                                           fill=fill)
+        return torch.argmax(logits[:, -1, :], dim=-1)
 
     def _prefill(self, tokens: np.ndarray, real_len: np.ndarray):
         """Bucketed prefill with a dense cache (the PVQ encode happens in the
@@ -897,12 +943,13 @@ class PVQEngine:
     # --------------------------------------------------------------- warmup
 
     def warmup(self, prompt_lens: Sequence[int] = ()) -> None:
-        """Run the decode step, a prefill and graft for every prompt bucket
-        at the engine's prefill batch, and one chunk, before the timed run
-        (the card's first launches load the kernels and size the caching
-        allocator; nothing compiles).  The engine must be idle; the dummy
-        writes target the trash page and a tail ring a real graft
-        overwrites."""
+        """Run a prefill and graft for every prompt bucket at the engine's
+        prefill batch, one chunk, and the decode step without and with a
+        block fill (on a card that captures both graphs), before the timed
+        run, which then captures nothing (the card's first launches load
+        the kernels and size the caching allocator).  The engine must be
+        idle; the dummy writes target the trash page and tail rings a real
+        graft overwrites."""
         if any(st is not None for st in self.slots):
             raise RuntimeError("warmup needs an idle engine")
         buckets = {bucket_len(max(int(p), 1), self.page) for p in prompt_lens}
@@ -918,8 +965,10 @@ class PVQEngine:
             ctk = self.chunk_tokens
             self._chunk(np.zeros((1, ctk), np.int32), 0, 0,
                         np.full((ctk // self.page,), trash, np.int32), 1)
-        self._decode(np.zeros((self.n_slots, 1), np.int32), np.zeros((self.n_slots,), np.int32),
-                     np.full((self.n_slots,), trash, np.int32))
+        for fill in (False, True):
+            self._decode(np.zeros((self.n_slots, 1), np.int32),
+                         np.zeros((self.n_slots,), np.int32),
+                         np.full((self.n_slots,), trash, np.int32), fill=fill)
 
     # ------------------------------------------------------------- run loop
 
@@ -978,8 +1027,8 @@ class PVQEngine:
     # -------------------------------------------------------------- metrics
 
     def report(self, wall_s: float) -> Dict[str, Any]:
-        """The reference's report, without ``trace_counts`` (nothing is
-        traced here)."""
+        """The reference's report: ``trace_counts`` holds the decode step's
+        captures under the reference's keys (the other steps stay eager)."""
         done = self.finished
         toks = sum(len(r.generated) for r in done)
         lat = [r.finish_t - r.submit_t for r in done
@@ -996,6 +1045,9 @@ class PVQEngine:
         itl_pf_h = Histogram.from_values(self._itl_with_prefill_s)
 
         if obs.enabled():
+            # one gauge per step (report() may run again, so not a counter)
+            for fn, n in self.trace_counts.items():
+                obs.gauge("engine.trace_count", {"fn": fn}).set(n)
             obs.gauge("engine.itl_p99_s").set(itl_h.percentile(99))
             obs.gauge("engine.itl_with_prefill_p99_s").set(itl_pf_h.percentile(99))
 
@@ -1035,5 +1087,6 @@ class PVQEngine:
             "n_slots": self.n_slots,
             "n_pages": self.n_pages,
             "page": self.page,
+            "trace_counts": dict(self.trace_counts),
             "outputs": {r.rid: list(r.generated) for r in done},
         }

@@ -20,31 +20,47 @@ oracle (``engine_token_agreement``)::
         --agreement-min 0.99 --min-prefix-hits 1
 
 It runs on the CUDA card unless ``--device cpu`` is given, and never drops
-to the CPU by itself.  ``--agreement-min T`` also scores the same tokens on
-the reference leg (f32 activations, dense KV cache: kernel v2 on the packed
-weights) and exits 1 if teacher-forced top-1 agreement is below T.  The
+to the CPU by itself.  On the card every decode step, the fixed-batch
+loop's and the engine's, is a replay of a captured CUDA graph of
+``Model.decode_step`` (the counterpart of the reference's jitted step);
+``TRACE_COUNTS["decode_step"]`` and the counter
+``serve.decode_step_traces`` count the captures, and the report's
+``decode_step_captures`` holds the count of this run and
+``engine_trace_counts`` the engine's.  On the CPU the same step runs
+eagerly; ``generate``, ``teacher_forced_logits`` and ``PVQEngine`` take
+``eager=True`` for the host-int step (a comparison's other leg).
+
+``--agreement-min T`` also scores the same tokens on the reference leg
+(f32 activations, dense KV cache: kernel v2 on the packed weights) and
+exits 1 if teacher-forced top-1 agreement is below T.  The
 JSON report adds ``kernel_launches`` (the CUDA launches of each kernel),
 ``v3_body_launches`` (kernel v3's launches by body: splitk, direct, mma),
 ``v2_body_launches`` (kernel v2's, the f32 leg's: direct, mma, splitk), the
-packed MoE expert banks' bytes, and on a card the peak device memory.
+packed MoE expert banks' bytes, and on a card the peak device memory.  A
+replayed graph adds the launches its capture recorded
+(``launch.capture``), so the counts are the card's launches, the same for
+a captured run as for an eager one.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
-from typing import Optional
+import weakref
+from typing import Dict, Optional
 
 import torch
 
 from ..configs import get_config
-from ..core.packed import _fit_group, expert_leaves, packed_stats, quantize_params
+from ..core.packed import _fit_group, expert_leaves, is_packed_kv, packed_stats, quantize_params
 from ..core.quantize import (
     ActQuant,
     KVQuant,
     QuantPolicy,
     act_quant_scope,
+    default_act_quant,
     default_kv_quant,
     kv_quant_scope,
     set_default_act_quant,
@@ -53,7 +69,13 @@ from ..core.quantize import (
 from ..kernels import launches, reset_launches, v2_body_launches, v3_body_launches
 from ..nn.models import build_model
 from ..runtime import obs
+from .capture import CapturedStep
 from .engine import param_device, bucket_len
+
+# Captures of the fixed-batch decode step (the reference counts its jit's
+# traces here): a second generate() of the same shape captures nothing.
+TRACE_COUNTS: dict = {"decode_step": 0}
+_STEPS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 def serving_policy(cfg, n_over_k: float = 1.0) -> QuantPolicy:
@@ -91,11 +113,139 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _leaves(tree, path: str = ""):
+    """``(path, leaf)`` of a parameter or cache tree: dicts, lists and
+    dataclasses (``PackedPVQ``, ``PackedKV``) are walked."""
+    if isinstance(tree, dict):
+        for key, sub in tree.items():
+            yield from _leaves(sub, f"{path}/{key}")
+    elif isinstance(tree, (list, tuple)):
+        for i, sub in enumerate(tree):
+            yield from _leaves(sub, f"{path}/{i}")
+    elif dataclasses.is_dataclass(tree):
+        for f in dataclasses.fields(tree):
+            yield from _leaves(getattr(tree, f.name), f"{path}/{f.name}")
+    else:
+        yield path, tree
+
+
+def _step_key(params, cache) -> tuple:
+    """What a capture bakes in: the parameters' addresses and shapes, the
+    active ``ActQuant`` and ``KVQuant`` (so the f32 leg gets its own graph,
+    never the int8 one), and the cache's kinds and shapes (batch and the
+    bucketed ``cache_len``)."""
+    p = tuple((path, t.data_ptr(), tuple(t.shape)) for path, t in _leaves(params)
+              if isinstance(t, torch.Tensor))
+    c = tuple((path, tuple(t.shape), t.dtype) if isinstance(t, torch.Tensor) else (path, t)
+              for path, t in _leaves(cache))
+    return p, default_act_quant(), default_kv_quant(), c
+
+
+def _fill_block(cache) -> Optional[int]:
+    """The block of the cache's ``PackedKV`` layers (None without one): a
+    lockstep step at ``pos`` with ``(pos + 1) % block == 0`` encodes one."""
+    stack = [cache]
+    while stack:
+        c = stack.pop()
+        if is_packed_kv(c):
+            return c.block
+        if isinstance(c, dict):
+            stack.extend(c.values())
+        elif isinstance(c, list):
+            stack.extend(c)
+    return None
+
+
+class _StaticStep:
+    """One shape of the lockstep decode step: static token and position
+    buffers and the cache they decode over (the first prefill's of this
+    key, kept; a later prefill is copied into it), and on a card up to two
+    captured graphs, without and with a KV block fill (``fill``)."""
+
+    def __init__(self, params, cache, batch: int, device):
+        self.params, self.cache = params, cache
+        self.tok = torch.zeros((batch, 1), dtype=torch.int64, device=device)
+        self.pos = torch.zeros((batch,), dtype=torch.int64, device=device)
+        self.graphs: Dict[bool, CapturedStep] = {}
+
+    def load(self, cache) -> None:
+        for (_, dst), (_, src) in zip(_leaves(self.cache), _leaves(cache)):
+            if isinstance(dst, torch.Tensor):
+                dst.copy_(src)
+
+    def _body(self, model, fill: bool):
+        logits, _ = model.decode_step(self.params, self.cache, self.tok, self.pos, fill=fill)
+        return logits, torch.argmax(logits[:, -1, :], dim=-1)[:, None]
+
+    def run(self, model, tok: torch.Tensor, pos: int, fill: bool):
+        """``(logits (b, 1, vocab), next token (b, 1))`` of the step feeding
+        ``tok`` at ``pos``; from a graph, they hold until the next replay."""
+        self.tok.copy_(tok)
+        self.pos.fill_(pos)
+        if self.tok.device.type != "cuda":
+            return self._body(model, fill)
+        graph = self.graphs.get(fill)
+        if graph is not None:
+            return graph.replay()
+        graph = self.graphs[fill] = CapturedStep(lambda: self._body(model, fill), self.tok.device)
+        TRACE_COUNTS["decode_step"] += 1
+        obs.counter("serve.decode_step_traces").inc()
+        return graph.take_first()
+
+
+def _captured_step(model) -> Dict[tuple, _StaticStep]:
+    """The model's captured decode steps by :func:`_step_key` (the
+    counterpart of the reference's one ``_jit_step`` per model); they live
+    as long as the model."""
+    steps = _STEPS.get(model)
+    if steps is None:
+        steps = _STEPS[model] = {}
+    return steps
+
+
+def _lockstep(model, params, cache, tokens: torch.Tensor, *, eager: bool):
+    """``step(tok (b, 1), pos) -> (logits, next token)`` over the prefill's
+    ``cache``: on a card the captured step (a new key captures, a known one
+    takes the cache into its static one), on the CPU the same device-position
+    step run eagerly, with ``eager`` the host-int ``Model.decode_step``."""
+    if eager:
+        state = [cache]
+
+        def step(tok, pos):
+            logits, state[0] = model.decode_step(params, state[0], tok, pos)
+            return logits, torch.argmax(logits[:, -1, :], dim=-1)[:, None]
+
+        return step
+    batch, device = tokens.shape[0], tokens.device
+    if device.type == "cuda":
+        steps = _captured_step(model)
+        key = _step_key(params, cache)
+        static = steps.get(key)
+        if static is None:
+            static = steps[key] = _StaticStep(params, cache, batch, device)
+        else:
+            static.load(cache)
+    else:
+        static = _StaticStep(params, cache, batch, device)
+    blk = _fill_block(cache)
+
+    def step(tok, pos):
+        return static.run(model, tok, pos, blk is not None and (pos + 1) % blk == 0)
+
+    return step
+
+
 def generate(model, params, tokens: torch.Tensor, *, gen: int, cache_len: int,
-             timings: Optional[dict] = None) -> torch.Tensor:
-    """Greedy decode; tokens (b, s) -> (b, s + gen).  A ``timings`` dict
-    receives ``prefill_s`` and ``decode_s`` (host clock, the device
-    synchronized at the prefill/decode boundary and at the end)."""
+             timings: Optional[dict] = None, eager: bool = False,
+             step_logits: Optional[list] = None) -> torch.Tensor:
+    """Greedy decode; tokens (b, s) -> (b, s + gen).  Each decode step is a
+    replay of the model's captured step on a card, and that step run
+    eagerly on the CPU; ``eager=True`` runs the host-int step instead.
+    ``cache_len`` is rounded up to the KV block, so the prompt lengths of a
+    bucket share one capture.  A ``timings`` dict receives ``prefill_s``
+    and ``decode_s`` (host clock, the device synchronized at the
+    prefill/decode boundary and at the end); a ``step_logits`` list
+    receives each decode step's logits ``(b, vocab)``."""
     cache_len = bucket_len(cache_len, _decode_bucket())
     t0 = time.perf_counter()
     with obs.span("serve/generate", args={
@@ -109,19 +259,25 @@ def generate(model, params, tokens: torch.Tensor, *, gen: int, cache_len: int,
             _sync(tokens.device)
             t1 = time.perf_counter()
             timings["prefill_s"] = t1 - t0
+        step = _lockstep(model, params, cache, tokens, eager=eager)
+        del logits, cache
         pos0 = tokens.shape[1]
         for i in range(gen):
             out.append(tok)
-            logits, cache = model.decode_step(params, cache, tok, pos0 + i)
-            tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
+            logits, tok = step(tok, pos0 + i)
+            tok = tok.clone()  # a graph's output: the next replay overwrites it
+            if step_logits is not None:
+                step_logits.append(logits[:, -1, :].clone())
         if timings is not None:
             _sync(tokens.device)
             timings["decode_s"] = time.perf_counter() - t1
         return torch.cat(out, dim=1)
 
 
-def teacher_forced_logits(model, params, seq: torch.Tensor, *, prompt_len: int) -> torch.Tensor:
-    """Next-token logits along a FIXED sequence through the decode path:
+def teacher_forced_logits(model, params, seq: torch.Tensor, *, prompt_len: int,
+                          eager: bool = False) -> torch.Tensor:
+    """Next-token logits along a FIXED sequence through the decode path (the
+    captured step on a card, ``eager`` as for :func:`generate`):
     (b, seq_len - prompt_len, vocab) predicting positions prompt_len.."""
     with obs.span("serve/teacher_forced", args={
         "batch": int(seq.shape[0]), "seq_len": int(seq.shape[1]),
@@ -129,10 +285,12 @@ def teacher_forced_logits(model, params, seq: torch.Tensor, *, prompt_len: int) 
         cache_len = bucket_len(seq.shape[1], _decode_bucket())
         logits, cache = model.prefill(params, {"tokens": seq[:, :prompt_len]}, cache_len=cache_len)
         steps = [logits[:, -1, :]]
+        step = _lockstep(model, params, cache, seq, eager=eager)
+        del cache
         for i in range(seq.shape[1] - prompt_len - 1):
             tok = seq[:, prompt_len + i : prompt_len + i + 1]
-            logits, cache = model.decode_step(params, cache, tok, prompt_len + i)
-            steps.append(logits[:, -1, :])
+            logits, _ = step(tok, prompt_len + i)
+            steps.append(logits[:, -1, :].clone())  # a graph's output, as above
         return torch.stack(steps, dim=1)
 
 
@@ -353,6 +511,7 @@ def _serve(args):
 
     _sync(device)
     timings: dict = {}
+    captures0 = TRACE_COUNTS["decode_step"]
     t0 = time.time()
     out = generate(model, params, tokens, gen=args.gen, cache_len=args.prompt_len + args.gen,
                    timings=timings)
@@ -385,6 +544,7 @@ def _serve(args):
                 f"top-1 agreement {ag['top1_agreement']:.4f} < required {args.agreement_min}"
             )
             rc = 1
+    report["decode_step_captures"] = TRACE_COUNTS["decode_step"] - captures0
     report["kernel_launches"] = launches()
     report["v3_body_launches"] = v3_body_launches()
     report["v2_body_launches"] = v2_body_launches()
@@ -396,9 +556,12 @@ def _serve(args):
 def _serve_engine(args, cfg, model, params, report, device):
     """``--engine``: the trace through ``PVQEngine``, then the fixed-batch
     baseline (``generate`` over the same trace, one request at a time,
-    warmed on the first request), then the gates.  Returns ``(report,
+    warmed on one request of each cache-length bucket, so that its
+    captures stay out of the timed loop, as the engine's warm-up keeps
+    its own out of the engine's), then the gates.  Returns ``(report,
     exit_code, state)``; ``state`` holds the model, params, trace, the
-    engine's outputs and its constructor arguments."""
+    engine (its cache and ``trace_counts``), its outputs and its
+    constructor arguments."""
     from .engine import PVQEngine, poisson_trace
 
     max_len = bucket_len(args.shared_prefix + args.prompt_len + args.gen, args.kv_block)
@@ -422,10 +585,11 @@ def _serve_engine(args, cfg, model, params, report, device):
     report["arch"] = cfg.name
     report.update({f"engine_{k}": v for k, v in res.items()})
     report["engine_kernel_launches"] = engine_launches
-    del eng
+    captures0 = TRACE_COUNTS["decode_step"]
 
     prompts = {r.rid: torch.tensor([r.prompt], dtype=torch.int64, device=device) for r in trace}
-    for r in trace[:1]:
+    buckets = {bucket_len(len(r.prompt) + args.gen, _decode_bucket()): r for r in trace}
+    for r in buckets.values():
         generate(model, params, prompts[r.rid], gen=args.gen, cache_len=len(r.prompt) + args.gen)
     _sync(device)
     t0 = time.time()
@@ -461,13 +625,14 @@ def _serve_engine(args, cfg, model, params, report, device):
             f"prefix cache hits {res['prefix_hits']} < required {args.min_prefix_hits}"
         )
         rc = 1
+    report["decode_step_captures"] = TRACE_COUNTS["decode_step"] - captures0
     report["kernel_launches"] = launches()
     report["v3_body_launches"] = v3_body_launches()
     report["v2_body_launches"] = v2_body_launches()
     if device.type == "cuda":
         report["peak_device_memory_bytes"] = torch.cuda.max_memory_allocated(device)
-    state = {"model": model, "params": params, "trace": trace, "outputs": outputs,
-             "engine_kwargs": engine_kwargs}
+    state = {"model": model, "params": params, "trace": trace, "engine": eng,
+             "outputs": outputs, "engine_kwargs": engine_kwargs}
     return report, rc, state
 
 

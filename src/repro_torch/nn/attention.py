@@ -124,8 +124,8 @@ def decode_attention_packed(
     engine's ``PagedKV``, gathered at the kernel's dispatch): the packed
     leg (kernel v4, positions below ``packed_end(filled)``) and the exact
     f32 tail leg, merged by logsumexp.  ``filled`` is the physical fill: a
-    host int on the lockstep path, a per-slot ``(b,)`` tensor on the
-    engine's.  ``exact=True`` dequantizes the whole cache and runs the
+    host int on the eager lockstep path, a per-row ``(b,)`` tensor on the
+    captured step and the engine's.  ``exact=True`` dequantizes the whole cache and runs the
     dense path (the oracle)."""
     from ..kernels import ops
 
@@ -215,16 +215,18 @@ def attention_prefill_cache(
 
 def attention_decode(
     p: Params, x: torch.Tensor, cache, pos, *, n_heads: int, n_kv_heads: int,
-    head_dim: int, rope_theta: Optional[float] = 10000.0,
+    head_dim: int, rope_theta: Optional[float] = 10000.0, fill: Optional[bool] = None,
 ) -> Tuple[torch.Tensor, Any]:
     """Single-token decode with a cache append at ``pos`` (the cache is
-    updated in place).  ``pos`` is a host int (lockstep batch) or a
-    ``(b,)`` tensor of per-slot positions over the engine's ``PagedKV``
-    slot pool: RoPE, the append and the length mask are then per row."""
+    updated in place).  ``pos`` is a host int (the eager lockstep step) or
+    a ``(b,)`` device tensor of per-row positions (the captured step, and
+    the engine's ``PagedKV`` slot pool): RoPE, the append and the length
+    mask are then per row and read no position on the host; ``fill`` is
+    the host's block-fill choice for a packed cache (``PackedKV.append``,
+    ``PagedKV.append``)."""
     if isinstance(pos, torch.Tensor):
-        return _attention_decode_slots(p, x, cache, pos, n_heads=n_heads,
-                                       n_kv_heads=n_kv_heads, head_dim=head_dim,
-                                       rope_theta=rope_theta)
+        return _attention_decode_at(p, x, cache, pos, n_heads=n_heads, n_kv_heads=n_kv_heads,
+                                    head_dim=head_dim, rope_theta=rope_theta, fill=fill)
     b = x.shape[0]
     q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim)
     posb = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
@@ -244,15 +246,21 @@ def attention_decode(
     return y, cache
 
 
-def _attention_decode_slots(p, x, cache, pos, *, n_heads, n_kv_heads, head_dim, rope_theta):
-    """:func:`attention_decode` at per-slot positions ``pos (b,)`` over the
-    ``PagedKV`` pool: a per-slot ring append, then kernel v4 through the
-    page table.  Dense and ``PackedKV`` caches append in lockstep only."""
-    if not is_paged_kv(cache):
-        raise NotImplementedError(
-            "per-slot positions need the paged slot-pool cache (PagedKV); "
-            "dense and PackedKV caches append in lockstep (host int pos)"
-        )
+def put_rows(t: torch.Tensor, rows: torch.Tensor, pos: torch.Tensor) -> None:
+    """``t[i, pos[i]] = rows[i, 0]`` for every row ``i`` of a ``(b, S, ...)``
+    cache tensor, in place: one ``index_copy_`` on its flattened rows at
+    device positions ``pos (b,)``."""
+    b, s = t.shape[:2]
+    idx = torch.arange(b, device=t.device) * s + pos.to(torch.int64)
+    t.view(b * s, *t.shape[2:]).index_copy_(0, idx, rows[:, 0].to(t.dtype))
+
+
+def _attention_decode_at(p, x, cache, pos, *, n_heads, n_kv_heads, head_dim, rope_theta, fill):
+    """:func:`attention_decode` at device positions ``pos (b,)``, over any
+    cache: a per-row append (``index_copy_``), then kernel v4 over a packed
+    or paged cache, whose ``filled`` is the device tensor ``pos + 1``, or
+    the dense f32 attention over a dense one.  At equal positions it gives
+    the host-int form's logits bit for bit."""
     b = x.shape[0]
     q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim)
     posb = pos.to(torch.int64).reshape(b, 1)
@@ -261,8 +269,13 @@ def _attention_decode_slots(p, x, cache, pos, *, n_heads, n_kv_heads, head_dim, 
         k = apply_rope(k, posb, rope_theta)
     scale = 1.0 / math.sqrt(head_dim)
     length = posb[:, 0] + 1
-    cache.append(k, v, posb[:, 0])
-    out = decode_attention_packed(q, cache, scale=scale, length=length, filled=length)
+    if is_paged_kv(cache) or is_packed_kv(cache):
+        cache.append(k, v, posb[:, 0], fill=fill)
+        out = decode_attention_packed(q, cache, scale=scale, length=length, filled=length)
+    else:
+        put_rows(cache["k"], k, posb[:, 0])
+        put_rows(cache["v"], v, posb[:, 0])
+        out = decode_attention(q, cache["k"], cache["v"], scale=scale, length=length)
     y = dense(p["wo"], out.reshape(b, 1, n_heads * head_dim))
     return y, cache
 

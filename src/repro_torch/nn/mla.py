@@ -20,7 +20,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..core.packed import materialize
-from .attention import NEG_INF, apply_rope, chunked_causal_attention
+from .attention import NEG_INF, apply_rope, chunked_causal_attention, put_rows
 from .layers import Params, dense, init_dense, init_rmsnorm, rmsnorm
 
 
@@ -103,18 +103,29 @@ def mla_prefill_cache(p: Params, x: torch.Tensor, cfg: MLAConfig) -> dict:
     return MLACache(c_kv=c_kv, k_rope=k_rope)
 
 
-def mla_decode(p: Params, x: torch.Tensor, cache: dict, pos: int, *, n_heads: int,
+def mla_decode(p: Params, x: torch.Tensor, cache: dict, pos, *, n_heads: int,
                cfg: MLAConfig) -> Tuple[torch.Tensor, dict]:
-    """Absorbed decode at host position ``pos`` (lockstep batch; the cache
-    is updated in place).  Scores contract in f32 from the cache dtype, as
-    the reference's ``preferred_element_type=f32``; the other contractions
-    stay in the compute dtype."""
+    """Absorbed decode at ``pos`` (the cache is updated in place): a host
+    int (the eager lockstep step) or a ``(b,)`` device tensor of per-row
+    positions (the captured step: the latent writes are an ``index_copy_``
+    and the length mask is per row, so nothing reads a position on the
+    host).  Scores contract in f32 from the cache dtype, as the reference's
+    ``preferred_element_type=f32``; the other contractions stay in the
+    compute dtype."""
     b = x.shape[0]
-    posb = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
+    at_device = isinstance(pos, torch.Tensor)
+    if at_device:
+        posb = pos.to(torch.int64).reshape(b, 1)
+    else:
+        posb = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
     q_nope, q_rope = _queries(p, x, n_heads, cfg, posb)  # (b, 1, h, *)
     c_new, kr_new = _latents(p, x, cfg, posb)
-    cache["c_kv"][:, pos : pos + 1] = c_new.to(cache["c_kv"].dtype)
-    cache["k_rope"][:, pos : pos + 1] = kr_new.to(cache["k_rope"].dtype)
+    if at_device:
+        put_rows(cache["c_kv"], c_new, posb[:, 0])
+        put_rows(cache["k_rope"], kr_new, posb[:, 0])
+    else:
+        cache["c_kv"][:, pos : pos + 1] = c_new.to(cache["c_kv"].dtype)
+        cache["k_rope"][:, pos : pos + 1] = kr_new.to(cache["k_rope"].dtype)
 
     r = cfg.kv_lora_rank
     wk_b = materialize(p["wk_b"]["kernel"]).reshape(r, n_heads, cfg.nope_head_dim)
@@ -125,7 +136,7 @@ def mla_decode(p: Params, x: torch.Tensor, cache: dict, pos: int, *, n_heads: in
                                cache["k_rope"].to(q_rope.dtype).to(f32))
     scale = 1.0 / math.sqrt(cfg.nope_head_dim + cfg.rope_head_dim)
     scores = (scores_nope + scores_rope) * scale
-    valid = torch.arange(cache["c_kv"].shape[1], device=x.device)[None, :] < pos + 1
+    valid = torch.arange(cache["c_kv"].shape[1], device=x.device)[None, :] < posb + 1
     scores = torch.where(valid[:, None, :], scores, torch.full_like(scores, NEG_INF))
     m = scores.amax(dim=-1, keepdim=True)
     e = torch.exp(scores - m)

@@ -6,15 +6,17 @@
     logits, cache = model.prefill(params, {"tokens": tokens}, cache_len)
     logits, cache = model.decode_step(params, cache, token, pos)
 
-``pos`` is a host integer on the lockstep path (the port's decode branches
-on it in Python where the reference traces ``lax.cond``), or a ``(b,)``
-tensor of per-slot positions over the continuous-batching engine's paged
-cache (``init_paged_cache``, ``prefill_bucketed``, ``prefill_chunk``).
+``pos`` is a host integer on the eager lockstep path (the port's decode
+branches on it in Python where the reference traces ``lax.cond``), or a
+``(b,)`` device tensor of per-row positions: the step a CUDA graph
+captures (``launch.serve``), over any cache, and the continuous-batching
+engine's step over its paged cache (``init_paged_cache``,
+``prefill_bucketed``, ``prefill_chunk``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -75,9 +77,14 @@ class Model:
 
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor], cache_len: int = 0):
         """Run the prompt; return (last-position logits, decode cache).  The
-        sequence-indexed cache tensors are zero-padded by ``cache_len - s``
-        (packed planes and the MLA latents included; the tail ring keeps
-        its block length)."""
+        sequence-indexed cache tensors are zero-padded to ``cache_len``
+        rows: the MLA latents and a dense cache by ``cache_len - s``, the
+        packed planes (the prompt's rows rounded up to a block) to
+        ``cache_len`` rounded up to a block.  The reference pads the planes
+        by ``cache_len - s``, which can leave up to a block more rows that
+        no step writes or reads.  So a cache's shapes follow from its batch
+        and ``cache_len``, and one captured step serves every prompt length
+        of a bucket.  The tail ring keeps its block length."""
         logits, caches = self.forward(params, batch, mode="prefill")
         s = batch["tokens"].shape[1]
         pad = cache_len - s if cache_len and cache_len > s else 0
@@ -93,7 +100,8 @@ class Model:
                             continue
                         kv = entry["kv"]
                         if is_packed_kv(kv):
-                            entry["kv"] = kv.pad_seq(pad)
+                            rows = -(-cache_len // kv.block) * kv.block
+                            entry["kv"] = kv.pad_seq(rows - kv.max_len)
                         else:
                             entry["kv"] = {
                                 n: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
@@ -101,10 +109,17 @@ class Model:
                             }
         return logits[:, -1:, :], caches
 
-    def decode_step(self, params: Params, cache: Any, token: torch.Tensor, pos):
-        """token: (b, 1) int64; pos: host int (next position, lockstep batch)
-        or a ``(b,)`` tensor of per-slot positions (the engine's slot pool:
-        per-row RoPE, append and length mask)."""
+    def decode_step(self, params: Params, cache: Any, token: torch.Tensor, pos,
+                    fill: Optional[bool] = None):
+        """token: (b, 1) int64; pos: a host int (the next position of a
+        lockstep batch, the eager step) or a ``(b,)`` device tensor of
+        per-row positions (per-row RoPE, appends and length masks, no
+        position read on the host: the step a CUDA graph captures, and the
+        engine's slot pool).  With a device ``pos`` over a packed cache,
+        ``fill`` is the host's block-fill choice: for ``PackedKV`` whether
+        this step completes a block (required), for ``PagedKV`` None (the
+        eager engine step: the host's ``write_page``), False or True (see
+        ``PagedKV.append``).  Both forms of ``pos`` give the same logits."""
         cfg = self.cfg
         if not isinstance(pos, torch.Tensor) or pos.ndim == 0:
             pos = int(pos)
@@ -112,7 +127,7 @@ class Model:
         new_cache = {}
         for i, seg in enumerate(self.plan):
             x, new_cache[f"seg{i}"] = T.decode_segment(
-                cfg, seg, params["segments"][f"seg{i}"], cache[f"seg{i}"], x, pos
+                cfg, seg, params["segments"][f"seg{i}"], cache[f"seg{i}"], x, pos, fill
             )
         x = T._norm(cfg, params["final_norm"], x)
         return self._head(params, x), new_cache

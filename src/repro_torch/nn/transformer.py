@@ -154,15 +154,17 @@ def block_forward(cfg, spec: BlockSpec, p: Params, x: torch.Tensor, *, mode: str
     return x, (cache if mode == "prefill" else None)
 
 
-def block_decode(cfg, spec: BlockSpec, p: Params, x: torch.Tensor, cache: Dict[str, Any], pos):
-    """``pos``: a host int (lockstep batch) or a ``(b,)`` tensor of per-slot
-    positions (the engine's paged cache; attention blocks only)."""
+def block_decode(cfg, spec: BlockSpec, p: Params, x: torch.Tensor, cache: Dict[str, Any], pos,
+                 fill: Optional[bool] = None):
+    """``pos``: a host int (the eager lockstep step) or a ``(b,)`` device
+    tensor of per-row positions (the captured step, the engine's slots);
+    ``fill``: the host's block-fill choice for a packed or paged cache."""
     new_cache = dict(cache)
     h = _norm(cfg, p["ln_mix"], x)
     if spec.mixer == "attn":
         y, new_cache["kv"] = attn_lib.attention_decode(
             p["mixer"], h, cache["kv"], pos, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-            head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+            head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta, fill=fill,
         )
     elif spec.mixer == "mla":
         y, new_cache["mla"] = mla_lib.mla_decode(p["mixer"], h, cache["mla"], pos,
@@ -230,14 +232,15 @@ def run_segment(cfg, seg: Segment, seg_params: Params, x: torch.Tensor, *, mode:
 
 
 def decode_segment(cfg, seg: Segment, seg_params: Params, seg_cache: List[Dict[str, Any]],
-                   x: torch.Tensor, pos):
+                   x: torch.Tensor, pos, fill: Optional[bool] = None):
     repeats, pattern = seg
     new_cache = []
     for r in range(repeats):
         p_r = layer_params(seg_params, r)
         c_r = {}
         for i, spec in enumerate(pattern):
-            x, c_r[f"b{i}"] = block_decode(cfg, spec, p_r[f"b{i}"], x, seg_cache[r][f"b{i}"], pos)
+            x, c_r[f"b{i}"] = block_decode(cfg, spec, p_r[f"b{i}"], x, seg_cache[r][f"b{i}"], pos,
+                                           fill)
         new_cache.append(c_r)
     return x, new_cache
 

@@ -8,11 +8,17 @@
     python -m repro_torch.tools.profile_decode --prompt-len 157 --steps 1
     python -m repro_torch.tools.profile_decode --engine --steps 4
     python -m repro_torch.tools.profile_decode --engine --prefill --prompt-len 256
+    python -m repro_torch.tools.profile_decode --compare --steps 4
 
 Packs the model (as ``serve --pvq``), prefills with ``--act-int8 --kv-pvq``
 in effect (an MLA model's latent cache stays dense), runs two warm-up
 decode steps, then traces ``--steps`` decode steps with ``torch.profiler``
-(CPU + CUDA activity).  With ``--prefill`` it traces one prefill of the
+(CPU + CUDA activity).  The decode steps are the captured step that
+``serve`` replays (``decode_step: "captured"``; a first pass over the same
+positions captures every graph they need, so the traced steps only
+replay), or with ``--eager`` the host-int step (``"eager"``); ``--compare``
+traces the eager steps and then the captured ones in one process and
+prints both reports.  With ``--prefill`` it traces one prefill of the
 batch instead, after a warm one.  ``--f32`` runs either as the f32 leg of
 ``serve --agreement-min`` (f32 activations and a dense cache, kernel v2 on
 the packed weights, as ``serve.teacher_forced_logits`` runs it).  Prints
@@ -22,7 +28,9 @@ the device's idle share, the launch count, kernels v3's and v2's device
 time, calls and share, each also by route (the 2-D matrices against the
 expert-batched banks, told apart by the Route tag in the kernels' names)
 and by body, kernel v4's (packed-KV attention) and the encoder's device
-time, calls and share, and the kernels with the most device time.  The
+time, calls and share, the host's launch calls a step (kernel and graph
+launches, copies and fills, from the CUDA API events), and the kernels
+with the most device time.  The
 traced steps start at position ``prompt_len + 2``: the step at a position
 p with (p + 1) % 32 == 0 completes a KV block and PVQ-encodes it, so
 ``--prompt-len 157 --steps 1`` traces that block-fill step alone and
@@ -42,15 +50,18 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import time
+from typing import Optional
 
 import torch
 
 from ..configs import get_config
 from ..core.packed import quantize_params
 from ..core.quantize import ActQuant, KVQuant, act_quant_scope, kv_quant_scope
-from ..nn.models import build_model
+from ..launch import serve
 from ..launch.serve import bucket_len, serving_policy
+from ..nn.models import build_model
 
 
 def main(argv=None) -> int:
@@ -69,7 +80,13 @@ def main(argv=None) -> int:
     ap.add_argument("--engine", action="store_true",
                     help="trace the continuous-batching engine's decode steps (or, with "
                     "--prefill, one chunk)")
+    ap.add_argument("--eager", action="store_true",
+                    help="trace the eager decode step instead of the captured one")
+    ap.add_argument("--compare", action="store_true",
+                    help="trace the eager decode steps, then the captured ones")
     args = ap.parse_args(argv)
+    if args.compare and (args.eager or args.prefill):
+        ap.error("--compare traces decode steps both ways; it takes no --eager or --prefill")
     if not torch.cuda.is_available():
         raise RuntimeError("profile_decode measures the card: no CUDA device")
     if args.engine and args.f32:
@@ -85,14 +102,16 @@ def main(argv=None) -> int:
     tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len), generator=gen).cuda()
     kv_block = 32
     kvq = None if args.f32 else KVQuant(block=kv_block, group=32)
-    warm = 2
+    kinds = ("eager", "captured") if args.compare else ("eager" if args.eager else "captured",)
     if args.engine:
         with act_quant_scope(ActQuant()), kv_quant_scope(kvq):
-            return _profile_engine(args, cfg, model, params, tokens, profile, ProfilerActivity)
+            for kind in kinds:
+                _profile_engine(args, cfg, model, params, tokens, profile, ProfilerActivity, kind)
+        return 0
     with act_quant_scope(None if args.f32 else ActQuant()), kv_quant_scope(kvq):
-        cache_len = bucket_len(args.prompt_len + warm + args.steps, kv_block)
-        logits, cache = model.prefill(params, {"tokens": tokens}, cache_len=cache_len)
+        cache_len = bucket_len(args.prompt_len + WARM + args.steps, kv_block)
         if args.prefill:
+            logits, cache = model.prefill(params, {"tokens": tokens}, cache_len=cache_len)
             del logits, cache
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -102,34 +121,56 @@ def main(argv=None) -> int:
                 wall = time.perf_counter() - t0
             print(json.dumps(_report(prof, wall, 1, args, cfg, "prefill")))
             return 0
-        tok = torch.argmax(logits[:, -1], -1)[:, None]
-        pos = args.prompt_len
-        for _ in range(warm):
-            logits, cache = model.decode_step(params, cache, tok, pos)
-            tok = torch.argmax(logits[:, -1], -1)[:, None]
-            pos += 1
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(args.steps):
-                logits, cache = model.decode_step(params, cache, tok, pos)
-                tok = torch.argmax(logits[:, -1], -1)[:, None]
-                pos += 1
+        for kind in kinds:
+            eager = kind == "eager"
+            if not eager:  # capture every graph the traced positions need
+                _decode_pass(model, params, tokens, cache_len, WARM + args.steps, eager)
+            step = _decode_pass(model, params, tokens, cache_len, WARM, eager)
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-    print(json.dumps(_report(prof, wall, args.steps, args, cfg, "step")))
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(args.steps):
+                    step()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            print(json.dumps(_report(prof, wall, args.steps, args, cfg, "step", kind)))
     return 0
 
 
-def _profile_engine(args, cfg, model, params, tokens, profile, activity) -> int:
-    """``--engine``: trace engine decode steps, or one chunk (``--prefill``)."""
+#: decode steps run before the traced ones
+WARM = 2
+
+
+def _decode_pass(model, params, tokens, cache_len: int, steps: int, eager: bool):
+    """Prefill, then ``steps`` decode steps from ``serve``'s lockstep step
+    (captured, or the host-int step with ``eager``); returns a function that
+    runs the next step each call."""
+    logits, cache = model.prefill(params, {"tokens": tokens}, cache_len=cache_len)
+    step = serve._lockstep(model, params, cache, tokens, eager=eager)
+    state = {"tok": torch.argmax(logits[:, -1], -1)[:, None], "pos": tokens.shape[1]}
+    del logits, cache
+
+    def one():
+        _, tok = step(state["tok"], state["pos"])
+        state["tok"], state["pos"] = tok.clone(), state["pos"] + 1
+
+    for _ in range(steps):
+        one()
+    return one
+
+
+def _profile_engine(args, cfg, model, params, tokens, profile, activity, kind: str) -> None:
+    """``--engine``: trace engine decode steps (``kind``: the captured or the
+    eager step; the engine's warm-up captures both graphs), or one chunk
+    (``--prefill``)."""
     from ..launch.engine import PVQEngine, Request
 
     chunk = 4  # pages a chunk: 128 tokens at KV block 32
     prompts = [[int(t) for t in row] for row in tokens.cpu()]
+    eager = kind == "eager"
     if args.prefill:
         eng = PVQEngine(model, params, n_slots=args.batch, max_len=args.prompt_len + 32,
-                        prefill_chunk=chunk)
+                        prefill_chunk=chunk, eager=eager)
         eng.pending.append(Request(rid=0, prompt=prompts[0], max_new_tokens=1))
         eng.admit_pending()
         n_chunks = -(-args.prompt_len // eng.chunk_tokens)
@@ -138,7 +179,9 @@ def _profile_engine(args, cfg, model, params, tokens, profile, activity) -> int:
         traced, unit = eng._prefill_step, "chunk"
     else:
         eng = PVQEngine(model, params, n_slots=args.batch,
-                        max_len=args.prompt_len + 2 + args.steps + 1, prefill_batch=args.batch)
+                        max_len=args.prompt_len + 2 + args.steps + 1, prefill_batch=args.batch,
+                        eager=eager)
+        eng.warmup([args.prompt_len])
         for i, prompt in enumerate(prompts):
             eng.pending.append(Request(rid=i, prompt=prompt, max_new_tokens=4 + args.steps))
         eng.admit_pending()
@@ -153,20 +196,29 @@ def _profile_engine(args, cfg, model, params, tokens, profile, activity) -> int:
             traced()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    print(json.dumps(_report(prof, wall, units, args, cfg, unit)))
-    return 0
+    print(json.dumps(_report(prof, wall, units, args, cfg, unit, kind)))
 
 
-def _report(prof, wall: float, units: int, args, cfg, unit: str) -> dict:
+#: the CUDA API calls (``cuda*`` and ``cu*``) that put work on the
+#: device: the host's launches
+HOST_LAUNCH = re.compile(r"^cu(da)?(LaunchKernel|GraphLaunch|Memcpy|Memset)")
+
+
+def _report(prof, wall: float, units: int, args, cfg, unit: str,
+            kind: Optional[str] = None) -> dict:
     """Device time by kernel name, launches and idle share over ``units``
-    traced steps (or one prefill), per ``unit``."""
+    traced steps (or one prefill), per ``unit``; ``kind`` names the decode
+    step (captured or eager)."""
     kernels = {}
+    host_launches = 0
     for evt in prof.events():
         if getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA:
             us = float(evt.device_time_total)
             entry = kernels.setdefault(evt.name, [0.0, 0])
             entry[0] += us
             entry[1] += 1
+        elif HOST_LAUNCH.match(evt.name):
+            host_launches += 1
     device_us = sum(v[0] for v in kernels.values())
     # kernels v3 and v2 (2-D and batched, every body), and their tensor-core
     # bodies alone
@@ -201,10 +253,12 @@ def _report(prof, wall: float, units: int, args, cfg, unit: str) -> dict:
     return {
         "arch": cfg.name, "device": torch.cuda.get_device_name(0), "batch": args.batch,
         "prompt_len": args.prompt_len, "traced": unit, f"{unit}s": units,
+        "decode_step": kind,
         f"wall_ms_per_{unit}": unit_ms,
         f"device_ms_per_{unit}": device_ms,
         "device_idle_share": max(1.0 - device_ms / unit_ms, 0.0) if device_us else None,
         f"kernel_launches_per_{unit}": sum(v[1] for v in kernels.values()) / units,
+        f"host_launch_calls_per_{unit}": host_launches / units,
         f"v3_ms_per_{unit}": v3_us / 1e3 / units,
         f"v3_calls_per_{unit}": v3_calls / units,
         "v3_by_route": v3_by_route,

@@ -266,8 +266,10 @@ def _plain_versions():
 def test_cuda_engine_tokens_match_plain_versions():
     """CI's chunked-prefill engine configuration on the reduced model on the
     card (chunks, prefix hits, batched admission, block-fill appends): the
-    tokens through the kernels equal those through their plain versions,
-    and kernel v4 ran from the chunk caller as well as from decode."""
+    tokens through the kernels (the decode step captured) equal those
+    through their plain versions (the eager engine: a graph would replay
+    the kernels it captured), and kernel v4 ran from the chunk caller as
+    well as from decode."""
     from repro_torch.configs import get_config
     from repro_torch.core.packed import quantize_params
     from repro_torch.launch.engine import PVQEngine, poisson_trace
@@ -287,10 +289,11 @@ def test_cuda_engine_tokens_match_plain_versions():
         chunk_v4.append(LAUNCHES["pvq_attn_q"] - before)
         return out
 
-    def run():
+    def run(eager=False):
         trace = poisson_trace(6, rate=0.0, vocab=cfg.vocab_size, prompt_lens=(12, 24),
                               max_new=8, seed=2, shared_prefix=64)
-        eng = PVQEngine(model, params, n_slots=2, max_len=96, prefill_chunk=2, prefill_batch=2)
+        eng = PVQEngine(model, params, n_slots=2, max_len=96, prefill_chunk=2, prefill_batch=2,
+                        eager=eager)
         return eng.run(trace)
 
     with port_q.act_quant_scope(port_q.ActQuant()), port_q.kv_quant_scope(port_q.KVQuant(8, 16)):
@@ -303,7 +306,7 @@ def test_cuda_engine_tokens_match_plain_versions():
         launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
         with _plain_versions():
             before = dict(LAUNCHES)
-            plain = run()
+            plain = run(eager=True)
             assert LAUNCHES == before
     assert kernels["chunks"] > 0 and kernels["prefix_hits"] > 0
     assert kernels["outputs"] == plain["outputs"]
@@ -873,3 +876,128 @@ def test_cuda_v2_splitk_body_replays_from_a_cuda_graph(batched):
         torch.cuda.synchronize()
         assert torch.equal(out, eager), replay
     assert _splitk_counters_are_zero()
+
+
+# ---------------------------------------------------------------------------
+# the captured decode step (launch.capture, serve._lockstep, the engine)
+# ---------------------------------------------------------------------------
+
+
+def _reduced_packed(arch):
+    from repro_torch.configs import get_config
+    from repro_torch.core.packed import quantize_params
+    from repro_torch.launch.serve import serving_policy
+    from repro_torch.nn.models import Model
+
+    cfg = get_config(arch).reduced()
+    model = Model(cfg)
+    return model, quantize_params(model.init(0, device="cuda"), serving_policy(cfg))
+
+
+def _packed_kv_leaves(cache):
+    from repro_torch.core.packed import is_packed_kv
+
+    return [e["kv"] for seg in cache.values() for layer in seg for e in layer.values()
+            if "kv" in e and is_packed_kv(e["kv"])]
+
+
+@needs_cuda
+def test_cuda_captured_decode_matches_eager_across_block_fills():
+    """Reduced smollm (``--pvq --act-int8 --kv-pvq``, KV block 8), prompt 13
+    and 13 steps: the captured step (its no-fill graph, then the fill graph
+    at positions 15 and 23, replayed) against the host-int eager step on the
+    same prefill: identical logits and tokens every step, and identical
+    ``PackedKV`` planes and rings at the end; two captures."""
+    from repro_torch.launch import serve
+
+    model, params = _reduced_packed("smollm-360m")
+    gen = torch.Generator().manual_seed(21)
+    prompt = torch.randint(0, model.cfg.vocab_size, (2, 13), generator=gen).cuda()
+    feed = torch.randint(0, model.cfg.vocab_size, (2, 13), generator=gen).cuda()
+    with port_q.act_quant_scope(port_q.ActQuant()), port_q.kv_quant_scope(port_q.KVQuant(8, 16)):
+        _, eager_cache = model.prefill(params, {"tokens": prompt}, cache_len=32)
+        _, cache = model.prefill(params, {"tokens": prompt}, cache_len=32)
+        key = serve._step_key(params, cache)
+        captures = serve.TRACE_COUNTS["decode_step"]
+        eager = serve._lockstep(model, params, eager_cache, prompt, eager=True)
+        captured = serve._lockstep(model, params, cache, prompt, eager=False)
+        for i in range(13):
+            want_logits, want_tok = eager(feed[:, i : i + 1], 13 + i)
+            got_logits, got_tok = captured(feed[:, i : i + 1], 13 + i)
+            assert torch.equal(got_logits, want_logits), i
+            assert torch.equal(got_tok, want_tok), i
+    static = serve._captured_step(model)[key]
+    assert sorted(static.graphs) == [False, True]
+    assert serve.TRACE_COUNTS["decode_step"] == captures + 2
+    for a, b in zip(_packed_kv_leaves(eager_cache), _packed_kv_leaves(static.cache)):
+        for name in ("k_pulses", "k_scales", "v_pulses", "v_scales", "tail_k", "tail_v"):
+            assert torch.equal(getattr(a, name), getattr(b, name)), name
+
+
+@needs_cuda
+@pytest.mark.parametrize("arch,kv", [("smollm-360m", True), ("deepseek-v2-lite-16b", False)])
+def test_cuda_captured_serve_legs_match_eager_and_a_second_generate_captures_nothing(arch, kv):
+    """``generate`` and both legs' ``teacher_forced_logits`` captured against
+    eager on the same parameters and prompts: identical tokens and logits;
+    a second ``generate`` of the same shape (another prompt, another prompt
+    length in the bucket) adds no capture; the kernel launch counts of the
+    captured calls (replays accounted) equal the eager calls'."""
+    from repro_torch import kernels
+    from repro_torch.launch import serve
+
+    model, params = _reduced_packed(arch)
+    gen = torch.Generator().manual_seed(22)
+    seq = torch.randint(0, model.cfg.vocab_size, (2, 30), generator=gen).cuda()
+    kvq = port_q.KVQuant(8, 16) if kv else None
+    counts = {}
+    for eager in (True, False):
+        kernels.reset_launches()
+        with port_q.act_quant_scope(port_q.ActQuant()), port_q.kv_quant_scope(kvq):
+            tokens = serve.generate(model, params, seq[:, :20], gen=10, cache_len=30, eager=eager)
+            legs = [serve.teacher_forced_logits(model, params, tokens, prompt_len=20, eager=eager)]
+        legs.append(serve.teacher_forced_logits(model, params, tokens, prompt_len=20, eager=eager))
+        torch.cuda.synchronize()
+        counts[eager] = (kernels.launches(), kernels.v3_body_launches(),
+                         kernels.v2_body_launches())
+        if eager:
+            want_tokens, want_legs = tokens, legs
+    assert torch.equal(tokens, want_tokens)
+    for got, want in zip(legs, want_legs):
+        assert torch.equal(got, want)
+    assert counts[False] == counts[True]
+    captures = serve.TRACE_COUNTS["decode_step"]
+    with port_q.act_quant_scope(port_q.ActQuant()), port_q.kv_quant_scope(kvq):
+        again = serve.generate(model, params, seq[:, 3:21], gen=10, cache_len=28)
+        want = serve.generate(model, params, seq[:, 3:21], gen=10, cache_len=28, eager=True)
+    assert serve.TRACE_COUNTS["decode_step"] == captures
+    assert torch.equal(again, want)
+
+
+@needs_cuda
+def test_cuda_captured_engine_matches_eager_engine():
+    """CI's chunked engine configuration on reduced smollm: the captured
+    engine (both graphs captured by ``warmup``, none in the run) against the
+    eager engine on the same trace: identical tokens and identical bytes in
+    every real page and tail ring of every layer."""
+    from repro_torch.launch.engine import PVQEngine, _paged_leaves, poisson_trace
+
+    model, params = _reduced_packed("smollm-360m")
+    runs = {}
+    with port_q.act_quant_scope(port_q.ActQuant()), port_q.kv_quant_scope(port_q.KVQuant(8, 16)):
+        for eager in (True, False):
+            trace = poisson_trace(6, rate=0.0, vocab=model.cfg.vocab_size, prompt_lens=(12, 24),
+                                  max_new=8, seed=2, shared_prefix=64)
+            eng = PVQEngine(model, params, n_slots=2, max_len=96, prefill_chunk=2,
+                            prefill_batch=2, eager=eager)
+            eng.warmup([len(r.prompt) for r in trace])
+            warm = dict(eng.trace_counts)
+            runs[eager] = (eng.run(trace), eng, warm)
+    (want, eager_eng, _), (got, eng, warm) = runs[True], runs[False]
+    assert warm == {"decode": 2, "prefill": 0, "graft": 0, "chunk": 0}
+    assert got["trace_counts"] == warm and want["trace_counts"]["decode"] == 0
+    assert got["outputs"] == want["outputs"]
+    for a, b in zip(_paged_leaves(eager_eng.cache), _paged_leaves(eng.cache)):
+        real = slice(0, a.trash_page)
+        for name in ("k_pages", "k_page_scales", "v_pages", "v_page_scales"):
+            assert torch.equal(getattr(a, name)[real], getattr(b, name)[real]), name
+        assert torch.equal(a.tail_k, b.tail_k) and torch.equal(a.tail_v, b.tail_v)

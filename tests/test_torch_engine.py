@@ -27,6 +27,9 @@
   through the port; ``serve --engine`` with CI's flags on the CPU (no
   ``--min-speedup``: a loaded CPU worker's clock is no test), its
   telemetry, and its refusal to run without a card.
+* The engine's captured step body (device tables, the trash-scatter fill)
+  against its host-table step: identical tokens and real pages.  Both
+  reports hold the reference's ``trace_counts`` keys (all 0 on the CPU).
 """
 
 import jax
@@ -383,8 +386,10 @@ def _run_both(reduced, name, act_int8):
         eng.warmup([len(r.prompt) for r in port_trace])
         port_res = eng.run(port_trace)
         assert eng.alloc.used == 0
-    assert "trace_counts" not in port_res
-    assert set(port_res) == set(ref_res) - {"trace_counts"}
+    # the reference's keys, key for key: on the CPU nothing is captured
+    assert set(port_res["trace_counts"]) == set(ref_res["trace_counts"])
+    assert set(port_res["trace_counts"].values()) == {0}
+    assert set(port_res) == set(ref_res)
     return trace, ref_res, port_res
 
 
@@ -486,16 +491,55 @@ def test_engine_requires_kv_quant_and_capacity(port_model):
 
 
 def test_per_slot_positions_need_the_paged_cache(port_model):
-    """``decode_step`` with a ``(b,)`` position tensor runs over the paged
-    pool only; the lockstep caches refuse it."""
+    """``decode_step`` with a ``(b,)`` position tensor, once the paged
+    pool's alone, now runs over every cache (the step a CUDA graph
+    captures): over the dense and the ``PackedKV`` cache it gives the
+    host-int step's logits, and a ``PackedKV`` append at device positions
+    needs the host's block-fill choice."""
     model, params = port_model
     tok = torch.zeros((2, 1), dtype=torch.int64)
-    pos = torch.tensor([3, 5])
     for kvq in (None, port_q.KVQuant(KVQ_BLOCK, KVQ_GROUP)):
         with port_q.kv_quant_scope(kvq):
-            cache = model.init_cache(2, 16, device="cpu")
-            with pytest.raises(NotImplementedError, match="PagedKV"):
-                model.decode_step(params, cache, tok, pos)
+            host = model.init_cache(2, 16, device="cpu")
+            dev = model.init_cache(2, 16, device="cpu")
+            for pos in range(6, 9):  # position 7 completes block 0
+                want, host = model.decode_step(params, host, tok, pos)
+                got, dev = model.decode_step(params, dev, tok, torch.full((2,), pos),
+                                             fill=(pos + 1) % KVQ_BLOCK == 0)
+                assert torch.equal(got, want)
+            if kvq is not None:
+                with pytest.raises(ValueError, match="fill flag"):
+                    model.decode_step(params, dev, tok, torch.full((2,), 9))
+
+
+def test_engine_trash_scatter_fill_matches_the_host_table_step(reduced):
+    """CI's chunked configuration through the engine's captured step body
+    (run eagerly here: device tables, every ring encoded on a fill step and
+    the rest scattered to the trash page) and through the host-table step
+    (``eager=True``: the completing rings alone): identical tokens, and
+    identical bytes in every real page and tail ring of every layer."""
+    _, _, _, port_model, port_params = reduced
+    eng_kw, flags = CONFIGS["ci_chunked"]
+    max_len = port_engine.bucket_len(flags["shared"] + flags["prompt"] + flags["gen"], KVQ_BLOCK)
+    args = (port_model.cfg.vocab_size, flags["prompt"], flags["gen"], flags["shared"])
+    runs = {}
+    with port_q.act_quant_scope(port_q.ActQuant()), \
+            port_q.kv_quant_scope(port_q.KVQuant(KVQ_BLOCK, KVQ_GROUP)):
+        for eager in (True, False):
+            eng = port_engine.PVQEngine(port_model, port_params, max_len=max_len, eager=eager,
+                                        **eng_kw)
+            trace = _serve_trace(port_engine, *args)
+            eng.warmup([len(r.prompt) for r in trace])
+            runs[eager] = (eng.run(trace), eng)
+    (host_res, host_eng), (dev_res, dev_eng) = runs[True], runs[False]
+    assert dev_res["outputs"] == host_res["outputs"]
+    assert dev_res["decode_steps"] == host_res["decode_steps"] > 0
+    for a, b in zip(port_engine._paged_leaves(host_eng.cache),
+                    port_engine._paged_leaves(dev_eng.cache)):
+        real = slice(0, a.trash_page)
+        for name in ("k_pages", "k_page_scales", "v_pages", "v_page_scales"):
+            assert torch.equal(getattr(a, name)[real], getattr(b, name)[real]), name
+        assert torch.equal(a.tail_k, b.tail_k) and torch.equal(a.tail_v, b.tail_v)
 
 
 def test_paged_cache_rejects_mla():
@@ -546,7 +590,8 @@ def test_serve_engine_cli_with_cis_flags_on_cpu(name, tmp_path):
     assert report["engine_tokens_compared"] == 48
     assert report["engine_speedup_vs_fixed_batch"] > 0 and report["baseline_tokens_per_s"] > 0
     assert set(report["kernel_launches"].values()) == {0}
-    assert "engine_trace_counts" not in report
+    assert report["engine_trace_counts"] == {"decode": 0, "prefill": 0, "graft": 0, "chunk": 0}
+    assert report["decode_step_captures"] == 0
     if name == "ci_chunked":
         assert report["engine_prefix_hits"] >= 1 and report["engine_chunks"] > 0
     else:
@@ -559,7 +604,7 @@ def test_serve_engine_cli_with_cis_flags_on_cpu(name, tmp_path):
                 "engine.admissions", "engine.request_latency_s", "quant.kv_snr_db",
                 "quant.weight_snr_db"} <= names
         assert {"engine/prefill", "engine/graft", "engine/decode_step"} <= spans
-        assert "engine.trace_count" not in names
+        assert "engine.trace_count" in names
         # the port has no autotuner yet: the one name --require-engine misses
         with pytest.raises(ValueError, match=r"missing \['autotune.lookups'\]"):
             telemetry.validate_dir(out, require_engine=True)

@@ -14,7 +14,8 @@ holds such ties) by at most 1.07e-2 = 2.1% of max|logit|.  Where the
 argmax tokens differ, the reference's own margin between the two tokens
 must be below the measured perturbation at that position (a near-tie).  Decode crosses a KV block
 boundary (block 8, positions 12..16), so the packed leg encodes a block
-during decode.
+during decode.  The decode step at device positions (what a CUDA graph
+captures) gives the host-int step's logits bit for bit.
 """
 
 import jax
@@ -119,6 +120,48 @@ def test_prefill_and_decode_logits_match_reference(models, leg):
     with port_q.act_quant_scope(port_aq), port_q.kv_quant_scope(port_kvq):
         got = _run_port(models["port_model"], port_params, tokens.astype(np.int64), feed.astype(np.int64))
     assert got.shape == want.shape == (2, STEPS + 1, 128)
+    atol = 3e-2 * float(np.abs(want).max()) if act else 1e-4
+    np.testing.assert_allclose(got, want, rtol=0, atol=atol)
+    pa, pb = want.argmax(-1), got.argmax(-1)
+    margin = np.take_along_axis(want, pa[..., None], -1) - np.take_along_axis(want, pb[..., None], -1)
+    noise = np.abs(got - want).max(-1, keepdims=True)
+    assert ((pa == pb)[..., None] | (margin <= noise)).all()
+
+
+def _run_port_at_device_positions(model, params, tokens, feed):
+    """``_run_port`` through the step a CUDA graph captures: ``(b,)``
+    position tensors, the KV block fill chosen on the host (position 15)."""
+    cache_len = PROMPT + STEPS
+    logits, cache = model.prefill(params, {"tokens": torch.from_numpy(tokens)}, cache_len=cache_len)
+    out = [logits[:, -1].numpy()]
+    for i in range(STEPS):
+        pos = PROMPT + i
+        logits, cache = model.decode_step(params, cache, torch.from_numpy(feed[:, i : i + 1]),
+                                          torch.full((tokens.shape[0],), pos),
+                                          fill=(pos + 1) % BLOCK == 0)
+        out.append(logits[:, -1].numpy())
+    return np.stack(out, 1)
+
+
+@pytest.mark.parametrize("leg", list(LEGS))
+def test_device_position_decode_matches_host_int_step_and_reference(models, leg):
+    """The device-position step (no fill, then the fill at position 15,
+    then no fill) gives the host-int step's logits bit for bit, and so
+    meets the reference's tolerances above."""
+    which, act, kv = LEGS[leg]
+    ref_params, port_params = models[which]
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(0, 128, size=(2, PROMPT)).astype(np.int64)
+    feed = rng.integers(0, 128, size=(2, STEPS)).astype(np.int64)
+    with ref_q.act_quant_scope(ref_q.ActQuant() if act else None), \
+            ref_q.kv_quant_scope(ref_q.KVQuant(block=BLOCK, group=16) if kv else None):
+        want = _run_ref(models["ref_model"], ref_params, tokens.astype(np.int32),
+                        feed.astype(np.int32))
+    with port_q.act_quant_scope(port_q.ActQuant() if act else None), \
+            port_q.kv_quant_scope(port_q.KVQuant(block=BLOCK, group=16) if kv else None):
+        host = _run_port(models["port_model"], port_params, tokens, feed)
+        got = _run_port_at_device_positions(models["port_model"], port_params, tokens, feed)
+    np.testing.assert_array_equal(got, host)
     atol = 3e-2 * float(np.abs(want).max()) if act else 1e-4
     np.testing.assert_allclose(got, want, rtol=0, atol=atol)
     pa, pb = want.argmax(-1), got.argmax(-1)

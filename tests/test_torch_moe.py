@@ -477,7 +477,10 @@ def test_consume_replaces_dense_leaves_in_place():
 PROMPT, STEPS = 36, 4  # batch 2 x 36 = 72 prompt tokens > group 64: padded routing
 
 
-def _run(model, params, tokens, feed, ref: bool):
+def _run(model, params, tokens, feed, ref: bool, device_pos: bool = False):
+    """Prefill and ``STEPS`` decode steps; the port's at host-int positions
+    or, with ``device_pos``, at ``(b,)`` position tensors (the step a CUDA
+    graph captures)."""
     cache_len = PROMPT + STEPS
     if ref:
         logits, cache = model.prefill(params, {"tokens": jnp.asarray(tokens)}, cache_len=cache_len)
@@ -490,8 +493,8 @@ def _run(model, params, tokens, feed, ref: bool):
     logits, cache = model.prefill(params, {"tokens": torch.from_numpy(tokens)}, cache_len=cache_len)
     out = [logits[:, -1].numpy()]
     for i in range(STEPS):
-        logits, cache = model.decode_step(params, cache, torch.from_numpy(feed[:, i : i + 1]),
-                                          PROMPT + i)
+        pos = torch.full((tokens.shape[0],), PROMPT + i) if device_pos else PROMPT + i
+        logits, cache = model.decode_step(params, cache, torch.from_numpy(feed[:, i : i + 1]), pos)
         out.append(logits[:, -1].numpy())
     return np.stack(out, 1)
 
@@ -556,6 +559,35 @@ def test_reduced_model_logits_match_reference(models, leg, monkeypatch):
     assert got.shape == want.shape == (2, STEPS + 1, 128)
     assert len(router["ref"]) == len(router["port"]) == 1 + STEPS
     excused = _near_tie_rows(router["ref"], router["port"], 2, batch=2, seq_len=PROMPT) if act else set()
+    keep = [r for r in range(2) if r not in excused]
+    assert keep, "every batch row excused: the comparison lost its teeth"
+    atol = 3e-2 * float(np.abs(want).max()) if act else 1e-4
+    np.testing.assert_allclose(got[keep], want[keep], rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("leg", ["float", "packed_f32", "packed_int8"])
+def test_reduced_model_device_position_decode_matches_host_int_step(models, leg, monkeypatch):
+    """The decode step at device positions (the MLA latent writes by
+    ``index_copy_``, per-row masks) gives the host-int step's logits bit for
+    bit, and the reference's within the tolerances of
+    ``test_reduced_model_logits_match_reference`` (its near-tie excuse for
+    the int8 leg)."""
+    which = "float" if leg == "float" else "packed"
+    act = leg == "packed_int8"
+    ref_params, port_params = models[which]
+    rng = np.random.default_rng(93)
+    tokens = rng.integers(0, 128, size=(2, PROMPT)).astype(np.int64)
+    feed = rng.integers(0, 128, size=(2, STEPS)).astype(np.int64)
+    router = _record_router_logits(monkeypatch)
+    with ref_q.act_quant_scope(ref_q.ActQuant() if act else None):
+        want = _run(models["ref_model"], ref_params, tokens.astype(np.int32),
+                    feed.astype(np.int32), ref=True)
+    with port_q.act_quant_scope(port_q.ActQuant() if act else None):
+        got = _run(models["port_model"], port_params, tokens, feed, ref=False, device_pos=True)
+        excused = (_near_tie_rows(router["ref"], router["port"], 2, batch=2, seq_len=PROMPT)
+                   if act else set())
+        host = _run(models["port_model"], port_params, tokens, feed, ref=False)
+    np.testing.assert_array_equal(got, host)
     keep = [r for r in range(2) if r not in excused]
     assert keep, "every batch row excused: the comparison lost its teeth"
     atol = 3e-2 * float(np.abs(want).max()) if act else 1e-4
