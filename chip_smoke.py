@@ -73,12 +73,17 @@ order, it:
    (reduced smollm, batch 1, prompt 512, 8 new tokens) under the same
    gate, with kernel v4 launched and ``kv_bytes_ratio_vs_f32 <= 0.35``,
    and CI's prompt-8 ``--pvq --act-int8`` smoke (batch 2, 8 new tokens);
-7. runs the continuous-batching engine (``serve --engine``, its decode
-   step captured: the warm-up's two graphs and no capture in the run),
+7. runs the continuous-batching engine (``serve --engine``, its decode,
+   prefill, graft and chunk steps captured as CUDA graphs by the warm-up,
+   whose ``trace_counts`` must be the reference engine's for the same flags
+   with the port's two decode graphs, and no capture in the timed run),
    each run with the launch counts set to 0 just before it and read just
    after, each rerun on the same trace through the eager engine, where its
    tokens and every real page must be identical, and through the plain
-   versions on the card, where its tokens must be identical: CI's two
+   versions on the card, where its tokens must be identical; each prints
+   the host wall of a batched prefill with its graft and of a chunk,
+   captured against eager, beside TTFT and the ITL of decode steps that
+   share an iteration with prefill work: CI's two
    engine smokes at reduced size
    with CI's flags; the first must pass its agreement and speedup gates, the
    chunked one its prefix-hit gate, and prints its agreement (the JAX
@@ -117,6 +122,7 @@ import statistics
 import subprocess
 import sys
 import time
+import weakref
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -183,6 +189,13 @@ ENGINE_RUNS = [("ci engine saturate", CI_ENGINE_SATURATE, ("agreement", "speedup
                ("smollm-360m engine (a)", FULL_ENGINE_A, ()),
                ("smollm-360m engine (b)", FULL_ENGINE_B, ("prefix_cache",))]
 REFERENCE_CI_CHUNKED_AGREEMENT = 0.9792
+# the JAX reference engine's trace_counts (its jitted decode, prefill,
+# graft and chunk steps) for CI's two engine smokes, run with CI's flags on
+# the CPU; tests/test_torch_engine.py runs the reference and holds it to them
+REFERENCE_TRACE_COUNTS = {
+    "ci engine saturate": {"decode": 1, "prefill": 2, "graft": 2, "chunk": 0},
+    "ci engine chunked": {"decode": 1, "prefill": 0, "graft": 0, "chunk": 1},
+}
 MOE_ARCH = "deepseek-v2-lite-16b"
 MOE_FULL_SERVE = [
     "--arch", MOE_ARCH, "--batch", str(BATCH), "--prompt-len", str(PROMPT), "--gen", str(GEN),
@@ -1212,43 +1225,73 @@ def serve_reduced(serve, argv, kernels_mod, expect=(), what="reduced"):
 
 
 @contextlib.contextmanager
-def launches_by_caller(kernels_mod, attention, paged_cls, model_cls):
+def launches_by_caller(torch, kernels_mod, attention, paged_cls, model_cls, step_cls, engine_cls):
     """Counts kernel v4's launches from ``attention_prefill_chunk``, the
     encoder's from ``PagedKV.graft_chunk`` (graft and chunk grafts) and
-    ``PagedKV.append``, and the calls of ``Model.prefill_chunk`` (engine
-    chunks, warm-up ones included) while active (harness-only wrappers of
-    those attributes, which their callers look up at each call)."""
-    counts = {"v4_from_chunk": 0, "encoder_from_graft": 0, "encoder_from_append": 0,
-              "chunks_run": 0}
-    chunk = model_cls.prefill_chunk
+    ``PagedKV.append``, and the chunk steps run (calls of
+    ``Model.prefill_chunk``) while active, by harness-only wrappers of those
+    attributes, which their callers look up at each call.  They count as
+    the global launch counts do: what a wrapper counts while a
+    ``CapturedStep`` captures (which launches nothing) is taken back and
+    added on every replay of that graph.  Yields ``(counts, warm)``:
+    ``warm`` holds ``counts`` as ``PVQEngine.warmup`` left them."""
+    keys = ("v4_from_chunk", "encoder_from_graft", "encoder_from_append", "chunks_run")
+    counts = dict.fromkeys(keys, 0)
+    warm = {}
+    captured = []  # the counts of the capture under way
+    by_graph = weakref.WeakKeyDictionary()  # CapturedStep -> its capture's counts
 
-    def counted_chunk(*a, **kw):
-        counts["chunks_run"] += 1
-        return chunk(*a, **kw)
-
-    saved = [(attention, "attention_prefill_chunk", "pvq_attn_q", "v4_from_chunk"),
-             (paged_cls, "graft_chunk", "pvq_encode_batch", "encoder_from_graft"),
-             (paged_cls, "append", "pvq_encode_batch", "encoder_from_append")]
-    inner = [getattr(owner, name) for owner, name, _, _ in saved]
+    def count(key, n):
+        if torch.cuda.is_current_stream_capturing():
+            captured[-1][key] += n
+        else:
+            counts[key] += n
 
     def wrap(fn, kernel, key):
         def counted(*a, **kw):
-            before = kernels_mod.LAUNCHES[kernel]
+            before = kernels_mod.LAUNCHES[kernel] if kernel else 0
             try:
                 return fn(*a, **kw)
             finally:
-                counts[key] += kernels_mod.LAUNCHES[kernel] - before
+                count(key, kernels_mod.LAUNCHES[kernel] - before if kernel else 1)
         return counted
 
+    def init(self, *a, **kw):
+        captured.append(dict.fromkeys(keys, 0))
+        try:
+            saved_init(self, *a, **kw)
+        finally:
+            by_graph[self] = captured.pop()
+
+    def replay(self):
+        out = saved_replay(self)
+        for key, n in by_graph.get(self, {}).items():
+            counts[key] += n
+        return out
+
+    def warmup(self, *a, **kw):
+        try:
+            return saved_warmup(self, *a, **kw)
+        finally:
+            warm.update(counts)
+
+    wrapped = [(attention, "attention_prefill_chunk", "pvq_attn_q", "v4_from_chunk"),
+               (paged_cls, "graft_chunk", "pvq_encode_batch", "encoder_from_graft"),
+               (paged_cls, "append", "pvq_encode_batch", "encoder_from_append"),
+               (model_cls, "prefill_chunk", None, "chunks_run")]
+    inner = [getattr(owner, name) for owner, name, _, _ in wrapped]
+    saved_init, saved_replay = step_cls.__init__, step_cls.replay
+    saved_warmup = engine_cls.warmup
     try:
-        for (owner, name, kernel, key), fn in zip(saved, inner):
+        for (owner, name, kernel, key), fn in zip(wrapped, inner):
             setattr(owner, name, wrap(fn, kernel, key))
-        model_cls.prefill_chunk = counted_chunk
-        yield counts
+        step_cls.__init__, step_cls.replay, engine_cls.warmup = init, replay, warmup
+        yield counts, warm
     finally:
-        for (owner, name, _, _), fn in zip(saved, inner):
+        for (owner, name, _, _), fn in zip(wrapped, inner):
             setattr(owner, name, fn)
-        model_cls.prefill_chunk = chunk
+        step_cls.__init__, step_cls.replay = saved_init, saved_replay
+        engine_cls.warmup = saved_warmup
 
 
 def same_pages(torch, engine_a, engine_b, paged_leaves) -> bool:
@@ -1265,18 +1308,68 @@ def same_pages(torch, engine_a, engine_b, paged_leaves) -> bool:
     return True
 
 
+def reference_trace_counts(prompt_lens, page: int, chunk_tokens: int) -> dict:
+    """The reference engine's trace_counts for a run without evictions, by
+    its rule: its warm-up traces the prefill and the graft once for every
+    prompt bucket (page multiples; with chunking only the buckets within
+    one chunk, as longer prompts stream in chunks) and the chunk step once
+    when it chunks; such a run traces nothing more.  CI's two smokes give
+    ``REFERENCE_TRACE_COUNTS``, as the test holds the reference to."""
+    buckets = {max(page, -(-int(n) // page) * page) for n in prompt_lens}
+    if chunk_tokens:
+        buckets = {lb for lb in buckets if lb <= chunk_tokens}
+    return {"decode": 1, "prefill": len(buckets), "graft": len(buckets),
+            "chunk": int(bool(chunk_tokens))}
+
+
+@contextlib.contextmanager
+def step_walls(engine_cls):
+    """Host wall of each batched admission (prefill and graft, which end
+    in a sync) and of each chunk (its tokens come back to the host) while
+    active (harness-only wrappers of ``PVQEngine`` methods)."""
+    walls = {"prefill_graft": [], "chunk": []}
+    saved = {name: getattr(engine_cls, name) for name in ("_run_batch_prefill", "_prefill_step")}
+
+    def timed(fn, key):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            if key == "prefill_graft" or out:
+                walls[key].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    try:
+        engine_cls._run_batch_prefill = timed(saved["_run_batch_prefill"], "prefill_graft")
+        engine_cls._prefill_step = timed(saved["_prefill_step"], "chunk")
+        yield walls
+    finally:
+        for name, fn in saved.items():
+            setattr(engine_cls, name, fn)
+
+
+def _mean_ms(values):
+    return round(1e3 * statistics.fmean(values), 3) if values else None
+
+
 def serve_engine(torch, serve, kernels_mod, mm, enc, quant, argv, what, gates):
-    """One ``serve --engine`` run (its decode step captured: both graphs by
-    the warm-up, none in the run) with the launch counts set to 0 just
-    before it and read just after, then the same trace through the eager
-    engine, whose tokens and real pages must be identical, and through the
-    plain versions on the card (eager), whose tokens must be identical.
-    The serve gates named in ``gates`` (``agreement``, ``speedup``,
-    ``prefix_cache``) must hold, the others are printed; every kernel of
-    ``ENGINE_KERNELS`` must launch (v4 from the chunk caller where the run
-    chunks), the encoder from graft and append.  Returns the launch counts
-    and the printed summary."""
+    """One ``serve --engine`` run (its decode, prefill, graft and chunk
+    steps captured by the warm-up, none in the run; the captures must be
+    the reference's ``trace_counts`` with two decode graphs) with the launch
+    counts set to 0 just before it and read just after, then the same trace
+    through the eager engine, whose tokens and real pages must be
+    identical, and through the plain versions on the card (eager), whose
+    tokens must be identical.  The serve gates named in ``gates``
+    (``agreement``, ``speedup``, ``prefix_cache``) must hold, the others are
+    printed; every kernel of ``ENGINE_KERNELS`` must launch, and in the
+    timed run (the warm-up's counts taken off, replays counted as
+    launches) v4 from the chunk caller where the run chunks, the encoder
+    from graft and append, and as many chunk steps as the report counts.
+    Prints the host wall of an admission's
+    prefill and graft and of a chunk, captured and eager.  Returns the
+    launch counts and the printed summary."""
     from repro_torch.core.packed import PagedKV
+    from repro_torch.launch.capture import CapturedStep
     from repro_torch.launch.engine import PVQEngine, Request, _paged_leaves
     from repro_torch.nn import attention
     from repro_torch.nn.models import Model
@@ -1289,7 +1382,9 @@ def serve_engine(torch, serve, kernels_mod, mm, enc, quant, argv, what, gates):
     torch.cuda.reset_peak_memory_stats()
     kernels_mod.reset_launches()
     t0 = time.time()
-    with launches_by_caller(kernels_mod, attention, PagedKV, Model) as by_caller:
+    with launches_by_caller(torch, kernels_mod, attention, PagedKV, Model, CapturedStep,
+                            PVQEngine) as (with_warmup, warm), \
+            step_walls(PVQEngine) as walls:
         report, rc, state = serve.run(argv, return_state=True)
     counts = kernels_mod.launches()
     report["phase_wall_s"] = round(time.time() - t0, 2)
@@ -1307,8 +1402,13 @@ def serve_engine(torch, serve, kernels_mod, mm, enc, quant, argv, what, gates):
     missing = [name for name in ENGINE_KERNELS if counts[name] <= 0]
     if missing:
         fail(f"{what} never launched {missing}: {counts}")
+    # the timed run's launches by caller (the warm-up's taken off)
+    by_caller = {k: n - warm[k] for k, n in with_warmup.items()}
     if by_caller["encoder_from_graft"] <= 0 or by_caller["encoder_from_append"] <= 0:
         fail(f"{what}: the encoder did not run from both graft and append: {by_caller}")
+    if by_caller["chunks_run"] != report["engine_chunks"]:
+        fail(f"{what}: {by_caller['chunks_run']} chunk steps counted, "
+             f"{report['engine_chunks']} reported")
     if report["engine_chunks"] and by_caller["v4_from_chunk"] <= 0:
         fail(f"{what}: {report['engine_chunks']} chunks launched no v4: {by_caller}")
     if metrics:
@@ -1323,9 +1423,21 @@ def serve_engine(torch, serve, kernels_mod, mm, enc, quant, argv, what, gates):
             fail(f"{what}: telemetry lacks {sorted(need - names)} "
                  f"{sorted(set(telemetry.ENGINE_REQUIRED_SPANS) - spans)}")
 
-    if report["engine_trace_counts"] != {"decode": 2, "prefill": 0, "graft": 0, "chunk": 0}:
+    if what in REFERENCE_TRACE_COUNTS:
+        expected = dict(REFERENCE_TRACE_COUNTS[what])
+    else:
+        if report["engine_evictions"]:
+            fail(f"{what}: {report['engine_evictions']} evictions: the reference's retraces "
+                 f"are not derived for such a run")
+        expected = reference_trace_counts([len(r.prompt) for r in state["trace"]],
+                                          state["engine"].page, state["engine"].chunk_tokens)
+    expected["decode"] = 2  # the port's decode graphs: without and with a block fill
+    if report["engine_trace_counts"] != expected:
         fail(f"{what}: the engine's captures are {report['engine_trace_counts']}, not the "
-             f"warm-up's two decode graphs")
+             f"reference's {expected} (two decode graphs)")
+    if report["engine_trace_counts"] != report["engine_warmup_trace_counts"]:
+        fail(f"{what}: the timed run captured: {report['engine_warmup_trace_counts']} after "
+             f"the warm-up, {report['engine_trace_counts']} after the run")
 
     def rerun():
         eng = PVQEngine(state["model"], state["params"], eager=True, **state["engine_kwargs"])
@@ -1335,7 +1447,8 @@ def serve_engine(torch, serve, kernels_mod, mm, enc, quant, argv, what, gates):
 
     kvq = quant.KVQuant(int(flag["--kv-block"]), int(flag["--kv-group"]))
     with quant.act_quant_scope(quant.ActQuant()), quant.kv_quant_scope(kvq):
-        eager_eng, eager = rerun()
+        with step_walls(PVQEngine) as eager_walls:
+            eager_eng, eager = rerun()
         t0 = time.time()
         with plain_versions(mm, enc):
             _, plain = rerun()
@@ -1350,6 +1463,12 @@ def serve_engine(torch, serve, kernels_mod, mm, enc, quant, argv, what, gates):
         "ttft_p50_s": report["engine_ttft_p50_s"], "ttft_p99_s": report["engine_ttft_p99_s"],
         "itl_p99_s": report["engine_itl_p99_s"],
         "itl_with_prefill_p99_s": report["engine_itl_with_prefill_p99_s"],
+        "prefill_graft_wall_ms": _mean_ms(walls["prefill_graft"]),
+        "eager_prefill_graft_wall_ms": _mean_ms(eager_walls["prefill_graft"]),
+        "chunk_wall_ms": _mean_ms(walls["chunk"]),
+        "eager_chunk_wall_ms": _mean_ms(eager_walls["chunk"]),
+        "eager_ttft_p50_s": eager["ttft_p50_s"], "eager_ttft_p99_s": eager["ttft_p99_s"],
+        "eager_itl_with_prefill_p99_s": eager["itl_with_prefill_p99_s"],
         "decode_steps": report["engine_decode_steps"], "chunks": report["engine_chunks"],
         "prefill_batches": report["engine_prefill_batches"],
         "prefix_hits": report["engine_prefix_hits"],
@@ -1360,9 +1479,11 @@ def serve_engine(torch, serve, kernels_mod, mm, enc, quant, argv, what, gates):
         "peak_device_memory_bytes": report.get("peak_device_memory_bytes"),
         "kernel_launches": counts, "engine_kernel_launches": report["engine_kernel_launches"],
         "v3_body_launches": report["v3_body_launches"], **by_caller,
+        "by_caller_with_warmup": with_warmup,
         "tokens_identical_to_plain_on_card": identical,
         "plain_rerun_seconds": round(time.time() - t0, 2),
         "trace_counts": report["engine_trace_counts"],
+        "reference_trace_counts": {**expected, "decode": 1},
         "tokens_and_pages_identical_to_eager": eager_identical,
         "eager_tokens_per_s": eager["tokens_per_s"],
         "eager_decode_steps": eager["decode_steps"],
@@ -1521,6 +1642,7 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
     run_b = engine["smollm-360m engine (b)"]
+    # the timed runs' (replays counted, the warm-up's taken off)
     entries["pvq_attn_q"]["launches_from_chunk_caller"] = {
         what: e["v4_from_chunk"] for what, e in engine.items()}
     entries["pvq_attn_q"]["launches_per_chunk"] = run_b["v4_from_chunk"] / run_b["chunks_run"]

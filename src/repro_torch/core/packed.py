@@ -535,14 +535,22 @@ class PagedKV:
             block=self.page, group=self.group, k=self.k, dtype=self.dtype,
         )
 
-    def gather_slot(self, slot: int) -> PackedKV:
+    def gather_slot(self, slot) -> PackedKV:
         """Batch-1 :class:`PackedKV` view of one slot (the chunked-prefill
-        read leg attends only to the slot it extends)."""
-        pt = self.page_table[slot : slot + 1]
+        read leg attends only to the slot it extends).  ``slot`` is a host
+        int (views of the slot's tails) or a one-element device tensor (the
+        captured chunk: ``index_select`` of its table row and tails)."""
+        if isinstance(slot, torch.Tensor):
+            idx = slot.reshape(1).to(torch.int64)
+            pt = self.page_table.index_select(0, idx)
+            tail_k, tail_v = self.tail_k.index_select(0, idx), self.tail_v.index_select(0, idx)
+        else:
+            pt = self.page_table[slot : slot + 1]
+            tail_k, tail_v = self.tail_k[slot : slot + 1], self.tail_v[slot : slot + 1]
         return PackedKV(
             k_pulses=self._pick(self.k_pages, pt), k_scales=self._pick(self.k_page_scales, pt),
             v_pulses=self._pick(self.v_pages, pt), v_scales=self._pick(self.v_page_scales, pt),
-            tail_k=self.tail_k[slot : slot + 1], tail_v=self.tail_v[slot : slot + 1],
+            tail_k=tail_k, tail_v=tail_v,
             block=self.page, group=self.group, k=self.k, dtype=self.dtype,
         )
 
@@ -598,38 +606,65 @@ class PagedKV:
             self.v_page_scales.index_copy_(0, ids, scales[ns:])
         return self
 
-    def graft(self, k_dense, v_dense, slot: int, page_ids, real_len: int) -> "PagedKV":
+    def graft(self, k_dense, v_dense, slot, page_ids, real_len) -> "PagedKV":
         """Graft one prefilled request into decode slot ``slot``: the
         ``start = 0`` case of :meth:`graft_chunk`, so whole-prompt and
         chunked prefill share one encode and cannot drift apart."""
         return self.graft_chunk(k_dense, v_dense, slot, page_ids, 0, real_len)
 
-    def graft_chunk(self, k_dense, v_dense, slot: int, page_ids, start: int,
-                    real_len: int) -> "PagedKV":
+    def graft_chunk(self, k_dense, v_dense, slot, page_ids, start, real_len) -> "PagedKV":
         """Graft one page-aligned prefill chunk into slot ``slot`` (in place).
 
         ``k_dense``/``v_dense`` ``(1, C, n_kv, hd)`` hold the chunk's exact
         KV for positions ``[start, start + C)``, ``C`` a page multiple and
-        ``start`` page-aligned.  ``page_ids (C // page,)`` (host integers)
-        are the physical pages of the chunk's logical blocks, trash for the
-        blocks at and after ``real_len // page``; the real ones are
-        PVQ-encoded with the same ``_kv_encode_planes`` every write path
-        uses (the trash blocks are not encoded: nothing reads them).
+        ``start`` page-aligned.  ``page_ids (C // page,)`` are the physical
+        pages of the chunk's logical blocks, trash for the blocks at and
+        after ``real_len // page``; blocks are PVQ-encoded with the same
+        ``_kv_encode_planes`` every write path uses.
 
         The tail ring takes the page window at ``packed_end(real_len) -
         start``, clamped into the chunk as the reference's dynamic slice
         clamps it: only the final chunk writes the real partial block;
         earlier ones write a clamped window that it overwrites, masked by
         length until then.
+
+        Two forms write the same bytes into every real page and ring:
+
+        * host integers (``page_ids`` a host array; the eager engine): only
+          the live blocks are encoded, written by slices over runs of ids;
+        * device tensors (``page_ids`` a tensor, ``slot`` and ``real_len``
+          one-element tensors, ``start`` one too or 0; the captured graft
+          and chunk): nothing is read on the host, so every block is encoded and
+          scattered with ``index_copy_`` through ``page_ids``, the blocks
+          past the context to the trash page, as the reference does; the
+          tail window is taken at the clamped device offset and written at
+          the device slot.
         """
         page = self.page
         kf = k_dense[0].to(torch.float32)
         vf = v_dense[0].to(torch.float32)
         c = kf.shape[0]
+        blocks = (c // page, page) + tuple(kf.shape[1:])
+        if isinstance(page_ids, torch.Tensor):
+            nb = c // page
+            pulses, scales = _kv_encode_planes(
+                torch.cat([kf.reshape(blocks), vf.reshape(blocks)]), self.group, self.k)
+            ids = page_ids.reshape(nb).to(torch.int64)
+            self.k_pages.index_copy_(0, ids, pulses[:nb])
+            self.k_page_scales.index_copy_(0, ids, scales[:nb])
+            self.v_pages.index_copy_(0, ids, pulses[nb:])
+            self.v_page_scales.index_copy_(0, ids, scales[nb:])
+            if isinstance(start, torch.Tensor):
+                start = start.reshape(1).to(torch.int64)
+            off = self.packed_end(real_len.reshape(1).to(torch.int64)) - start
+            rows = off.clamp(0, c - page) + torch.arange(page, device=kf.device)
+            at = slot.reshape(1).to(torch.int64)
+            self.tail_k.index_copy_(0, at, kf.index_select(0, rows)[None].to(self.tail_k.dtype))
+            self.tail_v.index_copy_(0, at, vf.index_select(0, rows)[None].to(self.tail_v.dtype))
+            return self
         ids = np.asarray(page_ids, np.int64).reshape(c // page)
         live = np.nonzero(ids != self.trash_page)[0]
         if live.size:
-            blocks = (c // page, page) + tuple(kf.shape[1:])
             self._write_pages(ids[live], _rows(kf.reshape(blocks), live),
                               _rows(vf.reshape(blocks), live))
         off = min(max(int(self.packed_end(int(real_len))) - int(start), 0), c - page)

@@ -34,17 +34,29 @@ admission -> batcher -> page table -> prefill/decode steps
   the youngest active sequence is evicted and requeued at the head, its
   generated tokens kept.
 
-* **Captured decode**: on a card the decode step over the slot pool is a
-  replay of a captured CUDA graph (``launch.capture``), the argmax inside
-  it as in the reference's jitted step: one graph that encodes nothing and
-  one for the steps in which some slot completes a block, which encodes
-  every slot's ring and scatters the rings of the rest to the trash page
-  (``PagedKV.append(fill=True)``).  The tokens come back to the host once
-  a step, for the scheduler.  On the CPU that step runs eagerly;
-  ``eager=True`` runs the host-table step instead (only the completing
-  rings encoded).  ``trace_counts`` holds the reference's keys: ``decode``
-  counts captures; the prefill, graft and chunk steps stay eager, so
-  theirs stay 0.
+* **Captured steps**: on a card the engine's four steps are replays of
+  CUDA graphs (``launch.capture``), the counterparts of the reference's
+  jitted ``_decode_fn``, ``_prefill_fn``, ``_graft_fn`` and ``_chunk_fn``.
+  Every input sits in static device buffers refilled with one copy to the
+  device a step, and every index (slot, start, page ids, real lengths,
+  positions) is read on the device, never on the host.  Decode: one graph
+  that encodes nothing and one for the steps in which some slot completes a
+  block, which encodes every slot's ring and scatters the rings of the rest
+  to the trash page (``PagedKV.append(fill=True)``).  Prefill and graft: a
+  graph each a bucket, at ``prefill_batch`` rows (an admission of fewer
+  rows repeats row 0, as the reference pads; the repeated graft writes the
+  same bytes to the same pages and ring); the graft graph reads the prefill
+  graph's outputs, so it replays right after it.  Chunk: one graph.  The
+  graft and the chunk encode every block and scatter the blocks past the
+  context to the trash page (``PagedKV.graft_chunk`` at device indices).
+  The argmax runs inside the prefill, chunk and decode graphs; the tokens
+  come back to the host once a step, for the scheduler.  On the CPU the
+  same bodies run eagerly; ``eager=True`` runs the host-index steps
+  instead (only the real blocks and completing rings encoded, at the same
+  padded shapes).  ``trace_counts`` holds the reference's keys and counts
+  captures: ``warmup`` captures the decode graphs, every bucket it visits
+  and the chunk graph; a context re-admitted into a new bucket captures in
+  the run, as the reference retraces.
 """
 
 from __future__ import annotations
@@ -351,8 +363,9 @@ class PVQEngine:
     every generated token but the newest), and the next decode step feeds
     ``req.generated[-1]`` at position ``length``.
 
-    The decode step is captured on a card and run eagerly on the CPU, both
-    over static buffers (``eager=True``: the host-table step).
+    The decode, prefill, graft and chunk steps are captured on a card and
+    run eagerly on the CPU, both over static buffers at device indices
+    (``eager=True``: the host-index steps).
     """
 
     def __init__(
@@ -417,11 +430,13 @@ class PVQEngine:
         # pages in one buffer (one copy to the device a step)
         ns = self.n_slots
         self._pt_dev = torch.from_numpy(self._page_table.copy()).to(self.device)
-        self._step_in = torch.zeros((3 * ns,), dtype=torch.int64, device=self.device)
-        self._tok_in = self._step_in[:ns].view(ns, 1)
-        self._pos_in = self._step_in[ns : 2 * ns]
+        self._step_in = self._inputs({"tok": (ns, 1), "pos": (ns,), "write_page": (ns,)})
         for leaf in self._paged:
-            leaf.bind_tables(self._pt_dev, self._step_in[2 * ns :])
+            leaf.bind_tables(self._pt_dev, self._step_in["write_page"])
+        # the static device inputs of an admission (per bucket: prefill and
+        # graft) and of a chunk, each refilled with one copy a step
+        self._adm_in: Dict[int, Dict[str, torch.Tensor]] = {}
+        self._chunk_in: Optional[Dict[str, torch.Tensor]] = None
         self.eager = bool(eager)
         self._graphs: Dict[tuple, CapturedStep] = {}
         self.trace_counts: Dict[str, int] = {"decode": 0, "prefill": 0, "graft": 0, "chunk": 0}
@@ -472,56 +487,102 @@ class PVQEngine:
         for leaf in self._paged:
             leaf.with_tables(self._pt_dev, write_page)
 
+    def _replay(self, name: str, key: tuple, body):
+        """The outputs of step ``name``'s graph for ``key`` and the active
+        ``ActQuant`` and ``KVQuant``, captured on the key's first call
+        (counted under ``trace_counts[name]``), which returns its eager
+        first run's outputs in the graph's (a later graph reads them).  On
+        the CPU ``body`` runs eagerly."""
+        if self.device.type != "cuda":
+            return body()
+        full = (name, *key, default_act_quant(), default_kv_quant())
+        graph = self._graphs.get(full)
+        if graph is None:
+            graph = self._graphs[full] = CapturedStep(body, self.device)
+            self.trace_counts[name] += 1
+            return graph.out
+        return graph.replay()
+
+    def _inputs(self, sizes: Dict[str, Tuple[int, ...]]) -> Dict[str, torch.Tensor]:
+        """Views ``name -> shape`` of one flat int64 device buffer (``"all"``)."""
+        flat = torch.zeros((sum(int(np.prod(v)) for v in sizes.values()),), dtype=torch.int64,
+                           device=self.device)
+        out, at = {"all": flat}, 0
+        for name, shape in sizes.items():
+            n = int(np.prod(shape))
+            out[name] = flat[at : at + n].view(shape)
+            at += n
+        return out
+
     def _decode(self, tokens: np.ndarray, pos: np.ndarray, write_page: np.ndarray,
                 fill: Optional[bool] = None) -> np.ndarray:
         """One decode step over the slot pool; the next tokens on the host.
         ``fill`` (default: whether a slot writes a page) picks the graph."""
         self._set_tables(write_page)
         step_in = np.concatenate([tokens.reshape(-1), pos, write_page]).astype(np.int64)
-        self._step_in.copy_(torch.from_numpy(step_in))
+        self._step_in["all"].copy_(torch.from_numpy(step_in))
         if self.eager:
             logits, self.cache = self.model.decode_step(
-                self.params, self.cache, self._tok_in, self._pos_in)
+                self.params, self.cache, self._step_in["tok"], self._step_in["pos"])
             return _argmax_last(logits)
         if fill is None:
             fill = bool((write_page != self.alloc.trash).any())
-        if self.device.type != "cuda":
-            return self._decode_body(fill).cpu().numpy()
-        key = (fill, default_act_quant(), default_kv_quant())
-        graph = self._graphs.get(key)
-        if graph is None:
-            graph = self._graphs[key] = CapturedStep(lambda: self._decode_body(fill), self.device)
-            self.trace_counts["decode"] += 1
-            return graph.take_first().cpu().numpy()
-        return graph.replay().cpu().numpy()
+        return self._replay("decode", (fill,), lambda: self._decode_body(fill)).cpu().numpy()
 
     def _decode_body(self, fill: bool) -> torch.Tensor:
         """The step a graph captures: every input from the static buffers,
         the argmax inside."""
-        logits, _ = self.model.decode_step(self.params, self.cache, self._tok_in, self._pos_in,
-                                           fill=fill)
+        logits, _ = self.model.decode_step(self.params, self.cache, self._step_in["tok"],
+                                           self._step_in["pos"], fill=fill)
         return torch.argmax(logits[:, -1, :], dim=-1)
 
-    def _prefill(self, tokens: np.ndarray, real_len: np.ndarray):
-        """Bucketed prefill with a dense cache (the PVQ encode happens in the
-        graft).  Returns ``(next tokens on the host, prefill caches)``."""
-        with kv_quant_scope(None):
-            logits, pre = self.model.prefill_bucketed(
-                self.params, {"tokens": self._tokens(tokens)}, self._tokens(real_len)
-            )
-        return _argmax_last(logits), pre
+    def _prefill(self, tokens: np.ndarray, real_len: np.ndarray, slots: np.ndarray,
+                 page_ids: np.ndarray):
+        """Bucketed prefill of ``prefill_batch`` rows with a dense cache (the
+        PVQ encode happens in the graft).  The captured step takes the
+        graft's inputs too, in the same copy to the device.  Returns ``(next
+        tokens on the host, prefill caches)``."""
+        if self.eager:
+            with kv_quant_scope(None):
+                logits, pre = self.model.prefill_bucketed(
+                    self.params, {"tokens": self._tokens(tokens)}, self._tokens(real_len))
+            return _argmax_last(logits), pre
+        lb = tokens.shape[1]
+        if lb not in self._adm_in:
+            b = self.prefill_batch
+            self._adm_in[lb] = self._inputs({"tokens": (b, lb), "real": (b,), "slots": (b,),
+                                             "page_ids": (b, lb // self.page)})
+        host = np.concatenate([tokens.reshape(-1), real_len, slots, page_ids.reshape(-1)])
+        self._adm_in[lb]["all"].copy_(torch.from_numpy(host.astype(np.int64)))
+        tok, pre = self._replay("prefill", (lb,), lambda: self._prefill_body(lb))
+        return tok.cpu().numpy(), pre
 
-    def _graft(self, pre, slots: Sequence[int], page_ids: Sequence[np.ndarray],
-               real_len: Sequence[int]) -> None:
+    def _prefill_body(self, lb: int):
+        buf = self._adm_in[lb]
+        with kv_quant_scope(None):
+            logits, pre = self.model.prefill_bucketed(self.params, {"tokens": buf["tokens"]},
+                                                      buf["real"])
+        return torch.argmax(logits[:, -1, :], dim=-1), pre
+
+    def _graft(self, pre, slots: np.ndarray, page_ids: np.ndarray, real_len: np.ndarray) -> None:
         """Row ``i`` of the prefill batch lands in slot ``slots[i]``.  The
         prefill caches mirror the paged cache's nesting, ``{"k", "v"}``
-        dicts ``(B, L_b, n_kv, hd)`` where it holds a ``PagedKV``."""
+        dicts ``(B, L_b, n_kv, hd)`` where it holds a ``PagedKV``.  The
+        captured graft reads ``pre`` (the prefill graph's outputs) and the
+        indices the prefill's copy put on the device."""
+        lb = page_ids.shape[1] * self.page
+        if self.eager:
+            rows = [(int(slots[i]), page_ids[i], int(real_len[i]))
+                    for i in range(self.prefill_batch)]
+        else:
+            buf = self._adm_in[lb]
+            rows = [(buf["slots"][i : i + 1], buf["page_ids"][i], buf["real"][i : i + 1])
+                    for i in range(self.prefill_batch)]
 
         def walk(c, p):
             if is_paged_kv(c):
-                for i, slot in enumerate(slots):
-                    c.graft(p["k"][i : i + 1], p["v"][i : i + 1], int(slot), page_ids[i],
-                            int(real_len[i]))
+                for i, row in enumerate(rows):
+                    c.graft(p["k"][i : i + 1], p["v"][i : i + 1], *row)
             elif isinstance(c, dict):
                 for key, sub in c.items():
                     walk(sub, p[key])
@@ -529,7 +590,10 @@ class PVQEngine:
                 for sub, p_sub in zip(c, p):
                     walk(sub, p_sub)
 
-        walk(self.cache, pre)
+        if self.eager:
+            walk(self.cache, pre)
+        else:
+            self._replay("graft", (lb,), lambda: walk(self.cache, pre))
 
     def _chunk(self, tokens: np.ndarray, slot: int, start: int, page_ids: np.ndarray,
                real_len: int) -> np.ndarray:
@@ -537,10 +601,24 @@ class PVQEngine:
         read against its packed pages through the page table and grafted
         into ``page_ids``."""
         self._set_tables(np.full((self.n_slots,), self.alloc.trash, np.int32))
-        logits, self.cache = self.model.prefill_chunk(
-            self.params, self.cache, self._tokens(tokens), slot, start, page_ids, real_len
-        )
-        return _argmax_last(logits)
+        if self.eager:
+            logits, self.cache = self.model.prefill_chunk(
+                self.params, self.cache, self._tokens(tokens), slot, start, page_ids, real_len
+            )
+            return _argmax_last(logits)
+        if self._chunk_in is None:
+            ctk = self.chunk_tokens
+            self._chunk_in = self._inputs({"tokens": (1, ctk), "slot": (1,), "start": (1,),
+                                           "real": (1,), "page_ids": (ctk // self.page,)})
+        host = np.concatenate([tokens.reshape(-1), [slot, start, real_len], page_ids])
+        self._chunk_in["all"].copy_(torch.from_numpy(host.astype(np.int64)))
+        return self._replay("chunk", (), self._chunk_body).cpu().numpy()
+
+    def _chunk_body(self) -> torch.Tensor:
+        buf = self._chunk_in
+        logits, _ = self.model.prefill_chunk(self.params, self.cache, buf["tokens"], buf["slot"],
+                                             buf["start"], buf["page_ids"], buf["real"])
+        return torch.argmax(logits[:, -1, :], dim=-1)
 
     # ------------------------------------------------------------ admission
 
@@ -691,27 +769,32 @@ class PVQEngine:
         return len(rows)
 
     def _run_batch_prefill(self, rows, lb: int, t_now) -> None:
-        """One bucketed prefill of the claimed rows, then their graft.  The
-        reference pads a batch to ``prefill_batch`` rows for its static
-        compile shape; eager calls take the real rows only."""
+        """One bucketed prefill of the claimed rows, then their graft, at
+        ``prefill_batch`` rows on every path: the rows past the claimed
+        ones repeat row 0 (the reference's static compile shape; the
+        repeated graft rewrites the same bytes to the same pages)."""
         page = self.page
-        n = len(rows)
-        toks = np.zeros((n, lb), np.int32)
-        real = np.ones((n,), np.int32)
-        ids_arr = np.full((n, lb // page), self.alloc.trash, np.int32)
+        n, bsz = len(rows), self.prefill_batch
+        toks = np.zeros((bsz, lb), np.int32)
+        real = np.ones((bsz,), np.int32)
+        slots = np.zeros((bsz,), np.int32)
+        ids_arr = np.full((bsz, lb // page), self.alloc.trash, np.int32)
         for i, (req, ctx, slot, ids) in enumerate(rows):
             toks[i, : len(ctx)] = np.asarray(ctx, np.int32)
             real[i] = len(ctx)
+            slots[i] = slot
             ids_arr[i, : len(ids)] = ids
             self._start_timing(req, t_now)
+        for arr in (toks, real, slots, ids_arr):
+            arr[n:] = arr[0]
         t0 = time.perf_counter()
-        with obs.span("engine/prefill", args={"bucket": lb, "rows": n, "batch": self.prefill_batch}):
-            tok_host, pre = self._prefill(toks, real)
+        with obs.span("engine/prefill", args={"bucket": lb, "rows": n, "batch": bsz}):
+            tok_host, pre = self._prefill(toks, real, slots, ids_arr)
         if obs.enabled() and self._kv_probe_budget > 0 and int(real[0]) >= page:
             self._kv_probe_budget -= 1
             self._probe_kv_quality(pre)
-        with obs.span("engine/graft", args={"rows": n, "pages": int((real // page).sum())}):
-            self._graft(pre, [slot for _, _, slot, _ in rows], ids_arr, real)
+        with obs.span("engine/graft", args={"rows": n, "pages": int((real[:n] // page).sum())}):
+            self._graft(pre, slots, ids_arr, real)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         del pre
@@ -945,11 +1028,10 @@ class PVQEngine:
     def warmup(self, prompt_lens: Sequence[int] = ()) -> None:
         """Run a prefill and graft for every prompt bucket at the engine's
         prefill batch, one chunk, and the decode step without and with a
-        block fill (on a card that captures both graphs), before the timed
-        run, which then captures nothing (the card's first launches load
-        the kernels and size the caching allocator).  The engine must be
-        idle; the dummy writes target the trash page and tail rings a real
-        graft overwrites."""
+        block fill (on a card each captures its graph), before the timed
+        run, which then captures nothing unless a re-admitted context needs
+        a new bucket.  The engine must be idle; the dummy writes target the
+        trash page and tail rings a real graft overwrites."""
         if any(st is not None for st in self.slots):
             raise RuntimeError("warmup needs an idle engine")
         buckets = {bucket_len(max(int(p), 1), self.page) for p in prompt_lens}
@@ -958,9 +1040,10 @@ class PVQEngine:
         bsz = self.prefill_batch
         trash = self.alloc.trash
         for lb in sorted(buckets):
-            _, pre = self._prefill(np.zeros((bsz, lb), np.int32), np.ones((bsz,), np.int32))
-            self._graft(pre, [0] * bsz, np.full((bsz, lb // self.page), trash, np.int32),
-                        [1] * bsz)
+            slots, real = np.zeros((bsz,), np.int32), np.ones((bsz,), np.int32)
+            ids = np.full((bsz, lb // self.page), trash, np.int32)
+            _, pre = self._prefill(np.zeros((bsz, lb), np.int32), real, slots, ids)
+            self._graft(pre, slots, ids, real)
         if self.prefill_chunk is not None:
             ctk = self.chunk_tokens
             self._chunk(np.zeros((1, ctk), np.int32), 0, 0,
@@ -1027,8 +1110,9 @@ class PVQEngine:
     # -------------------------------------------------------------- metrics
 
     def report(self, wall_s: float) -> Dict[str, Any]:
-        """The reference's report: ``trace_counts`` holds the decode step's
-        captures under the reference's keys (the other steps stay eager)."""
+        """The reference's report: ``trace_counts`` holds the captures of
+        the decode, prefill, graft and chunk graphs under the reference's
+        keys (0 on the CPU and with ``eager=True``)."""
         done = self.finished
         toks = sum(len(r.generated) for r in done)
         lat = [r.finish_t - r.submit_t for r in done

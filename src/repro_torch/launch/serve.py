@@ -22,13 +22,16 @@ oracle (``engine_token_agreement``)::
 It runs on the CUDA card unless ``--device cpu`` is given, and never drops
 to the CPU by itself.  On the card every decode step, the fixed-batch
 loop's and the engine's, is a replay of a captured CUDA graph of
-``Model.decode_step`` (the counterpart of the reference's jitted step);
+``Model.decode_step`` (the counterpart of the reference's jitted step),
+and so are the engine's prefill, graft and chunk steps;
 ``TRACE_COUNTS["decode_step"]`` and the counter
-``serve.decode_step_traces`` count the captures, and the report's
-``decode_step_captures`` holds the count of this run and
-``engine_trace_counts`` the engine's.  On the CPU the same step runs
-eagerly; ``generate``, ``teacher_forced_logits`` and ``PVQEngine`` take
-``eager=True`` for the host-int step (a comparison's other leg).
+``serve.decode_step_traces`` count the fixed-batch loop's captures, and
+the report's ``decode_step_captures`` holds the count of this run,
+``engine_trace_counts`` the engine's (the reference's keys) and
+``engine_warmup_trace_counts`` those its warm-up made.  On the CPU the
+same steps run eagerly; ``generate``, ``teacher_forced_logits`` and
+``PVQEngine`` take ``eager=True`` for the host-index steps (a
+comparison's other leg).
 
 ``--agreement-min T`` also scores the same tokens on the reference leg
 (f32 activations, dense KV cache: kernel v2 on the packed weights) and
@@ -190,7 +193,7 @@ class _StaticStep:
         graph = self.graphs[fill] = CapturedStep(lambda: self._body(model, fill), self.tok.device)
         TRACE_COUNTS["decode_step"] += 1
         obs.counter("serve.decode_step_traces").inc()
-        return graph.take_first()
+        return graph.out
 
 
 def _captured_step(model) -> Dict[tuple, _StaticStep]:
@@ -577,6 +580,7 @@ def _serve_engine(args, cfg, model, params, report, device):
     )
     eng = PVQEngine(model, params, **engine_kwargs)
     eng.warmup(prompt_lens=[len(r.prompt) for r in trace])
+    warm_counts = dict(eng.trace_counts)
     _sync(device)
     launches_before = launches()
     res = eng.run(trace)
@@ -585,6 +589,7 @@ def _serve_engine(args, cfg, model, params, report, device):
     report["arch"] = cfg.name
     report.update({f"engine_{k}": v for k, v in res.items()})
     report["engine_kernel_launches"] = engine_launches
+    report["engine_warmup_trace_counts"] = warm_counts
     captures0 = TRACE_COUNTS["decode_step"]
 
     prompts = {r.rid: torch.tensor([r.prompt], dtype=torch.int64, device=device) for r in trace}

@@ -281,8 +281,8 @@ def _attention_decode_at(p, x, cache, pos, *, n_heads, n_kv_heads, head_dim, rop
 
 
 def attention_prefill_chunk(
-    p: Params, x: torch.Tensor, cache: PagedKV, *, slot: int, start: int, page_ids,
-    real_len: int, n_heads: int, n_kv_heads: int, head_dim: int,
+    p: Params, x: torch.Tensor, cache: PagedKV, *, slot, start, page_ids,
+    real_len, n_heads: int, n_kv_heads: int, head_dim: int,
     rope_theta: Optional[float] = 10000.0,
 ) -> Tuple[torch.Tensor, PagedKV]:
     """Chunked prefill of ``x (1, C, d)``, one slot's ``C`` (a page
@@ -302,21 +302,31 @@ def attention_prefill_chunk(
        * chunk: exact causal f32 attention within the chunk (rows past
          ``real_len`` compute garbage that stays behind the engine's masks).
 
+    ``slot``, ``start``, ``page_ids`` and ``real_len`` are host integers
+    (the eager engine) or device tensors (the captured chunk: the RoPE
+    positions and ``kv_len`` are built from the device ``start``, and the
+    graft and the gather take the device indices; see
+    :meth:`PagedKV.graft_chunk`).  Both give the same output and bytes.
+
     Returns ``(y (1, C, d), cache)``.
     """
     from ..kernels import ops
 
     b, c, _ = x.shape
     q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim)
+    if isinstance(start, torch.Tensor):
+        start_t = start.reshape(1).to(torch.int64)
+    else:
+        start_t = torch.full((1,), int(start), dtype=torch.int64, device=x.device)
     if rope_theta is not None:
-        positions = (int(start) + torch.arange(c, device=x.device))[None, :]
+        positions = (start_t + torch.arange(c, device=x.device))[None, :]
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
     scale = 1.0 / math.sqrt(head_dim)
 
     cache.graft_chunk(k, v, slot, page_ids, start, real_len)
 
-    kv_len = torch.full((1,), int(start), dtype=torch.int32, device=x.device)
+    kv_len = start_t.to(torch.int32)
     acc_p, m_p, l_p = ops.pvq_attn_decode(q, cache.gather_slot(slot), kv_len, sm_scale=scale)
 
     # every query row sees at least its own diagonal, so the merged

@@ -154,15 +154,17 @@ class Model:
         idx = (real_len.to(torch.int64) - 1).reshape(-1, 1, 1).expand(-1, 1, logits.shape[-1])
         return torch.gather(logits, 1, idx), caches
 
-    def prefill_chunk(self, params: Params, cache: Any, tokens: torch.Tensor, slot: int,
-                      start: int, page_ids, real_len: int):
+    def prefill_chunk(self, params: Params, cache: Any, tokens: torch.Tensor, slot, start,
+                      page_ids, real_len):
         """One chunked-prefill step over the paged slot pool: ``tokens (1, C)``
         (``C`` a page multiple, ``start`` page-aligned) at absolute positions
         ``start .. start + C - 1`` for slot ``slot``, attending to the slot's
         packed context ``[0, start)`` through its page table and grafting
         the chunk's blocks into ``page_ids``.  Returns ``(logits (1, 1,
         vocab), cache)``, read at ``real_len - 1 - start`` clamped into the
-        chunk: meaningful on a context's final chunk only."""
+        chunk: meaningful on a context's final chunk only.  The indices are
+        host integers (the eager engine) or device tensors (the captured
+        chunk: the row is clamped and gathered on the device)."""
         cfg = self.cfg
         x = self._embed_tokens(params, tokens)
         new_cache = {}
@@ -173,6 +175,9 @@ class Model:
             )
         x = T._norm(cfg, params["final_norm"], x)
         logits = self._head(params, x)
+        if isinstance(real_len, torch.Tensor):
+            idx = (real_len.reshape(1).to(torch.int64) - 1 - start).clamp(0, tokens.shape[1] - 1)
+            return logits.index_select(1, idx), new_cache
         idx = min(max(int(real_len) - 1 - int(start), 0), tokens.shape[1] - 1)
         return logits[:, idx : idx + 1], new_cache
 

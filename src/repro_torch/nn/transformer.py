@@ -246,10 +246,11 @@ def decode_segment(cfg, seg: Segment, seg_params: Params, seg_cache: List[Dict[s
 
 
 def block_chunk(cfg, spec: BlockSpec, p: Params, x: torch.Tensor, cache: Dict[str, Any],
-                slot: int, start: int, page_ids, real_len: int):
+                slot, start, page_ids, real_len):
     """Chunked-prefill twin of :func:`block_decode` over the paged cache:
     plain attention blocks only (``init_block_cache(paged=...)`` rejects
-    every other mixer)."""
+    every other mixer).  The indices are host integers or device tensors
+    (``attention_prefill_chunk``)."""
     if spec.mixer != "attn" or spec.cross:
         raise NotImplementedError(
             f"chunked prefill supports plain attention blocks only, "
@@ -269,7 +270,7 @@ def block_chunk(cfg, spec: BlockSpec, p: Params, x: torch.Tensor, cache: Dict[st
 
 
 def chunk_segment(cfg, seg: Segment, seg_params: Params, seg_cache: List[Dict[str, Any]],
-                  x: torch.Tensor, slot: int, start: int, page_ids, real_len: int):
+                  x: torch.Tensor, slot, start, page_ids, real_len):
     repeats, pattern = seg
     new_cache = []
     for r in range(repeats):

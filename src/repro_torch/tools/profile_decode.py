@@ -7,7 +7,9 @@
     python -m repro_torch.tools.profile_decode --arch deepseek-v2-lite-16b --f32 --steps 4
     python -m repro_torch.tools.profile_decode --prompt-len 157 --steps 1
     python -m repro_torch.tools.profile_decode --engine --steps 4
-    python -m repro_torch.tools.profile_decode --engine --prefill --prompt-len 256
+    python -m repro_torch.tools.profile_decode --engine --prefill --prompt-len 256 --batch 2
+    python -m repro_torch.tools.profile_decode --engine --prefill --compare --prompt-len 256 \
+        --batch 2
     python -m repro_torch.tools.profile_decode --compare --steps 4
 
 Packs the model (as ``serve --pvq``), prefills with ``--act-int8 --kv-pvq``
@@ -40,10 +42,15 @@ p with (p + 1) % 32 == 0 completes a KV block and PVQ-encodes it, so
 KV block 32, group 32): ``--batch`` slots, each admitted with a
 ``--prompt-len`` prompt through one batched prefill, two warm decode steps,
 then ``--steps`` engine decode steps over the paged pool; with
-``--prefill``, one request of ``--prompt-len`` tokens in 128-token chunks
-(``--prefill-chunk 4``), the last chunk traced after the earlier ones ran
-(so it reads ``prompt_len - 128`` packed positions through kernel v4).
-The report adds the page gather's device time (``index_select``'s kernels).
+``--prefill``, two traces: one batched admission (``traced:
+"prefill_graft"``: the prefill of ``--batch`` prompts of ``--prompt-len``
+tokens at ``prefill_batch = --batch`` and their graft), then one request
+of ``--prompt-len`` tokens in 128-token chunks (``--prefill-chunk 4``),
+the last chunk traced after the earlier ones ran (``"chunk"``: it reads
+``prompt_len - 128`` packed positions through kernel v4).  The engine's
+steps are its captured graphs (``warmup`` captures them first), or with
+``--eager`` its host-index steps; ``--compare`` traces both.  The report
+adds the page gather's device time (``index_select``'s kernels).
 """
 
 from __future__ import annotations
@@ -79,14 +86,15 @@ def main(argv=None) -> int:
                     help="the f32 leg (f32 activations, dense cache): kernel v2")
     ap.add_argument("--engine", action="store_true",
                     help="trace the continuous-batching engine's decode steps (or, with "
-                    "--prefill, one chunk)")
+                    "--prefill, one batched prefill and graft, and one chunk)")
     ap.add_argument("--eager", action="store_true",
                     help="trace the eager decode step instead of the captured one")
     ap.add_argument("--compare", action="store_true",
                     help="trace the eager decode steps, then the captured ones")
     args = ap.parse_args(argv)
-    if args.compare and (args.eager or args.prefill):
-        ap.error("--compare traces decode steps both ways; it takes no --eager or --prefill")
+    if args.compare and (args.eager or args.prefill and not args.engine):
+        ap.error("--compare traces decode steps (or, with --engine, the engine's prefill "
+                 "and chunk) both ways; it takes no --eager, nor --prefill without --engine")
     if not torch.cuda.is_available():
         raise RuntimeError("profile_decode measures the card: no CUDA device")
     if args.engine and args.f32:
@@ -161,22 +169,30 @@ def _decode_pass(model, params, tokens, cache_len: int, steps: int, eager: bool)
 
 def _profile_engine(args, cfg, model, params, tokens, profile, activity, kind: str) -> None:
     """``--engine``: trace engine decode steps (``kind``: the captured or the
-    eager step; the engine's warm-up captures both graphs), or one chunk
-    (``--prefill``)."""
+    eager steps; the engine's warm-up captures every graph), or one batched
+    prefill and graft and one chunk (``--prefill``)."""
     from ..launch.engine import PVQEngine, Request
 
     chunk = 4  # pages a chunk: 128 tokens at KV block 32
     prompts = [[int(t) for t in row] for row in tokens.cpu()]
     eager = kind == "eager"
+    traced = []
     if args.prefill:
         eng = PVQEngine(model, params, n_slots=args.batch, max_len=args.prompt_len + 32,
+                        prefill_batch=args.batch, eager=eager)
+        eng.warmup([args.prompt_len])
+        for i, prompt in enumerate(prompts):
+            eng.pending.append(Request(rid=i, prompt=prompt, max_new_tokens=2))
+        traced.append((eng.admit_pending, "prefill_graft"))
+        eng = PVQEngine(model, params, n_slots=args.batch, max_len=args.prompt_len + 32,
                         prefill_chunk=chunk, eager=eager)
+        eng.warmup()
         eng.pending.append(Request(rid=0, prompt=prompts[0], max_new_tokens=1))
         eng.admit_pending()
-        n_chunks = -(-args.prompt_len // eng.chunk_tokens)
-        for _ in range(n_chunks - 1):
+        for _ in range(-(-args.prompt_len // eng.chunk_tokens) - 1):
             eng._prefill_step()
-        traced, unit = eng._prefill_step, "chunk"
+        traced.append((eng._prefill_step, "chunk"))
+        units = 1
     else:
         eng = PVQEngine(model, params, n_slots=args.batch,
                         max_len=args.prompt_len + 2 + args.steps + 1, prefill_batch=args.batch,
@@ -187,16 +203,17 @@ def _profile_engine(args, cfg, model, params, tokens, profile, activity, kind: s
         eng.admit_pending()
         for _ in range(2):
             eng.step()
-        traced, unit = eng.step, "engine_step"
-    units = 1 if args.prefill else args.steps
-    torch.cuda.synchronize()
-    with profile(activities=[activity.CPU, activity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(units):
-            traced()
+        traced.append((eng.step, "engine_step"))
+        units = args.steps
+    for fn, unit in traced:
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    print(json.dumps(_report(prof, wall, units, args, cfg, unit, kind)))
+        with profile(activities=[activity.CPU, activity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(units):
+                fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        print(json.dumps(_report(prof, wall, units, args, cfg, unit, kind)))
 
 
 #: the CUDA API calls (``cuda*`` and ``cu*``) that put work on the

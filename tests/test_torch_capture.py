@@ -13,22 +13,37 @@ reduced deepseek-v2-lite-16b (``--pvq --act-int8``), both legs:
 * the telemetry probes, which read values back to the host, bail while a
   graph is being captured (``torch.cuda.is_current_stream_capturing``
   patched to True);
-* the launch-count arithmetic a replay relies on, and ``PagedKV``'s static
-  tables (copied into, never replaced).
+* the launch-count arithmetic a replay relies on, and the harness's
+  per-caller counts, which follow replays the same way; ``PagedKV``'s static
+  tables (copied into, never replaced);
+* the engine's prefill, graft and chunk steps at device indices (the bodies
+  the card captures): ``PagedKV.graft_chunk`` with device slot, start, real
+  length and page ids writes the host-int form's bytes into every real page
+  and ring (the first, a middle, a final partial and an all-trash chunk,
+  and a real length on a page boundary); ``Model.prefill_chunk`` at device
+  indices gives the host-int form's logits bit for bit; the non-eager
+  engine (its static-shape, device-index bodies run eagerly here) gives the
+  ``eager=True`` engine's tokens and real pages where it evicts and where
+  an admission batch holds fewer rows than ``prefill_batch`` (CI's chunked
+  configuration is in ``tests/test_torch_engine.py``), capturing nothing.
 
 The card's side (capture, replay, bit-identity with the eager step) is in
 ``tests/test_torch_cuda.py``.
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
+from _chip_smoke_module import chip_smoke
 
 from repro_torch import kernels
 from repro_torch.configs import get_config
 from repro_torch.core import packed as port_packed
 from repro_torch.core import quantize as port_q
 from repro_torch.core.packed import quantize_params
+from repro_torch.launch import engine as port_engine
 from repro_torch.launch import serve
 from repro_torch.nn.models import Model
 from repro_torch.runtime import obs
@@ -143,6 +158,65 @@ def test_replay_launch_accounting():
     kernels.reset_launches()
 
 
+
+def test_per_caller_counts_follow_replays(monkeypatch):
+    """``chip_smoke.launches_by_caller`` counts a caller's launches as the
+    global counts do: a graph's eager first run once, its capture (which
+    launches nothing) not at all, every replay as its capture counted; the
+    warm-up's counts are kept apart (stand-in classes, capture flagged by
+    patching ``torch.cuda.is_current_stream_capturing``)."""
+    capturing = [False]
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: capturing[0])
+    kern = types.SimpleNamespace(LAUNCHES={"pvq_attn_q": 0, "pvq_encode_batch": 0})
+
+    def attention_prefill_chunk():
+        kern.LAUNCHES["pvq_attn_q"] += 3
+
+    attention = types.SimpleNamespace(attention_prefill_chunk=attention_prefill_chunk)
+
+    class Paged:
+        def graft_chunk(self):
+            kern.LAUNCHES["pvq_encode_batch"] += 2
+
+        def append(self):
+            kern.LAUNCHES["pvq_encode_batch"] += 1
+
+    class Net:
+        def prefill_chunk(self):
+            attention.attention_prefill_chunk()
+            Paged().graft_chunk()
+
+    class Step:
+        def __init__(self, fn, device):
+            fn()
+            capturing[0] = True
+            try:
+                fn()
+            finally:
+                capturing[0] = False
+
+        def replay(self):
+            return "out"
+
+    class Engine:
+        def warmup(self):
+            self.chunk = Step(lambda: Net().prefill_chunk(), None)
+            self.fill = Step(lambda: Paged().append(), None)
+
+    with chip_smoke().launches_by_caller(torch, kern, attention, Paged, Net, Step,
+                                         Engine) as (counts, warm):
+        eng = Engine()
+        eng.warmup()
+        assert [eng.chunk.replay() for _ in range(5)] == ["out"] * 5
+        eng.fill.replay()
+        eng.fill.replay()
+    assert warm == {"v4_from_chunk": 3, "encoder_from_graft": 2, "encoder_from_append": 1,
+                    "chunks_run": 1}
+    assert counts == {"v4_from_chunk": 18, "encoder_from_graft": 12, "encoder_from_append": 3,
+                      "chunks_run": 6}
+    assert Step.replay.__name__ == "replay" and Engine.warmup.__name__ == "warmup"
+    assert Net.prefill_chunk.__name__ == "prefill_chunk"
+
 def test_paged_tables_are_static_buffers():
     """``with_tables`` copies into the pool's device tables (a captured step
     reads them by address) and keeps a host ``write_page`` on the host;
@@ -160,3 +234,131 @@ def test_paged_tables_are_static_buffers():
     b.bind_tables(a.page_table, a.write_page_dev)
     a.with_tables(pt[::-1].copy(), torch.tensor([6, 2]))
     assert b.page_table.tolist() == pt[::-1].tolist() and b.write_page_dev.tolist() == [6, 2]
+
+
+# ---------------------------------------------------------------------------
+# the engine's prefill, graft and chunk steps at device indices
+# ---------------------------------------------------------------------------
+
+PAGE, TRASH = 8, 6
+
+# (slot, start, real_len, page ids of the chunk's two blocks): chunks of 16
+# tokens of a context, as the chunk scheduler cuts them
+GRAFT_CASES = {
+    "first": (1, 0, 21, [3, 0]),
+    "middle": (1, 16, 45, [4, 1]),
+    "final_partial": (0, 32, 45, [2, TRASH]),
+    "real_len_on_a_page_boundary": (1, 16, 32, [5, 1]),
+    "all_trash": (0, 32, 37, [TRASH, TRASH]),
+}
+
+
+def _pool():
+    kvq = port_q.KVQuant(PAGE, 16)
+    pool = port_packed.PagedKV.init(2, TRASH, 6, 2, 16, kvq=kvq, dtype=torch.bfloat16,
+                                    device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    for name in ("tail_k", "tail_v"):  # rings another graft left behind
+        getattr(pool, name).copy_(torch.randn(getattr(pool, name).shape, generator=gen))
+    return pool
+
+
+@pytest.mark.parametrize("case", list(GRAFT_CASES))
+def test_device_index_graft_chunk_writes_the_host_int_bytes(case):
+    """One chunk grafted at host ints and at device indices into two equal
+    pools: identical bytes in every real page and scale and in both rings
+    (the device form also writes the trash page, which nothing reads); the
+    slot's gathered view the same through a host or a device slot."""
+    slot, start, real_len, ids = GRAFT_CASES[case]
+    rng = np.random.default_rng(start + real_len)
+    k, v = (torch.from_numpy(rng.standard_normal((1, 2 * PAGE, 2, 16)).astype(np.float32))
+            for _ in range(2))
+    host, dev = _pool(), _pool()
+    host.graft_chunk(k, v, slot, np.asarray(ids, np.int32), start, real_len)
+    dev.graft_chunk(k, v, torch.tensor([slot]), torch.tensor(ids), torch.tensor([start]),
+                    torch.tensor([real_len]))
+    real = slice(0, TRASH)
+    for name in ("k_pages", "k_page_scales", "v_pages", "v_page_scales"):
+        assert torch.equal(getattr(host, name)[real], getattr(dev, name)[real]), name
+    assert torch.equal(host.tail_k, dev.tail_k) and torch.equal(host.tail_v, dev.tail_v)
+    live = [pid for pid in ids if pid != TRASH]
+    assert all(host.k_pages[pid].abs().sum() > 0 for pid in live)
+    pt = torch.tensor([[3, 0, 4, 1, 2, 5], [5, 2, 1, 4, 0, 3]], dtype=torch.int32)
+    host.with_tables(pt, np.full((2,), TRASH, np.int32))
+    dev.with_tables(pt, np.full((2,), TRASH, np.int32))
+    one_host, one_dev = host.gather_slot(slot), dev.gather_slot(torch.tensor([slot]))
+    for name in ("k_pulses", "v_scales", "tail_k", "tail_v"):
+        assert torch.equal(getattr(one_host, name), getattr(one_dev, name)), name
+
+
+def _chunked_context(model, params, device_index: bool):
+    """A 37-token context of slot 1 in chunks of 16 through
+    ``Model.prefill_chunk`` at host ints or device indices: the logits of
+    each chunk and the paged cache."""
+    cache = model.init_paged_cache(2, 10, 6, device="cpu")
+    pt = np.full((2, 6), 10, np.int32)
+    pt[1, :4] = [7, 2, 5, 0]
+    for leaf in port_engine._paged_leaves(cache):
+        leaf.with_tables(torch.from_numpy(pt), np.full((2,), 10, np.int32))
+    ctx = np.random.default_rng(9).integers(0, model.cfg.vocab_size, 37)
+    out = []
+    for start in (0, 16, 32):
+        toks = np.zeros((1, 16), np.int64)
+        toks[0, : min(16, 37 - start)] = ctx[start : start + 16]
+        ids = np.asarray([pt[1, b] if b < 4 else 10 for b in (start // 8, start // 8 + 1)])
+        args = (1, start, ids, 37)
+        if device_index:
+            args = (torch.tensor([1]), torch.tensor([start]), torch.from_numpy(ids),
+                    torch.tensor([37]))
+        logits, cache = model.prefill_chunk(params, cache, torch.from_numpy(toks), *args)
+        out.append(logits)
+    return out, cache
+
+
+def test_prefill_chunk_at_device_indices_equals_host_ints(reduced):
+    """Reduced smollm, served leg: the three chunks' logits (the last one
+    read at the context's last token) and every real page identical."""
+    model, params = reduced["smollm-360m"]
+    with port_q.act_quant_scope(port_q.ActQuant()), port_q.kv_quant_scope(port_q.KVQuant(8, 16)):
+        want, host = _chunked_context(model, params, device_index=False)
+        got, dev = _chunked_context(model, params, device_index=True)
+    for a, b in zip(want, got):
+        assert a.shape == (1, 1, model.cfg.vocab_size) and torch.equal(a, b)
+    for a, b in zip(port_engine._paged_leaves(host), port_engine._paged_leaves(dev)):
+        for name in ("k_pages", "k_page_scales", "v_pages", "v_page_scales"):
+            assert torch.equal(getattr(a, name)[:10], getattr(b, name)[:10]), name
+        assert torch.equal(a.tail_k, b.tail_k) and torch.equal(a.tail_v, b.tail_v)
+
+
+# (engine arguments, prompt lengths): an evicting pool, and batched
+# admissions of fewer rows than prefill_batch
+ENGINE_CASES = {
+    "evicting": (dict(n_slots=3, n_pages=4, max_len=32), (6, 12)),
+    "short_batches": (dict(n_slots=3, prefill_batch=2, max_len=24), (6, 12)),
+}
+
+
+@pytest.mark.parametrize("case", list(ENGINE_CASES))
+def test_engine_device_index_steps_equal_the_host_index_steps(reduced, case):
+    model, params = reduced["smollm-360m"]
+    eng_kw, lens = ENGINE_CASES[case]
+    runs = {}
+    with port_q.act_quant_scope(port_q.ActQuant()), port_q.kv_quant_scope(port_q.KVQuant(8, 16)):
+        for eager in (True, False):
+            trace = port_engine.poisson_trace(6, rate=0.0, vocab=model.cfg.vocab_size,
+                                              prompt_lens=lens, max_new=8, seed=2)
+            eng = port_engine.PVQEngine(model, params, eager=eager, **eng_kw)
+            eng.warmup([len(r.prompt) for r in trace])
+            runs[eager] = (eng.run(trace), eng)
+    (want, host), (got, dev) = runs[True], runs[False]
+    assert got["outputs"] == want["outputs"] and got["generated_tokens"] == 48
+    assert got["trace_counts"] == {"decode": 0, "prefill": 0, "graft": 0, "chunk": 0}
+    if case == "evicting":
+        assert got["evictions"] == want["evictions"] > 0
+    else:
+        assert got["prefill_rows"] < 2 * got["prefill_batches"]
+    for a, b in zip(port_engine._paged_leaves(host.cache), port_engine._paged_leaves(dev.cache)):
+        real = slice(0, a.trash_page)
+        for name in ("k_pages", "k_page_scales", "v_pages", "v_page_scales"):
+            assert torch.equal(getattr(a, name)[real], getattr(b, name)[real]), name
+        assert torch.equal(a.tail_k, b.tail_k) and torch.equal(a.tail_v, b.tail_v)

@@ -26,6 +26,7 @@ import contextlib
 import numpy as np
 import pytest
 import torch
+from _chip_smoke_module import chip_smoke
 from _encode_rows import encode_rows
 
 from repro_torch.core import quantize as port_q
@@ -973,31 +974,107 @@ def test_cuda_captured_serve_legs_match_eager_and_a_second_generate_captures_not
     assert torch.equal(again, want)
 
 
-@needs_cuda
-def test_cuda_captured_engine_matches_eager_engine():
-    """CI's chunked engine configuration on reduced smollm: the captured
-    engine (both graphs captured by ``warmup``, none in the run) against the
-    eager engine on the same trace: identical tokens and identical bytes in
-    every real page and tail ring of every layer."""
-    from repro_torch.launch.engine import PVQEngine, _paged_leaves, poisson_trace
+def _engines_both_ways(eng_kw, lens, shared):
+    """Reduced smollm through the eager and the captured engine on one
+    trace (6 requests, 8 new tokens, KV block 8): ``({eager: (report,
+    engine, trace_counts after warmup)}, prompt lengths)``."""
+    from repro_torch.launch.engine import PVQEngine, poisson_trace
 
     model, params = _reduced_packed("smollm-360m")
     runs = {}
     with port_q.act_quant_scope(port_q.ActQuant()), port_q.kv_quant_scope(port_q.KVQuant(8, 16)):
         for eager in (True, False):
-            trace = poisson_trace(6, rate=0.0, vocab=model.cfg.vocab_size, prompt_lens=(12, 24),
-                                  max_new=8, seed=2, shared_prefix=64)
-            eng = PVQEngine(model, params, n_slots=2, max_len=96, prefill_chunk=2,
-                            prefill_batch=2, eager=eager)
+            trace = poisson_trace(6, rate=0.0, vocab=model.cfg.vocab_size, prompt_lens=lens,
+                                  max_new=8, seed=2, shared_prefix=shared)
+            eng = PVQEngine(model, params, eager=eager, **eng_kw)
             eng.warmup([len(r.prompt) for r in trace])
             warm = dict(eng.trace_counts)
             runs[eager] = (eng.run(trace), eng, warm)
-    (want, eager_eng, _), (got, eng, warm) = runs[True], runs[False]
-    assert warm == {"decode": 2, "prefill": 0, "graft": 0, "chunk": 0}
-    assert got["trace_counts"] == warm and want["trace_counts"]["decode"] == 0
+    return runs, [len(r.prompt) for r in trace]
+
+
+def _assert_same_tokens_and_pages(runs):
+    from repro_torch.launch.engine import _paged_leaves
+
+    (want, eager_eng, _), (got, eng, _) = runs[True], runs[False]
+    assert want["trace_counts"] == {"decode": 0, "prefill": 0, "graft": 0, "chunk": 0}
     assert got["outputs"] == want["outputs"]
     for a, b in zip(_paged_leaves(eager_eng.cache), _paged_leaves(eng.cache)):
         real = slice(0, a.trash_page)
         for name in ("k_pages", "k_page_scales", "v_pages", "v_page_scales"):
             assert torch.equal(getattr(a, name)[real], getattr(b, name)[real]), name
         assert torch.equal(a.tail_k, b.tail_k) and torch.equal(a.tail_v, b.tail_v)
+
+
+@needs_cuda
+def test_cuda_captured_engine_matches_eager_engine():
+    """CI's chunked engine configuration on reduced smollm: the captured
+    engine (its decode graphs and its chunk graph captured by ``warmup``,
+    none in the run: the reference's ``trace_counts`` with two decode
+    graphs) against the eager engine on the same trace: identical tokens
+    and identical bytes in every real page and tail ring of every layer."""
+    runs, _ = _engines_both_ways(dict(n_slots=2, max_len=96, prefill_chunk=2, prefill_batch=2),
+                                 (12, 24), 64)
+    got, _, warm = runs[False]
+    want = {**chip_smoke().REFERENCE_TRACE_COUNTS["ci engine chunked"], "decode": 2}
+    assert warm == want == {"decode": 2, "prefill": 0, "graft": 0, "chunk": 1}
+    assert got["trace_counts"] == warm and got["chunks"] > 0 and got["prefix_hits"] > 0
+    _assert_same_tokens_and_pages(runs)
+
+
+# (engine arguments, prompt lengths, shared prefix, chip_smoke run name):
+# CI's saturating smoke, and one that admits short prompts in batches of
+# up to 2 rows (buckets 8 and 16) and streams the long ones in chunks
+CAPTURED_ENGINE_CASES = {
+    "ci_saturate": (dict(n_slots=3, max_len=24), (6, 12), 0, "ci engine saturate"),
+    "batched_and_chunked": (dict(n_slots=3, max_len=40, prefill_chunk=2, prefill_batch=2),
+                            (6, 30), 0, None),
+}
+
+
+@needs_cuda
+@pytest.mark.parametrize("case", list(CAPTURED_ENGINE_CASES))
+def test_cuda_captured_prefill_graft_and_chunk_match_eager_engine(case):
+    """The warm-up captures one prefill and one graft graph a prompt bucket
+    (at ``prefill_batch`` rows) and one chunk graph, the run none: the
+    reference's ``trace_counts`` for the same flags with two decode graphs
+    (CI's from ``REFERENCE_TRACE_COUNTS``); the replays give the eager
+    engine's tokens and real pages."""
+    eng_kw, lens, shared, run = CAPTURED_ENGINE_CASES[case]
+    smoke = chip_smoke()
+    runs, prompt_lens = _engines_both_ways(eng_kw, lens, shared)
+    got, eng, warm = runs[False]
+    want = smoke.reference_trace_counts(prompt_lens, eng.page, eng.chunk_tokens)
+    if run is not None:
+        assert want == smoke.REFERENCE_TRACE_COUNTS[run]
+    assert warm == {**want, "decode": 2} and got["trace_counts"] == warm
+    assert warm["prefill"] > 0 and got["prefill_batches"] > 0
+    if eng.chunk_tokens:
+        assert got["chunks"] > 0 and got["prefill_rows"] < 2 * got["prefill_batches"]
+    _assert_same_tokens_and_pages(runs)
+
+
+@needs_cuda
+def test_cuda_failed_engine_capture_raises_and_does_not_fall_back(monkeypatch):
+    """A chunk body that fails while it is being captured (its eager first
+    run succeeds): ``warmup`` raises, no chunk graph is kept or counted, and
+    the next chunk raises again instead of running eagerly."""
+    from repro_torch.launch.engine import PVQEngine
+
+    model, params = _reduced_packed("smollm-360m")
+    body = PVQEngine._chunk_body
+
+    def failing(self):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("injected capture failure")
+        return body(self)
+
+    monkeypatch.setattr(PVQEngine, "_chunk_body", failing)
+    with port_q.act_quant_scope(port_q.ActQuant()), port_q.kv_quant_scope(port_q.KVQuant(8, 16)):
+        eng = PVQEngine(model, params, n_slots=2, max_len=48, prefill_chunk=2)
+        with pytest.raises(RuntimeError, match="injected capture failure"):
+            eng.warmup([12])
+        assert eng.trace_counts["chunk"] == 0
+        assert not [key for key in eng._graphs if key[0] == "chunk"]
+        with pytest.raises(RuntimeError, match="injected capture failure"):
+            eng.warmup([12])

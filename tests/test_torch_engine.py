@@ -27,9 +27,15 @@
   through the port; ``serve --engine`` with CI's flags on the CPU (no
   ``--min-speedup``: a loaded CPU worker's clock is no test), its
   telemetry, and its refusal to run without a card.
-* The engine's captured step body (device tables, the trash-scatter fill)
-  against its host-table step: identical tokens and real pages.  Both
-  reports hold the reference's ``trace_counts`` keys (all 0 on the CPU).
+* The engine's captured step bodies (device tables, the trash-scatter
+  fill, the chunk at device indices) against its host-index steps:
+  identical tokens and real pages.  Both reports hold the reference's
+  ``trace_counts`` keys (all 0 on the CPU).  The reference's counts for
+  CI's two engine configurations are ``chip_smoke.py``'s
+  ``REFERENCE_TRACE_COUNTS``, which the card's runs hold the port's
+  captures to, and its rule for a run without evictions
+  (``chip_smoke.reference_trace_counts``) gives them in all three
+  configurations.
 """
 
 import jax
@@ -37,6 +43,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _chip_smoke_module import chip_smoke
 
 from repro.configs import get_config as ref_get_config
 from repro.core import packed as ref_packed
@@ -368,7 +375,18 @@ def _serve_trace(mod, vocab, prompt, gen, shared):
                              max_new=gen, seed=2, shared_prefix=shared)
 
 
+_RUNS = {}
+
+
 def _run_both(reduced, name, act_int8):
+    """Both engines on ``name``'s trace (once a module: later callers take
+    the first run's results)."""
+    if (name, act_int8) not in _RUNS:
+        _RUNS[name, act_int8] = _run_both_once(reduced, name, act_int8)
+    return _RUNS[name, act_int8]
+
+
+def _run_both_once(reduced, name, act_int8):
     ref_cfg, ref_model, ref_params, port_model, port_params = reduced
     eng_kw, flags = CONFIGS[name]
     max_len = ref_engine.bucket_len(flags["shared"] + flags["prompt"] + flags["gen"], KVQ_BLOCK)
@@ -413,6 +431,26 @@ def test_engines_agree_on_the_same_trace(reduced, name):
                                                       ref_res["outputs"])
             assert ref_ag["engine_token_agreement"] < 0.99, (port_ag, ref_ag)
             assert port_ag["engine_token_agreement"] >= ref_ag["engine_token_agreement"] - 1 / 48
+
+
+# CONFIGS' names of CI's two engine smokes -> chip_smoke.py's
+CHIP_SMOKE_RUNS = {"ci_saturate": "ci engine saturate", "ci_chunked": "ci engine chunked"}
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_reference_trace_counts_are_chip_smokes(reduced, name):
+    """The reference engine's ``trace_counts`` after warm-up and run: CI's
+    two configurations give ``chip_smoke.REFERENCE_TRACE_COUNTS``, and every
+    configuration gives what ``chip_smoke.reference_trace_counts`` derives
+    from its trace (it evicts in the third without a new bucket)."""
+    smoke = chip_smoke()
+    trace, ref_res, _ = _run_both(reduced, name, act_int8=True)
+    eng_kw = CONFIGS[name][0]
+    if name in CHIP_SMOKE_RUNS:
+        assert ref_res["trace_counts"] == smoke.REFERENCE_TRACE_COUNTS[CHIP_SMOKE_RUNS[name]]
+    chunk_tokens = eng_kw.get("prefill_chunk", 0) * KVQ_BLOCK
+    assert ref_res["trace_counts"] == smoke.reference_trace_counts(
+        [len(r.prompt) for r in trace], KVQ_BLOCK, chunk_tokens)
 
 
 def test_engines_give_identical_tokens_with_f32_activations(reduced):
@@ -513,11 +551,13 @@ def test_per_slot_positions_need_the_paged_cache(port_model):
 
 
 def test_engine_trash_scatter_fill_matches_the_host_table_step(reduced):
-    """CI's chunked configuration through the engine's captured step body
-    (run eagerly here: device tables, every ring encoded on a fill step and
-    the rest scattered to the trash page) and through the host-table step
-    (``eager=True``: the completing rings alone): identical tokens, and
-    identical bytes in every real page and tail ring of every layer."""
+    """CI's chunked configuration (chunks, prefix hits) through the
+    engine's captured step bodies (run eagerly here: device tables, every
+    ring encoded on a fill step and the rest scattered to the trash page;
+    each chunk at device slot, start and page ids, every block encoded)
+    and through the host-index steps (``eager=True``: the completing rings
+    and the real blocks alone): identical tokens, and identical bytes in
+    every real page and tail ring of every layer."""
     _, _, _, port_model, port_params = reduced
     eng_kw, flags = CONFIGS["ci_chunked"]
     max_len = port_engine.bucket_len(flags["shared"] + flags["prompt"] + flags["gen"], KVQ_BLOCK)
