@@ -101,7 +101,20 @@ order, it:
    kernel phase times v4 at the chunk caller's shape (BH 5, m 384, hd 64,
    kv_len 256 of 416 and 1920 of 2048 positions) against SDPA under the
    same length mask;
-8. prints the ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
+8. the tune phase (``serve --tune``, the autotuner's cache a fresh file):
+   full-width smollm-360m served with the first phase's flags plus
+   ``--tune``, then engine run (a) with ``--tune``, then the autotuner
+   over deepseek-v2-lite-16b's ``--tune`` shape set (``serve.tune_config``,
+   expert banks included; no second deepseek serve), then the first serve
+   again on the same cache; the searches must be more than 0, every served
+   token and the f32 leg identical to the untuned serves of this process,
+   and the second serve all hits (no search, no miss, as many hits as the
+   first made lookups); prints, for every key, the rule's choice and its
+   median time beside the tuned choice and its time;
+9. prints the ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
+
+Until the tune phase the autotuner's cache is a path that does not exist,
+so every earlier phase runs the rules' choices, as without the tuner.
 
 Any failed phase, kernel mismatch or missed gate raises.  The full-width
 served legs' agreement with their f32 legs is printed, not gated: the JAX
@@ -115,12 +128,14 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import os
 from functools import partial
 import re
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import weakref
 from pathlib import Path
@@ -905,6 +920,14 @@ def check_encode(torch, timer, enc):
     return entry, rows
 
 
+def _plain_for_cuda(plain):
+    """``plain`` answering for a CUDA entry point: the dispatch's tile
+    arguments (``_body``, ``_chunk``, ``_plan``, ``_tuned``) are dropped."""
+    def call(*args, **kwargs):
+        return plain(*args, **{k: v for k, v in kwargs.items() if not k.startswith("_")})
+    return call
+
+
 @contextlib.contextmanager
 def plain_versions(mm, enc):
     """For the duration, each kernel wrapper's CUDA entry point is answered
@@ -917,7 +940,7 @@ def plain_versions(mm, enc):
                                (mm, "pvq_attn_q"), (enc, "pvq_encode_batch"))]
     try:
         for mod, name, _ in saved:
-            setattr(mod, name + "_cuda", getattr(mod, name + "_plain"))
+            setattr(mod, name + "_cuda", _plain_for_cuda(getattr(mod, name + "_plain")))
         yield
     finally:
         for mod, name, fn in saved:
@@ -1101,7 +1124,8 @@ def serve_full(torch, serve, kernels_mod, mm, enc, quant, routing, argv, *, kvq,
     parameters through the plain versions on the card.  ``kvq`` is the
     served leg's KV contract (None: dense cache); ``expect`` names the
     kernels the path must launch.  Returns the launch counts, kernel v3's
-    by body and kernel v2's by body."""
+    by body, kernel v2's by body, and the served tokens and both legs'
+    teacher-forced logits (on the host, for the tune phase)."""
     batch, prompt, gen = (int(argv[argv.index(f) + 1]) for f in ("--batch", "--prompt-len", "--gen"))
     torch.cuda.reset_peak_memory_stats()
     kernels_mod.reset_launches()
@@ -1206,7 +1230,8 @@ def serve_full(torch, serve, kernels_mod, mm, enc, quant, routing, argv, *, kvq,
     # holds it
     if legs["f32"]["agreement"] < AGREEMENT_MIN:
         fail(f"full-width f32 leg: kernel path vs plain path agreement {legs['f32']}")
-    return counts, bodies, v2_bodies
+    kept = {k: state[k].cpu() for k in ("seq", "logits_q", "logits_f")}
+    return counts, bodies, v2_bodies, kept
 
 
 def serve_reduced(serve, argv, kernels_mod, expect=(), what="reduced"):
@@ -1367,7 +1392,7 @@ def serve_engine(torch, serve, kernels_mod, mm, enc, quant, argv, what, gates):
     from graft and append, and as many chunk steps as the report counts.
     Prints the host wall of an admission's
     prefill and graft and of a chunk, captured and eager.  Returns the
-    launch counts and the printed summary."""
+    launch counts, the printed summary and the engine's tokens by request."""
     from repro_torch.core.packed import PagedKV
     from repro_torch.launch.capture import CapturedStep
     from repro_torch.launch.engine import PVQEngine, Request, _paged_leaves
@@ -1417,11 +1442,14 @@ def serve_engine(torch, serve, kernels_mod, mm, enc, quant, argv, what, gates):
         names = {r["name"] for r in telemetry.validate_metrics_jsonl(metrics + "/metrics.jsonl")}
         spans = {e["name"] for e in telemetry.validate_chrome_trace(metrics + "/trace.json")}
         # the captures' counter and gauge beside what CI's schema gate requires
-        need = (set(telemetry.ENGINE_REQUIRED_METRICS) - {"autotune.lookups"}
-                | {"serve.decode_step_traces", "engine.trace_count"})
+        need = set(telemetry.ENGINE_REQUIRED_METRICS) | {"serve.decode_step_traces",
+                                                          "engine.trace_count"}
         if not need <= names or not set(telemetry.ENGINE_REQUIRED_SPANS) <= spans:
             fail(f"{what}: telemetry lacks {sorted(need - names)} "
                  f"{sorted(set(telemetry.ENGINE_REQUIRED_SPANS) - spans)}")
+        # CI's gate itself: python -m repro_torch.runtime.telemetry --validate DIR
+        # --require-engine
+        telemetry.validate_dir(metrics, require_engine=True)
 
     if what in REFERENCE_TRACE_COUNTS:
         expected = dict(REFERENCE_TRACE_COUNTS[what])
@@ -1496,7 +1524,100 @@ def serve_engine(torch, serve, kernels_mod, mm, enc, quant, argv, what, gates):
         fail(f"{what}: engine tokens through the kernels differ from the plain versions'")
     if not eager_identical:
         fail(f"{what}: the captured engine's tokens or real pages differ from the eager engine's")
-    return counts, summary
+    return counts, summary, state["outputs"]
+
+
+# the tune phase: smollm's first phase and engine run (a) with --tune, then
+# the same serve again on the same cache (every lookup a hit)
+TUNE_SERVE = FULL_SERVE + ["--tune"]
+TUNE_ENGINE = FULL_ENGINE_A + ["--tune"]
+TUNE_CACHE_ENV = "REPRO_TORCH_PVQ_TUNE_CACHE"
+
+
+def _choice(entry):
+    """An entry's choice and the rule's, as printed."""
+    if "body" in entry:
+        return [entry["body"], entry["chunk"]], entry["rule"]
+    if "km" in entry:
+        return [entry["km"], entry["w"]], entry["rule"]
+    return entry["delta_max"], entry["rule"]
+
+
+def tune_phase(torch, serve, kernels_mod, untuned, untuned_engine, smi, cache):
+    """``serve --tune`` against the untuned serves of this process, with the
+    autotuner's cache at ``cache`` (a fresh path): see the module docstring,
+    item 8.  Returns the summary it prints."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import autotune
+
+    t0 = time.time()
+    os.environ[TUNE_CACHE_ENV] = str(cache)
+    autotune.clear_memory_cache()
+    reports, same = {}, {}
+
+    def tuned_serve(what, argv):
+        kernels_mod.reset_launches()
+        report, rc, state = serve.run(argv, return_state=True)
+        if rc != 0 and "agreement_fail" not in report:
+            fail(f"tune phase, {what}: exited {rc}: {report}")
+        reports[what] = {k: report[k] for k in ("tuned_tiles", "tune_wall_s", "tune_stats")}
+        return state
+
+    for what in ("smollm-360m --tune", "smollm-360m --tune, again"):
+        state = tuned_serve(what, TUNE_SERVE)
+        same[what] = {leg: torch.equal(state[leg].cpu(), untuned[leg])
+                      for leg in ("seq", "logits_q", "logits_f")}
+        del state
+        if what == "smollm-360m --tune":
+            gc.collect()
+            torch.cuda.empty_cache()
+            state = tuned_serve("smollm-360m engine (a) --tune", TUNE_ENGINE)
+            same["smollm-360m engine (a) --tune"] = {
+                "outputs": state["outputs"] == untuned_engine}
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+            # deepseek's shape set, expert banks included, without a serve
+            cfg = get_config(MOE_ARCH)
+            args = serve.build_parser().parse_args(MOE_FULL_SERVE + ["--tune"])
+            report = serve.tune_config(cfg, args, torch.device("cuda"))
+            reports[f"{MOE_ARCH} shape set"] = {k: report[k] for k in
+                                                ("tuned_tiles", "tune_wall_s", "tune_stats")}
+    entries = json.loads(Path(cache).read_text())
+    rows = []
+    for key, entry in sorted(entries.items()):
+        tuned, rule = _choice(entry)
+        spread = max(entry["spread_us"], entry["rule_spread_us"])
+        row = {"tune_key": key, "rule": rule, "rule_us": entry["rule_us"],
+               "rule_spread_us": entry["rule_spread_us"], "tuned": tuned, "us": entry["us"],
+               "spread_us": entry["spread_us"], "candidates": entry["candidates"],
+               "rule_over_tuned": entry["rule_us"] / entry["us"] if entry["us"] else None,
+               "beats_rule_beyond_spread": entry["rule_us"] - entry["us"] > spread}
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    first, again = (reports[w]["tune_stats"] for w in ("smollm-360m --tune",
+                                                       "smollm-360m --tune, again"))
+    searches = sum(r["tune_stats"]["searches"] for r in reports.values())
+    summary = {"tune_phase": {
+        "card": smi, "cache": str(cache), "keys": len(entries), "searches": searches,
+        "search_s": sum(r["tune_stats"]["search_s"] for r in reports.values()),
+        "tune_wall_s": {w: r["tune_wall_s"] for w, r in reports.items()},
+        "stats": {w: {k: r["tune_stats"][k] for k in ("hits", "misses", "searches")}
+                  for w, r in reports.items()},
+        "identical_to_untuned": same,
+        "beats_rule_beyond_spread": [r["tune_key"] for r in rows if r["beats_rule_beyond_spread"]],
+        "seconds": round(time.time() - t0, 2)}}
+    print(json.dumps(summary), flush=True)
+    if searches <= 0:
+        fail(f"tune phase: no search ran: {summary}")
+    if not all(all(v.values()) for v in same.values()):
+        fail(f"tune phase: a tuned serve differs from the untuned one: {same}")
+    if again["searches"] or again["misses"] or again["hits"] != first["hits"] + first["misses"] \
+            or set(again["by_key"]) != set(first["by_key"]):
+        fail(f"tune phase: the second --tune serve was not all hits: {again} after {first}")
+    if reports["smollm-360m --tune, again"]["tuned_tiles"] != reports["smollm-360m --tune"]["tuned_tiles"]:
+        fail("tune phase: the second --tune serve reported other choices")
+    return summary
 
 
 def start_ptxas_report(build, source="pvq_matmul"):
@@ -1571,6 +1692,17 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
 
+    # until the tune phase, the autotuner's cache is a path that does not
+    # exist: every dispatch takes the rules' choices
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_")
+    os.environ[TUNE_CACHE_ENV] = str(Path(scratch) / "untuned.json")
+    try:
+        return run_phases(torch, tree, kernels_only, smi, Path(scratch))
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+
+
+def run_phases(torch, tree, kernels_only, smi, scratch) -> int:
     import repro_torch.kernels as kernels_mod
     from repro_torch.core import quantize as quant
     from repro_torch.core.quantize import quantize_activations
@@ -1615,12 +1747,12 @@ def main() -> int:
 
     routing = RoutingLog(moe)
     counts, bodies, v2_bodies = {}, {}, {}
-    counts["smollm-360m"], bodies["smollm-360m"], v2_bodies["smollm-360m"] = serve_full(
+    counts["smollm-360m"], bodies["smollm-360m"], v2_bodies["smollm-360m"], untuned = serve_full(
         torch, serve, kernels_mod, mm, enc, quant, routing, FULL_SERVE,
         kvq=quant.KVQuant(KV_BLOCK, KV_GROUP), expect=SMOLLM_KERNELS, smi=smi)
     gc.collect()  # the smollm model and its graphs are gone: the card is free for deepseek
     torch.cuda.empty_cache()
-    counts[MOE_ARCH], bodies[MOE_ARCH], v2_bodies[MOE_ARCH] = serve_full(
+    counts[MOE_ARCH], bodies[MOE_ARCH], v2_bodies[MOE_ARCH], _ = serve_full(
         torch, serve, kernels_mod, mm, enc, quant, routing, MOE_FULL_SERVE, kvq=None,
         expect=MOE_KERNELS, smi=smi)
     routing.close()
@@ -1635,12 +1767,16 @@ def main() -> int:
              f"{long_ctx.get('kv_bytes_ratio_vs_f32')} > {KV_BYTES_RATIO_MAX}")
     serve_reduced(serve, CI_PROMPT8_SERVE, kernels_mod, expect=("pvq_matmul_q", "pvq_matmul"),
                   what="ci prompt-8")
-    engine = {}
+    engine, engine_outputs = {}, {}
     for what, argv, gate in ENGINE_RUNS:
-        counts[what], engine[what] = serve_engine(torch, serve, kernels_mod, mm, enc, quant,
-                                                  argv, what, gate)
+        counts[what], engine[what], engine_outputs[what] = serve_engine(
+            torch, serve, kernels_mod, mm, enc, quant, argv, what, gate)
         gc.collect()
         torch.cuda.empty_cache()
+    tune_phase(torch, serve, kernels_mod, untuned, engine_outputs["smollm-360m engine (a)"], smi,
+               scratch / "tune.json")
+    gc.collect()
+    torch.cuda.empty_cache()
     run_b = engine["smollm-360m engine (b)"]
     # the timed runs' (replays counted, the warm-up's taken off)
     entries["pvq_attn_q"]["launches_from_chunk_caller"] = {

@@ -1,13 +1,19 @@
 """Kernel dispatch layer (port of ``repro.kernels.ops``).
 
-Every caller goes through this module.  The route is chosen by the device
-of the operands, and there are exactly two:
+Every caller goes through this module.  Each call first looks its key up
+in the autotuner (``kernels.autotune``: the body and splitk chunk of a
+matmul, kernel v4's plan, the encoder's ``delta_max``), on both routes, as
+the reference's dispatch does; a tuned entry wins, else the rule decides
+(``pvq_matmul._v3_body``, ``_v2_body``, ``_v3_decode_plan``, ``_v4_plan``,
+``pvq_encode.DELTA_MAX``).  Then the route is chosen by the device of the
+operands, and there are exactly two:
 
-* a CUDA tensor launches the hand-written Hopper kernel (or raises);
+* a CUDA tensor launches the hand-written Hopper kernel with that choice
+  (where the operands do not fit a tuned body, the rule's runs: both are
+  exact), or raises;
 * a CPU tensor runs the kernel's plain PyTorch version.
 
-There is no fallback between them.  The kernels' tiles are their own fixed
-choice (an autotuner is later work).
+There is no fallback between them.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from . import autotune
 from . import pvq_encode as enc
 from . import pvq_matmul as mm
 
@@ -62,13 +69,25 @@ def pvq_matmul(
     kernel v2."""
     out_dtype = x.dtype
     x, act_scale = _quantize_x(x, act_quant, group=group)
-    route = _route(x)
+    tuned = _tuned(autotune.get_tiles(x.shape[0], x.shape[-1], w_pulses.shape[-1], group=group,
+                                      dtype=x.dtype, device=x.device))
+    cuda = _route(x) == "cuda"
     if act_scale is not None:
-        fn = mm.pvq_matmul_q_cuda if route == "cuda" else mm.pvq_matmul_q_plain
-        return fn(x, w_pulses, scales, act_scale, bias, group=group,
-                  activation=activation, out_dtype=out_dtype)
-    fn = mm.pvq_matmul_cuda if route == "cuda" else mm.pvq_matmul_plain
-    return fn(x, w_pulses, scales, bias, group=group, activation=activation)
+        if cuda:
+            return mm.pvq_matmul_q_cuda(x, w_pulses, scales, act_scale, bias, group=group,
+                                        activation=activation, out_dtype=out_dtype, **tuned)
+        return mm.pvq_matmul_q_plain(x, w_pulses, scales, act_scale, bias, group=group,
+                                     activation=activation, out_dtype=out_dtype)
+    if cuda:
+        return mm.pvq_matmul_cuda(x, w_pulses, scales, bias, group=group,
+                                  activation=activation, **tuned)
+    return mm.pvq_matmul_plain(x, w_pulses, scales, bias, group=group, activation=activation)
+
+
+def _tuned(tiles) -> dict:
+    """A matmul wrapper's arguments for the autotuner's ``(body, chunk)``."""
+    body, chunk = tiles
+    return {"_body": body, "_chunk": chunk or None, "_tuned": True}
 
 
 def packed_matmul(
@@ -146,13 +165,22 @@ def packed_matmul_stacked(
         act_scale = act_scale.to(torch.float32)
     else:
         x, act_scale = _quantize_x(x, act_quant, group=packed.group)
-    route = _route(x)
+    tuned = _tuned(autotune.get_tiles(x.shape[1], k_pad, packed.pulses.shape[-1],
+                                      group=packed.group, dtype=x.dtype, e=e, device=x.device))
+    cuda = _route(x) == "cuda"
     if act_scale is not None:
-        fn = mm.pvq_matmul_q_batched_cuda if route == "cuda" else mm.pvq_matmul_q_batched_plain
-        return fn(x, packed.pulses, packed.scales, act_scale, group=packed.group,
-                  activation=activation, out_dtype=out_dtype)
-    fn = mm.pvq_matmul_batched_cuda if route == "cuda" else mm.pvq_matmul_batched_plain
-    return fn(x, packed.pulses, packed.scales, group=packed.group, activation=activation)
+        if cuda:
+            return mm.pvq_matmul_q_batched_cuda(x, packed.pulses, packed.scales, act_scale,
+                                                group=packed.group, activation=activation,
+                                                out_dtype=out_dtype, **tuned)
+        return mm.pvq_matmul_q_batched_plain(x, packed.pulses, packed.scales, act_scale,
+                                             group=packed.group, activation=activation,
+                                             out_dtype=out_dtype)
+    if cuda:
+        return mm.pvq_matmul_batched_cuda(x, packed.pulses, packed.scales, group=packed.group,
+                                          activation=activation, **tuned)
+    return mm.pvq_matmul_batched_plain(x, packed.pulses, packed.scales, group=packed.group,
+                                       activation=activation)
 
 
 # ---------------------------------------------------------------------------
@@ -190,11 +218,16 @@ def pvq_attn_decode(q: torch.Tensor, kv, kv_len: torch.Tensor, *, sm_scale: floa
     # the planes go in their own (b, S, n_kv, X) layout: row bh of the
     # kernel is (batch bh // n_kv, kv head bh % n_kv)
     kv_len_bh = kv_len.to(torch.int32)[:, None].expand(b, n_kv).reshape(b * n_kv)
-    fn = mm.pvq_attn_q_cuda if _route(q) == "cuda" else mm.pvq_attn_q_plain
-    acc, m_run, l_run = fn(
-        q_i8, a_scale, kv.k_pulses, kv.k_scales, kv.v_pulses, kv.v_scales, kv_len_bh,
-        group=kv.group, sm_scale=sm_scale,
-    )
+    s = kv.k_pulses.shape[1]
+    km, w = autotune.get_attn_tiles(m, hd, s, group=kv.group, dtype=torch.int8,
+                                    device=q.device)
+    args = (q_i8, a_scale, kv.k_pulses, kv.k_scales, kv.v_pulses, kv.v_scales, kv_len_bh)
+    if _route(q) == "cuda":
+        plan = (km, w, -(-mm._v4_blocks(s) // w))
+        acc, m_run, l_run = mm.pvq_attn_q_cuda(*args, group=kv.group, sm_scale=sm_scale,
+                                               _plan=plan, _tuned=True)
+    else:
+        acc, m_run, l_run = mm.pvq_attn_q_plain(*args, group=kv.group, sm_scale=sm_scale)
 
     def from_bh(x):  # (b*n_kv, m, X) -> (b, q_len, n_kv, gpr, X)
         return x.reshape(b, n_kv, q_len, gpr, x.shape[-1]).permute(0, 2, 1, 3, 4)
@@ -211,8 +244,13 @@ def pvq_encode(
     w: torch.Tensor, *, k_pulses: int, delta_max: Optional[int] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched PVQ projection of ``w (g, n)`` onto P(n, K): returns
-    ``(pulses int32 (g, n), rho_ls f32 (g,))``."""
-    delta_max = enc.DELTA_MAX if delta_max is None else int(delta_max)
+    ``(pulses int32 (g, n), rho_ls f32 (g,))``.  ``delta_max`` defaults to
+    the autotuner's (a tuned entry, else ``pvq_encode.DELTA_MAX``); an
+    explicit value wins."""
+    if delta_max is None:
+        delta_max = autotune.get_encode_params(w.shape[0], w.shape[-1], k_pulses,
+                                               dtype=w.dtype, device=w.device)
+    delta_max = int(delta_max)
     fn = enc.pvq_encode_batch_cuda if _route(w) == "cuda" else enc.pvq_encode_batch_plain
     return fn(w, k_pulses=k_pulses, delta_max=delta_max)
 

@@ -23,6 +23,9 @@ from ..core.pvq import _scales, pvq_quantize_direction_fast
 
 #: the reference's heuristic default bounding the exact greedy tail
 DELTA_MAX = 32
+#: the encoder body's version: part of every tuned encoder entry's key, so
+#: a change to ``csrc/pvq_encode.cu`` that moves its timing is bumped here
+ENCODE_KERNEL_VERSION = 1
 
 
 def pvq_encode_batch_plain(

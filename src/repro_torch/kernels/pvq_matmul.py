@@ -22,6 +22,11 @@ import torch
 from . import LAUNCHES, V2_BODY_LAUNCHES, V3_BODY_LAUNCHES
 from . import build
 
+#: the bodies' version: part of every tuned entry's key, so a change to a
+#: kernel body (``csrc/``) that moves its timing is bumped here and every
+#: entry timed against the old body misses
+KERNEL_VERSION = 1
+
 ACTIVATIONS = ("none", "relu", "relu2", "gelu", "silu")
 #: kernel v3's bodies, in the C launchers' numbering
 V3_BODIES = ("splitk", "direct", "mma")
@@ -182,29 +187,38 @@ def _v2_body(m: int, k: int, n: int, group: int, x_ptr: int, w_ptr: int,
     return "mma" if _v2_mma_fits(k, n, group, x_ptr, w_ptr, x_dtype) else "direct"
 
 
-def _pick_v2_body(body: Optional[str], m, k, n, group, xc, wc) -> str:
-    """The rule's body, or ``body`` where a caller names one (the checks
-    that compare bodies on the card); the mma and splitk bodies are refused
-    where the operands do not fit them."""
+def _pick_v2_body(body: Optional[str], m, k, n, group, xc, wc, tuned: bool = False) -> str:
+    """The rule's body, or ``body`` where a caller names one: a check that
+    compares bodies on the card (the mma and splitk bodies are refused where
+    the operands do not fit them) or, with ``tuned``, the autotuner's choice
+    (where the operands do not fit it, the rule's body runs)."""
+    xp, wp = xc.data_ptr(), wc.data_ptr()
     if body is None:
-        return _v2_body(m, k, n, group, xc.data_ptr(), wc.data_ptr(), xc.dtype)
+        return _v2_body(m, k, n, group, xp, wp, xc.dtype)
     if body not in V2_BODIES:
-        raise ValueError(f"unknown v2 body {body!r}; expected one of {V2_BODIES}")
-    if body == "mma" and not _v2_mma_fits(k, n, group, xc.data_ptr(), wc.data_ptr(), xc.dtype):
-        raise ValueError(f"the v2 mma body needs group % 16 == 0, n % 16 == 0 and 16-byte "
-                         f"aligned rows (k {k}, n {n}, group {group}, {xc.dtype})")
-    if body == "splitk" and (m > 8 or not _v2_splitk_fits(k, n, group, xc.data_ptr(),
-                                                          wc.data_ptr(), xc.dtype)):
-        raise ValueError(f"the v2 splitk body needs m <= 8, group % 4 == 0 and n % 16 == 0 "
-                         f"(m {m}, k {k}, n {n}, group {group})")
-    return body
+        problem = f"unknown v2 body {body!r}; expected one of {V2_BODIES}"
+    elif body == "mma" and not _v2_mma_fits(k, n, group, xp, wp, xc.dtype):
+        problem = (f"the v2 mma body needs group % 16 == 0, n % 16 == 0 and 16-byte "
+                   f"aligned rows (k {k}, n {n}, group {group}, {xc.dtype})")
+    elif body == "splitk" and (m > 8 or not _v2_splitk_fits(k, n, group, xp, wp, xc.dtype)):
+        problem = (f"the v2 splitk body needs m <= 8, group % 4 == 0 and n % 16 == 0 "
+                   f"(m {m}, k {k}, n {n}, group {group})")
+    else:
+        return body
+    if tuned:
+        return _v2_body(m, k, n, group, xp, wp, xc.dtype)
+    raise ValueError(problem)
 
 
 def pvq_matmul_cuda(
     x: torch.Tensor, w_pulses: torch.Tensor, scales: torch.Tensor,
     bias: Optional[torch.Tensor] = None, *, group: int, activation: str = "none",
-    _body: Optional[str] = None,
+    _body: Optional[str] = None, _chunk: Optional[int] = None, _tuned: bool = False,
 ) -> torch.Tensor:
+    """Kernel v2 on the rule's body and splitk plan, or ``_body`` and
+    ``_chunk`` where a caller names them: a check (refused where the
+    operands do not fit them) or, with ``_tuned``, the autotuner's choice
+    (the rule's where they do not fit)."""
     m, k, n = _check_matmul(x, w_pulses, scales, group, bias, activation)
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"pvq_matmul takes f32 or bf16 x, got {x.dtype}")
@@ -212,10 +226,10 @@ def pvq_matmul_cuda(
     wc = _cuda_operand(w_pulses, torch.int8, "w_pulses")
     sc = _cuda_operand(scales, torch.float32, "scales")
     bc = None if bias is None else _cuda_operand(bias, torch.float32, "bias")
-    body = _pick_v2_body(_body, m, k, n, group, xc, wc)
+    body = _pick_v2_body(_body, m, k, n, group, xc, wc, _tuned)
+    plan = _splitk_plan(body, 1, m, k, n, group, _choice(_body, _chunk, body), _tuned)
     stream = _stream(x)
-    plan, scratch, counters = _splitk_buffers(body, 1, m, k, n, group, x.device, stream,
-                                              torch.float64)
+    scratch, counters = _splitk_buffers(plan, 1, m, n, x.device, stream, torch.float64)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     status = build.launcher("pvq_matmul_launch")(
         xc.data_ptr(), wc.data_ptr(), sc.data_ptr(), _ptr(bc), ACTIVATIONS.index(activation),
@@ -285,21 +299,26 @@ def _v3_body(m: int, k: int, n: int, group: int, x_ptr: int, w_ptr: int) -> str:
     return "mma" if _mma_fits(k, n, group, x_ptr, w_ptr) else "direct"
 
 
-def _pick_body(body: Optional[str], m, k, n, group, xc, wc) -> str:
-    """The rule's body, or ``body`` where a caller names one (the checks
-    that compare bodies on the card); the mma and splitk bodies are refused
-    where the operands do not fit them."""
+def _pick_body(body: Optional[str], m, k, n, group, xc, wc, tuned: bool = False) -> str:
+    """The rule's body, or ``body`` where a caller names one: a check that
+    compares bodies on the card (the mma and splitk bodies are refused where
+    the operands do not fit them) or, with ``tuned``, the autotuner's choice
+    (where the operands do not fit it, the rule's body runs)."""
+    xp, wp = xc.data_ptr(), wc.data_ptr()
     if body is None:
-        return _v3_body(m, k, n, group, xc.data_ptr(), wc.data_ptr())
+        return _v3_body(m, k, n, group, xp, wp)
     if body not in V3_BODIES:
-        raise ValueError(f"unknown v3 body {body!r}; expected one of {V3_BODIES}")
-    if body == "mma" and not _mma_fits(k, n, group, xc.data_ptr(), wc.data_ptr()):
-        raise ValueError(f"the mma body needs group % 32 == 0 and n % 16 == 0 "
-                         f"(k {k}, n {n}, group {group})")
-    if body == "splitk" and (m > 8 or not _splitk_fits(k, n, group, xc.data_ptr(), wc.data_ptr())):
-        raise ValueError(f"the splitk body needs m <= 8, group % 4 == 0 and n % 16 == 0 "
-                         f"(m {m}, k {k}, n {n}, group {group})")
-    return body
+        problem = f"unknown v3 body {body!r}; expected one of {V3_BODIES}"
+    elif body == "mma" and not _mma_fits(k, n, group, xp, wp):
+        problem = f"the mma body needs group % 32 == 0 and n % 16 == 0 (k {k}, n {n}, group {group})"
+    elif body == "splitk" and (m > 8 or not _splitk_fits(k, n, group, xp, wp)):
+        problem = (f"the splitk body needs m <= 8, group % 4 == 0 and n % 16 == 0 "
+                   f"(m {m}, k {k}, n {n}, group {group})")
+    else:
+        return body
+    if tuned:
+        return _v3_body(m, k, n, group, xp, wp)
+    raise ValueError(problem)
 
 
 #: SMs of the H100 SXM; the splitk plan aims at two CTAs on each
@@ -343,23 +362,54 @@ def _v3_decode_plan(e: int, m: int, k: int, n: int, group: int) -> Tuple[int, in
 _SPLITK_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
-def _splitk_buffers(body: str, e: int, m: int, k: int, n: int, group: int,
-                    device: torch.device, stream: int, partial: torch.dtype = torch.int32):
-    """The splitk body's plan ``(cols, chunk, splits)``, a ``torch.empty``
-    scratch for its ``(e, splits, m, n)`` partials (int32 for v3, f64 for
-    v2) and the stream's counters (both None where the plan does not split
-    k); zeros and None for the other bodies."""
+def _splitk_chunk_fits(e: int, k: int, n: int, group: int, chunk: int) -> bool:
+    """Whether the splitk bodies take ``chunk`` k rows a CTA: all of k (no
+    split), or a divisor of the group, a multiple of 4, where the column
+    blocks number fewer than ``SPLITK_TARGET_CTAS`` (the stream's counters
+    serve that many blocks)."""
+    if chunk == k:
+        return True
+    return (chunk > 0 and group % chunk == 0 and chunk % 4 == 0
+            and e * -(-n // SPLITK_COLS) < SPLITK_TARGET_CTAS)
+
+
+def _splitk_plan(body: str, e: int, m: int, k: int, n: int, group: int,
+                 chunk: Optional[int] = None, tuned: bool = False) -> Tuple[int, int, int]:
+    """``(cols, chunk, splits)`` of a launch of ``body`` (zeros for the
+    bodies that do not split k): :func:`_v3_decode_plan`'s, or ``chunk``
+    where a caller names one, refused where the splitk bodies do not take
+    it, or with ``tuned`` (the autotuner's) replaced by the rule's."""
     if body != "splitk":
-        return (0, 0, 0), None, None
-    plan = _v3_decode_plan(e, m, k, n, group)
-    if plan[2] == 1:
-        return plan, None, None
+        return 0, 0, 0
+    if chunk is None:
+        return _v3_decode_plan(e, m, k, n, group)
+    if not _splitk_chunk_fits(e, k, n, group, chunk):
+        if tuned:
+            return _v3_decode_plan(e, m, k, n, group)
+        raise ValueError(f"the splitk bodies take chunk {k} or a divisor of group {group}, a "
+                         f"multiple of 4, below {SPLITK_TARGET_CTAS} column blocks; got {chunk} "
+                         f"(e {e}, n {n})")
+    return SPLITK_COLS, chunk, k // chunk
+
+
+def _splitk_buffers(plan: Tuple[int, int, int], e: int, m: int, n: int,
+                    device: torch.device, stream: int, partial: torch.dtype = torch.int32):
+    """For a splitk ``plan`` that splits k: a ``torch.empty`` scratch for its
+    ``(e, splits, m, n)`` partials (int32 for v3, f64 for v2) and the
+    stream's counters; None and None for any other plan."""
+    if plan[2] <= 1:
+        return None, None
     counters = _SPLITK_COUNTERS.get((device.index, stream))
     if counters is None:
         counters = torch.zeros(SPLITK_TARGET_CTAS, dtype=torch.int32, device=device)
         _SPLITK_COUNTERS[(device.index, stream)] = counters
     scratch = torch.empty((e, plan[2], m, n), dtype=partial, device=device)
-    return plan, scratch, counters
+    return scratch, counters
+
+
+def _choice(body: Optional[str], chunk: Optional[int], picked: str) -> Optional[int]:
+    """The named chunk where the named body runs (or none was named)."""
+    return chunk if body in (None, picked) else None
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -370,8 +420,9 @@ def pvq_matmul_q_cuda(
     x_q: torch.Tensor, w_pulses: torch.Tensor, scales: torch.Tensor,
     act_scale: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
     group: int, activation: str = "none", out_dtype: torch.dtype = torch.float32,
-    _body: Optional[str] = None,
+    _body: Optional[str] = None, _chunk: Optional[int] = None, _tuned: bool = False,
 ) -> torch.Tensor:
+    """Kernel v3; the body and plan as for :func:`pvq_matmul_cuda`."""
     m, k, n = _check_matmul(x_q, w_pulses, scales, group, bias, activation)
     if x_q.dtype != torch.int8:
         raise ValueError(f"x_q must be pre-quantized int8, got {x_q.dtype}")
@@ -384,9 +435,10 @@ def pvq_matmul_q_cuda(
     sc = _cuda_operand(scales, torch.float32, "scales")
     ac = _cuda_operand(act_scale, torch.float32, "act_scale")
     bc = None if bias is None else _cuda_operand(bias, torch.float32, "bias")
-    body = _pick_body(_body, m, k, n, group, xc, wc)
+    body = _pick_body(_body, m, k, n, group, xc, wc, _tuned)
+    plan = _splitk_plan(body, 1, m, k, n, group, _choice(_body, _chunk, body), _tuned)
     stream = _stream(x_q)
-    plan, scratch, counters = _splitk_buffers(body, 1, m, k, n, group, x_q.device, stream)
+    scratch, counters = _splitk_buffers(plan, 1, m, n, x_q.device, stream)
     out = torch.empty((m, n), dtype=out_dtype, device=x_q.device)
     status = build.launcher("pvq_matmul_q_launch")(
         xc.data_ptr(), wc.data_ptr(), sc.data_ptr(), ac.data_ptr(), a_mode,
@@ -459,17 +511,19 @@ def pvq_matmul_batched_plain(
 def pvq_matmul_batched_cuda(
     x: torch.Tensor, w_pulses: torch.Tensor, scales: torch.Tensor, *,
     group: int, activation: str = "none", _body: Optional[str] = None,
+    _chunk: Optional[int] = None, _tuned: bool = False,
 ) -> torch.Tensor:
+    """Batched kernel v2; the body and plan as for :func:`pvq_matmul_cuda`."""
     e, m, k, n = _check_batched(x, w_pulses, scales, group, activation)
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"pvq_matmul_batched takes f32 or bf16 x, got {x.dtype}")
     xc = _cuda_operand(x, x.dtype, "x")
     wc = _cuda_operand(w_pulses, torch.int8, "w_pulses")
     sc = _cuda_operand(scales, torch.float32, "scales")
-    body = _pick_v2_body(_body, m, k, n, group, xc, wc)
+    body = _pick_v2_body(_body, m, k, n, group, xc, wc, _tuned)
+    plan = _splitk_plan(body, e, m, k, n, group, _choice(_body, _chunk, body), _tuned)
     stream = _stream(x)
-    plan, scratch, counters = _splitk_buffers(body, e, m, k, n, group, x.device, stream,
-                                              torch.float64)
+    scratch, counters = _splitk_buffers(plan, e, m, n, x.device, stream, torch.float64)
     out = torch.empty((e, m, n), dtype=x.dtype, device=x.device)
     status = build.launcher("pvq_matmul_batched_launch")(
         xc.data_ptr(), wc.data_ptr(), sc.data_ptr(), ACTIVATIONS.index(activation),
@@ -512,7 +566,9 @@ def pvq_matmul_q_batched_cuda(
     x_q: torch.Tensor, w_pulses: torch.Tensor, scales: torch.Tensor,
     act_scale: torch.Tensor, *, group: int, activation: str = "none",
     out_dtype: torch.dtype = torch.float32, _body: Optional[str] = None,
+    _chunk: Optional[int] = None, _tuned: bool = False,
 ) -> torch.Tensor:
+    """Batched kernel v3; the body and plan as for :func:`pvq_matmul_cuda`."""
     e, m, k, n = _check_batched(x_q, w_pulses, scales, group, activation)
     if x_q.dtype != torch.int8:
         raise ValueError(f"x_q must be pre-quantized int8, got {x_q.dtype}")
@@ -523,9 +579,10 @@ def pvq_matmul_q_batched_cuda(
     wc = _cuda_operand(w_pulses, torch.int8, "w_pulses")
     sc = _cuda_operand(scales, torch.float32, "scales")
     ac = _cuda_operand(act_scale, torch.float32, "act_scale")
-    body = _pick_body(_body, m, k, n, group, xc, wc)
+    body = _pick_body(_body, m, k, n, group, xc, wc, _tuned)
+    plan = _splitk_plan(body, e, m, k, n, group, _choice(_body, _chunk, body), _tuned)
     stream = _stream(x_q)
-    plan, scratch, counters = _splitk_buffers(body, e, m, k, n, group, x_q.device, stream)
+    scratch, counters = _splitk_buffers(plan, e, m, n, x_q.device, stream)
     out = torch.empty((e, m, n), dtype=out_dtype, device=x_q.device)
     status = build.launcher("pvq_matmul_q_batched_launch")(
         xc.data_ptr(), wc.data_ptr(), sc.data_ptr(), ac.data_ptr(), a_mode,
@@ -656,6 +713,11 @@ def _v4_smem_bytes(km: int, w: int, hd: int, group: int) -> int:
     return tiles + q + km * w * ng * ATTN_BS + 4 * floats
 
 
+def _v4_blocks(s: int) -> int:
+    """128-column blocks of planes of capacity ``s`` (at least one)."""
+    return max(1, -(-s // ATTN_BS))
+
+
 @functools.lru_cache(maxsize=None)
 def _v4_plan(m: int, s: int, hd: int, group: int) -> Tuple[int, int, int]:
     """``(km, w, passes)`` of kernel v4 for rows of ``m`` query rows over
@@ -667,7 +729,7 @@ def _v4_plan(m: int, s: int, hd: int, group: int) -> Tuple[int, int, int]:
     Chosen from the planes' capacity, never from ``kv_len`` (on the device:
     reading it would sync)."""
     km = max(1, min(m, V4_KM_MAX))
-    nblk = max(1, -(-s // ATTN_BS))
+    nblk = _v4_blocks(s)
     w = -(-nblk // -(-nblk // (V4_WARPS_MAX // km)))
     while _v4_smem_bytes(km, w, hd, group) > V4_SMEM_MAX:
         if w == 1:
@@ -681,7 +743,7 @@ def _check_v4_plan(plan, s: int, hd: int, group: int) -> Tuple[int, int, int]:
     """A forced plan (the checks that run every plan on the card): what the
     kernel takes, with ``passes`` the count its ``w`` gives at ``s``."""
     km, w, passes = plan
-    nblk = max(1, -(-s // ATTN_BS))
+    nblk = _v4_blocks(s)
     if not (1 <= km <= V4_KM_MAX and w >= 1 and km * w <= V4_WARPS_MAX
             and passes == -(-nblk // w) and _v4_smem_bytes(km, w, hd, group) <= V4_SMEM_MAX):
         raise ValueError(f"pvq_attn_q: plan {tuple(plan)} does not fit S {s}, head dim {hd}, "
@@ -689,18 +751,34 @@ def _check_v4_plan(plan, s: int, hd: int, group: int) -> Tuple[int, int, int]:
     return km, w, passes
 
 
+def _pick_v4_plan(plan, m: int, s: int, hd: int, group: int,
+                  tuned: bool = False) -> Tuple[int, int, int]:
+    """:func:`_v4_plan`'s plan, or ``plan`` where a caller names one (see
+    :func:`pvq_attn_q_cuda`)."""
+    if plan is None:
+        return _v4_plan(m, s, hd, group)
+    try:
+        return _check_v4_plan(plan, s, hd, group)
+    except ValueError:
+        if tuned:
+            return _v4_plan(m, s, hd, group)
+        raise
+
+
 def pvq_attn_q_cuda(
     q_i8, act_scale, k_pulses, k_scales, v_pulses, v_scales, kv_len, *,
     group: int, sm_scale: float, _plan: Optional[Tuple[int, int, int]] = None,
+    _tuned: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel v4.  It reads a packed cache's ``(b, S, n_kv, X)`` planes in
     place (never copied into per-row order), with the plan of
-    :func:`_v4_plan`, or ``_plan`` where a caller forces one."""
+    :func:`_v4_plan`, or ``_plan`` where a caller names one: a check that
+    forces it (refused where the kernel does not take it) or, with
+    ``_tuned``, the autotuner's choice (the rule's where it does not fit)."""
     bh, m, hd, s, ng, n_kv = _check_attn(
         q_i8, act_scale, k_pulses, k_scales, v_pulses, v_scales, kv_len, group
     )
-    km, w, _ = (_v4_plan(m, s, hd, group) if _plan is None
-                else _check_v4_plan(_plan, s, hd, group))
+    km, w, _ = _pick_v4_plan(_plan, m, s, hd, group, _tuned)
     ops_ = [
         _cuda_operand(q_i8, torch.int8, "q"),
         _cuda_operand(act_scale, torch.float32, "act_scale"),

@@ -33,6 +33,12 @@ same steps run eagerly; ``generate``, ``teacher_forced_logits`` and
 ``PVQEngine`` take ``eager=True`` for the host-index steps (a
 comparison's other leg).
 
+``--tune`` pre-tunes the kernels' choices for this configuration's GEMM
+and kernel-v4 shapes (the reference's shape set, ``tune_config``) into the
+autotuner's cache (``REPRO_TORCH_PVQ_TUNE_CACHE``) before the first step,
+so every later dispatch, and every captured graph, takes them; the report
+adds ``tuned_tiles``, ``tune_cache``, ``tune_wall_s`` and ``tune_stats``.
+
 ``--agreement-min T`` also scores the same tokens on the reference leg
 (f32 activations, dense KV cache: kernel v2 on the packed weights) and
 exits 1 if teacher-forced top-1 agreement is below T.  The
@@ -57,7 +63,14 @@ from typing import Dict, Optional
 import torch
 
 from ..configs import get_config
-from ..core.packed import _fit_group, expert_leaves, is_packed_kv, packed_stats, quantize_params
+from ..core.packed import (
+    _fit_group,
+    expert_leaves,
+    is_packed_kv,
+    matmul_plan,
+    packed_stats,
+    quantize_params,
+)
 from ..core.quantize import (
     ActQuant,
     KVQuant,
@@ -386,6 +399,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--agreement-min", type=float, default=None, metavar="T")
     ap.add_argument("--n-over-k", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--tune", action="store_true",
+                    help="pre-tune the kernels' bodies, splitk chunks and v4 plans for this "
+                    "configuration's GEMM and attention shapes into the autotuner's cache "
+                    "(REPRO_TORCH_PVQ_TUNE_CACHE); every later dispatch takes them")
     ap.add_argument("--metrics-out", default=None, metavar="DIR")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a card) or 'cpu' (plain versions)")
@@ -457,6 +474,81 @@ def main(argv=None) -> int:
     return rc
 
 
+def tune_config(cfg, args, device) -> dict:
+    """``--tune``: the autotuner over the reference's shape set for ``cfg``
+    and the serve flags in ``args``, letter for letter: the decode (m =
+    batch) and prefill (m = batch x prompt) GEMMs of a block; with
+    ``--engine`` the slot pool's, the chunk's and the batched admission's;
+    the MoE dispatch GEMMs (expert-batched here, so their keys carry the
+    expert count); each for f32 activations and, with ``--act-int8``,
+    int8; with ``--kv-pvq`` kernel v4's decode shape and the engine's.
+    Returns the report's ``tuned_tiles`` (the reference's key strings),
+    ``tune_cache``, ``tune_wall_s`` and ``tune_stats``."""
+    from ..kernels import autotune
+    from ..nn.moe import dispatch_gemm_rows
+
+    t_tune = time.time()
+    autotune.reset_tune_stats()
+    d_model = cfg.d_model
+    d_ff = getattr(cfg, "d_ff", 0) or 4 * d_model
+    group = cfg.pvq.group or 128
+    shapes = {
+        (args.batch, d_model, d_model),
+        (args.batch, d_model, d_ff),
+        (args.batch, d_ff, d_model),
+        (args.batch * args.prompt_len, d_model, d_ff),
+    }
+    if args.engine:
+        shapes |= {(args.engine_slots, d_model, d_model), (args.engine_slots, d_model, d_ff),
+                   (args.engine_slots, d_ff, d_model)}
+        if args.prefill_chunk:
+            c_tok = args.prefill_chunk * max(args.kv_block, 1)
+            shapes |= {(c_tok, d_model, d_model), (c_tok, d_model, d_ff), (c_tok, d_ff, d_model)}
+        if args.prefill_batch > 1:
+            b_tok = args.prefill_batch * bucket_len(
+                max(args.shared_prefix + args.prompt_len, 1), max(args.kv_block, 1))
+            shapes.add((b_tok, d_model, d_ff))
+    experts = set()
+    if cfg.moe is not None:
+        mo = cfg.moe
+        for t in (args.batch, args.batch * args.prompt_len):
+            m_exp = dispatch_gemm_rows(mo, t)
+            experts |= {(m_exp, d_model, mo.d_expert), (m_exp, mo.d_expert, d_model)}
+    tuned = {}
+    fields = ("body", "chunk", "us")
+    for m, k, n in sorted(shapes | experts):
+        g, k_pad = matmul_plan(group, k)
+        for e in ([None] if (m, k, n) in shapes else []) + (
+                [cfg.moe.n_experts] if (m, k, n) in experts else []):
+            ent = autotune.autotune(m, k_pad, n, group=g, e=e, device=device)
+            tuned[f"{m}x{k_pad}x{n}"] = {f: ent[f] for f in fields}
+            if args.act_int8:
+                ent = autotune.autotune(m, k_pad, n, group=g, dtype=torch.int8, e=e,
+                                        device=device)
+                tuned[f"{m}x{k_pad}x{n}:int8"] = {f: ent[f] for f in fields}
+    if args.kv_pvq:
+        hd = cfg.resolved_head_dim
+        g = _fit_group(args.kv_group, hd)
+        blk = max(args.kv_block, 1)
+        m_q = max(cfg.n_heads // cfg.n_kv_heads, 1)
+        s_planes = -(-args.prompt_len // blk) * blk + args.gen
+        # v4 over the lockstep batch's rows, the slot pool's, one slot's chunk
+        ea = autotune.autotune_attn(m_q, hd, s_planes, group=g, device=device,
+                                    bh=args.batch * cfg.n_kv_heads)
+        tuned[f"attn{m_q}x{hd}x{s_planes}:int8"] = {f: ea[f] for f in ("km", "w", "us")}
+        if args.engine:
+            s_pool = bucket_len(args.shared_prefix + args.prompt_len + args.gen, blk)
+            attn_shapes = [(m_q, hd, s_pool, args.engine_slots * cfg.n_kv_heads)]
+            if args.prefill_chunk:
+                attn_shapes.append((args.prefill_chunk * blk * m_q, hd, s_pool, cfg.n_kv_heads))
+            autotune.tune_attn_shapes(attn_shapes, group=g, device=device)
+            for mm_, _, ss, bh in attn_shapes:
+                ent = autotune.autotune_attn(mm_, hd, ss, group=g, device=device, bh=bh)
+                tuned[f"attn{mm_}x{hd}x{ss}:int8:engine"] = {f: ent[f] for f in ("km", "w", "us")}
+    return {"tuned_tiles": tuned, "tune_cache": str(autotune.cache_path()),
+            "tune_wall_s": round(time.time() - t_tune, 2), "tune_stats": autotune.tune_stats()}
+
+
 def _serve(args):
     """Returns ``(report, exit_code, state)``."""
     device = torch.device(args.device)
@@ -471,6 +563,8 @@ def _serve(args):
     if args.metrics_out:
         report["metrics_out"] = args.metrics_out
     reset_launches()
+    if args.tune:
+        report.update(tune_config(cfg, args, device))
 
     if args.pvq:
         t0 = time.time()

@@ -22,6 +22,8 @@ one bf16 ulp, 2^-8 relative).
 """
 
 import contextlib
+import json
+from functools import partial
 
 import numpy as np
 import pytest
@@ -256,7 +258,8 @@ def _plain_versions():
                                (port_mm, "pvq_attn_q"), (port_enc, "pvq_encode_batch"))]
     try:
         for mod, name, _ in saved:
-            setattr(mod, name + "_cuda", getattr(mod, name + "_plain"))
+            setattr(mod, name + "_cuda",
+                    chip_smoke()._plain_for_cuda(getattr(mod, name + "_plain")))
         yield
     finally:
         for mod, name, fn in saved:
@@ -1078,3 +1081,155 @@ def test_cuda_failed_engine_capture_raises_and_does_not_fall_back(monkeypatch):
         assert not [key for key in eng._graphs if key[0] == "chunk"]
         with pytest.raises(RuntimeError, match="injected capture failure"):
             eng.warmup([12])
+
+
+# ---------------------------------------------------------------------------
+# the autotuner's choices on the card
+# ---------------------------------------------------------------------------
+
+# smollm-360m's decode and prefill GEMMs (k padded to the group) and
+# deepseek-v2-lite-16b's up/gate bank (64 experts) at decode and prefill:
+# (m, k, n, group, experts)
+TUNE_SHAPES = [(4, 1024, 960, 256, None), (4, 1024, 2560, 256, None), (4, 2560, 960, 256, None),
+               (512, 1024, 2560, 256, None), (1, 2048, 1408, 256, 64), (60, 2048, 1408, 256, 64)]
+
+
+@contextlib.contextmanager
+def _tune_cache(tmp_path, monkeypatch, entries=None):
+    from repro_torch.kernels import autotune
+
+    path = tmp_path / "tune.json"
+    if entries is not None:
+        path.write_text(json.dumps(entries))
+    monkeypatch.setenv("REPRO_TORCH_PVQ_TUNE_CACHE", str(path))
+    autotune.clear_memory_cache()
+    try:
+        yield path
+    finally:
+        autotune.clear_memory_cache()
+
+
+def _matmul_operands(m, k, n, group, e, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    lead = () if e is None else (e,)
+    pulses = torch.randint(-9, 10, (*lead, k, n), generator=gen, device="cuda", dtype=torch.int8)
+    scales = torch.rand((*lead, k // group, n), generator=gen, device="cuda") * 0.01
+    x = torch.randn((*lead, m, k), generator=gen, device="cuda")
+    x_q, a = port_q.quantize_activations(x, port_q.ActQuant())
+    return x, x_q, a, pulses, scales
+
+
+@needs_cuda
+@pytest.mark.parametrize("m,k,n,group,e", TUNE_SHAPES)
+def test_cuda_every_matmul_candidate_gives_the_rules_result(m, k, n, group, e):
+    """Each candidate the autotuner may pick, forced: v3 bit for bit the
+    rule's output, v2 the rule's values (max |diff| 0)."""
+    from repro_torch.kernels import autotune
+
+    x, x_q, a, pulses, scales = _matmul_operands(m, k, n, group, e, seed=m + n)
+    if e is None:
+        v3 = partial(port_mm.pvq_matmul_q_cuda, x_q, pulses, scales, a, None, group=group)
+        v2 = partial(port_mm.pvq_matmul_cuda, x, pulses, scales, None, group=group)
+    else:
+        v3 = partial(port_mm.pvq_matmul_q_batched_cuda, x_q, pulses, scales, a, group=group)
+        v2 = partial(port_mm.pvq_matmul_batched_cuda, x, pulses, scales, group=group)
+    for dtype, fn in ((torch.int8, v3), (torch.float32, v2)):
+        want = fn()
+        cands = autotune.candidate_tiles(m, k, n, group, dtype, e)
+        assert len(cands) >= 2
+        for body, chunk in cands:
+            got = fn(_body=body, _chunk=chunk or None)
+            assert torch.equal(got, want), (dtype, body, chunk, float((got - want).abs().max()))
+
+
+@needs_cuda
+def test_cuda_tuned_entries_reach_the_launch(tmp_path, monkeypatch):
+    """A cache entry's body and chunk are what ``ops`` launches (the splitk
+    plan as the wrapper builds it), and a tuned v4 plan too; the outputs
+    equal the rule's."""
+    from repro_torch.kernels import autotune
+
+    m, k, n, group = 4, 1024, 960, 256
+    x, x_q, a, pulses, scales = _matmul_operands(m, k, n, group, None, seed=3)
+    aq = port_q.ActQuant()
+    want = ops.pvq_matmul(x, pulses, scales, group=group, act_quant=aq)
+    assert port_mm._v3_decode_plan(1, m, k, n, group)[1] != 256
+    name = torch.cuda.get_device_name(0).replace(" ", "_")
+    key = autotune.cache_key(m, k, n, group, torch.int8, name)
+    plans = []
+    inner = port_mm._splitk_buffers
+
+    def recorded(plan, *rest, **kw):
+        plans.append(tuple(plan))
+        return inner(plan, *rest, **kw)
+
+    monkeypatch.setattr(port_mm, "_splitk_buffers", recorded)
+    for entry, body, plan in (({"body": "splitk", "chunk": 256}, "splitk", (64, 256, 4)),
+                              ({"body": "direct", "chunk": 0}, "direct", (0, 0, 0))):
+        with _tune_cache(tmp_path, monkeypatch, {key: {**entry, "us": 1.0, "candidates": 6}}):
+            before = dict(V3_BODY_LAUNCHES)
+            plans.clear()
+            got = ops.pvq_matmul(x, pulses, scales, group=group, act_quant=aq)
+            assert _body_launches_since(before) == {b: int(b == body) for b in V3_BODY_LAUNCHES}
+            assert plans == [plan]
+            assert torch.equal(got, want)
+    # kernel v4: a tuned (km, w) that is not the rule's
+    args = _attn_case(2, 5, 3, 160, 64, 32, seed=4)
+    rule = port_mm._v4_plan(3, 160, 64, 32)
+    akey = autotune.attn_cache_key(3, 64, 160, 32, torch.int8, name)
+    with _tune_cache(tmp_path, monkeypatch, {akey: {"km": 1, "w": 1, "us": 1.0,
+                                                    "candidates": 6}}):
+        assert autotune.get_attn_tiles(3, 64, 160, group=32) == (1, 1) != rule[:2]
+    _attn_equal(port_mm.pvq_attn_q_cuda(*args, group=32, sm_scale=0.3, _plan=(1, 1, 2),
+                                        _tuned=True),
+                port_mm.pvq_attn_q_cuda(*args, group=32, sm_scale=0.3), "tuned (1, 1)")
+
+
+@needs_cuda
+def test_cuda_operands_that_do_not_fit_a_tuned_mma_entry_take_the_rule(tmp_path, monkeypatch):
+    """Pulse rows off the 16-byte path (n 40) under an mma entry: the call
+    runs the rule's body (direct) and gives the rule's result."""
+    from repro_torch.kernels import autotune
+
+    m, k, n, group = 16, 64, 40, 32
+    x, x_q, a, pulses, scales = _matmul_operands(m, k, n, group, None, seed=5)
+    name = torch.cuda.get_device_name(0).replace(" ", "_")
+    entries = {autotune.cache_key(m, k, n, group, dt, name): {"body": "mma", "chunk": 0,
+                                                               "us": 1.0, "candidates": 2}
+               for dt in (torch.int8, torch.float32)}
+    aq = port_q.ActQuant()
+    with _tune_cache(tmp_path, monkeypatch, entries):
+        before, before_v2 = dict(V3_BODY_LAUNCHES), dict(V2_BODY_LAUNCHES)
+        got_q = ops.pvq_matmul(x, pulses, scales, group=group, act_quant=aq)
+        got_f = ops.pvq_matmul(x, pulses, scales, group=group)
+        assert autotune.tune_stats()["by_key"]  # both calls looked the entries up
+    assert _body_launches_since(before) == {"splitk": 0, "direct": 1, "mma": 0}
+    assert _v2_launches_since(before_v2) == {"direct": 1, "mma": 0, "splitk": 0}
+    assert torch.equal(got_q, port_mm.pvq_matmul_q_plain(x_q, pulses, scales, a, group=group))
+    _close(got_f, port_mm.pvq_matmul_plain(x, pulses, scales, group=group))
+
+
+@needs_cuda
+def test_cuda_autotune_persists_a_fitting_entry_and_a_second_call_hits(tmp_path, monkeypatch):
+    from repro_torch.kernels import autotune
+
+    with _tune_cache(tmp_path, monkeypatch) as path:
+        counts = (dict(LAUNCHES), dict(V3_BODY_LAUNCHES))
+        ent = autotune.autotune(4, 1024, 960, group=256, dtype=torch.int8, reps=3)
+        att = autotune.autotune_attn(3, 64, 160, group=32, reps=3, bh=20)
+        enc = autotune.autotune_encode(1280, 32, 127, reps=3)
+        # the timing launches are not counted
+        assert (dict(LAUNCHES), dict(V3_BODY_LAUNCHES)) == counts
+        cands = autotune.candidate_tiles(4, 1024, 960, 256, torch.int8)
+        assert (ent["body"], ent["chunk"]) in cands and ent["candidates"] == len(cands)
+        assert ent["us"] <= ent["rule_us"] and ent["rule"] == list(cands[0])
+        assert (att["km"], att["w"]) in autotune.attn_candidates(3, 64, 160, 32)
+        assert enc["delta_max"] in (32, 64)
+        assert len(json.loads(path.read_text())) == 3
+        monkeypatch.setattr(autotune, "_time_us", lambda *a, **k: pytest.fail("re-searched"))
+        autotune.clear_memory_cache()
+        assert autotune.autotune(4, 1024, 960, group=256, dtype=torch.int8) == ent
+        assert autotune.get_tiles(4, 1024, 960, group=256, dtype=torch.int8, search=True) == \
+            (ent["body"], ent["chunk"])
+        assert autotune.get_attn_tiles(3, 64, 160, group=32, search=True) == (att["km"], att["w"])
+        assert autotune.get_encode_params(1280, 32, 127, search=True) == enc["delta_max"]

@@ -260,6 +260,8 @@ def _bf16(cfg):
 @pytest.fixture(autouse=True)
 def _isolated_tune_cache(tmp_path, monkeypatch):
     monkeypatch.setenv("REPRO_PVQ_TUNE_CACHE", str(tmp_path / "tune.json"))
+    # and the port's, whose delta_max and choices would follow it
+    monkeypatch.setenv("REPRO_TORCH_PVQ_TUNE_CACHE", str(tmp_path / "torch_tune.json"))
 
 
 def test_bf16_legs_and_gate_match_reference():

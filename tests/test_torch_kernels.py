@@ -34,6 +34,8 @@ from repro_torch.kernels import pvq_matmul as port_mm
 def _isolated_tune_cache(tmp_path, monkeypatch):
     # a stray autotune cache must not change the reference's delta_max/tiles
     monkeypatch.setenv("REPRO_PVQ_TUNE_CACHE", str(tmp_path / "tune.json"))
+    # and the port's, whose delta_max and choices would follow it
+    monkeypatch.setenv("REPRO_TORCH_PVQ_TUNE_CACHE", str(tmp_path / "torch_tune.json"))
 
 
 def _weight(seed, k, n, group, k_pulses):
