@@ -111,10 +111,26 @@ order, it:
    and the second serve all hits (no search, no miss, as many hits as the
    first made lookups); prints, for every key, the rule's choice and its
    median time beside the tuned choice and its time;
-9. prints the ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
+9. the artifact phase (``.pvqz``): exports full-width smollm-360m at N/K
+   2.0 from seed 0 (``python -m repro_torch.launch.export``; the encoder
+   kernel packs every leaf, the host entropy-codes the pulse streams),
+   cold-starts it with the first phase's flags (``serve --artifact ...
+   --act-int8 --kv-pvq --agreement-min 0.99``, the launch counts set to 0
+   just before and read just after: the encoder, v3, v4 and v2 must
+   launch), then serves the in-memory ``--pvq --n-over-k 2.0`` parameters
+   of the same seed: every leaf's pulses and scales, the prefill logits
+   (f32 and int8 activations), the tokens and both legs' teacher-forced
+   logits must be identical; the agreement is printed, not gated; then
+   CI's reduced artifact smoke (export, ``serve --artifact --act-int8
+   --agreement-min 0.99``, logits bit-exact on a fresh-seed target) and its
+   deepseek expert export gate (<= 2.5 bits/weight); prints the file's
+   bytes and bits/weight, ``encode_s``, ``write_s``, the cold start's
+   ``artifact_decode_s`` (host decode and copies to the card) and each
+   codec's decode MB/s, beside the card's name and the host CPU's model;
+10. prints the ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
 
-Until the tune phase the autotuner's cache is a path that does not exist,
-so every earlier phase runs the rules' choices, as without the tuner.
+Except in the tune phase the autotuner's cache is a path that does not
+exist, so every other phase runs the rules' choices, as without the tuner.
 
 Any failed phase, kernel mismatch or missed gate raises.  The full-width
 served legs' agreement with their f32 legs is printed, not gated: the JAX
@@ -1620,6 +1636,193 @@ def tune_phase(torch, serve, kernels_mod, untuned, untuned_engine, smi, cache):
     return summary
 
 
+# the artifact phase: full-width smollm exported at CI's artifact ratio,
+# then served from the file with the first phase's flags; CI's reduced
+# artifact smoke (ci.yml:34-77) and its deepseek expert gate (ci.yml:155-164)
+ARTIFACT_N_OVER_K = "2.0"
+ARTIFACT_EXPORT = ["--arch", "smollm-360m", "--n-over-k", ARTIFACT_N_OVER_K, "--seed", "0"]
+ARTIFACT_FLAGS = [f for f in FULL_SERVE if f != "--pvq"]
+IN_MEMORY_SERVE = FULL_SERVE + ["--n-over-k", ARTIFACT_N_OVER_K]
+CI_ARTIFACT_EXPORT = ["--arch", "smollm-360m", "--reduced", "--n-over-k", ARTIFACT_N_OVER_K]
+CI_ARTIFACT_SERVE = ["--arch", "smollm-360m", "--reduced", "--batch", "2", "--prompt-len", "8",
+                     "--gen", "4", "--act-int8", "--agreement-min", "0.99"]
+CI_EXPERT_EXPORT = ["--arch", MOE_ARCH, "--reduced", "--n-over-k", ARTIFACT_N_OVER_K,
+                    "--max-expert-bits-per-weight", "2.5"]
+
+
+def host_cpu() -> str:
+    """The host CPU's model name and core count (the entropy codecs run there)."""
+    name = "unknown"
+    try:
+        for line in Path("/proc/cpuinfo").read_text().splitlines():
+            if line.startswith("model name"):
+                name = line.split(":", 1)[1].strip()
+                break
+    except OSError:
+        pass
+    return f"{name}, {os.cpu_count()} CPUs"
+
+
+def _same_leaves(torch, a, b) -> bool:
+    """Every leaf of two parameter trees identical: packed pulses, scales
+    and metadata, raw tensors in value, dtype and shape."""
+    from repro_torch.core.packed import is_packed, sorted_leaves
+
+    fa, fb = dict(sorted_leaves(a)), dict(sorted_leaves(b))
+    if list(fa) != list(fb):
+        return False
+    for path, x in fa.items():
+        y = fb[path]
+        if is_packed(x) != is_packed(y):
+            return False
+        if is_packed(x):
+            if not (torch.equal(x.pulses, y.pulses) and torch.equal(x.scales, y.scales)
+                    and (x.group, x.k, x.shape, x.dtype, x.layout, x.scale_mode)
+                    == (y.group, y.k, y.shape, y.dtype, y.layout, y.scale_mode)):
+                return False
+        elif x.dtype != y.dtype or not torch.equal(x, y):
+            return False
+    return True
+
+
+def _prefill_logits_equal(torch, quant, model, a, b, tokens) -> dict:
+    """Prefill logits of two parameter trees on the same tokens, bitwise,
+    with f32 activations and with the served int8 ones."""
+    out = {}
+    for leg, aq in (("f32", None), ("int8", quant.ActQuant())):
+        with quant.act_quant_scope(aq), quant.kv_quant_scope(None):
+            la, _ = model.prefill(a, {"tokens": tokens}, cache_len=tokens.shape[1])
+            lb, _ = model.prefill(b, {"tokens": tokens}, cache_len=tokens.shape[1])
+        out[leg] = bool(torch.equal(la, lb))
+    return out
+
+
+def artifact_phase(torch, serve, kernels_mod, quant, smi, scratch):
+    """The ``.pvqz`` slice (module docstring, item 9).  Returns the artifact
+    serve's launch counts and the printed summary."""
+    from repro_torch.launch import export
+
+    t_phase = time.time()
+    path = str(scratch / "smollm-360m.pvqz")
+    kernels_mod.reset_launches()
+    t0 = time.time()
+    exp, rc = export.run(ARTIFACT_EXPORT + ["--out", path])
+    export_wall = time.time() - t0
+    export_encoder = kernels_mod.launches()["pvq_encode_batch"]
+    if rc != 0:
+        fail(f"artifact export exited {rc}: {exp.get('gate_fail')}")
+    if export_encoder <= 0:
+        fail("artifact export: the encoder kernel never launched")
+    codecs = {}
+    for leaf in exp["leaves"].values():
+        codecs[leaf["codec"]] = codecs.get(leaf["codec"], 0) + 1
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels_mod.reset_launches()
+    t0 = time.time()
+    art, rc, art_state = serve.run(
+        ARTIFACT_FLAGS + ["--artifact", path, "--metrics-out", str(scratch / "obs-art")],
+        return_state=True)
+    serve_wall = time.time() - t0
+    counts = kernels_mod.launches()
+    bodies = kernels_mod.v3_body_launches()
+    v2_bodies = kernels_mod.v2_body_launches()
+    print(json.dumps({"serve": "full, artifact", "phase_wall_s": round(serve_wall, 2), **art}),
+          flush=True)
+    if not art_state or (rc != 0 and "agreement_fail" not in art):
+        fail(f"artifact serve exited {rc}: {art}")
+    if art.get("pvq_mode") != "artifact" or not art.get("logits_finite")             or art.get("generated_shape") != [BATCH, PROMPT + GEN]:
+        fail(f"artifact serve: {art}")
+    missing = [name for name in SMOLLM_KERNELS if counts[name] <= 0]
+    if missing:
+        fail(f"artifact serve never launched {missing}: {counts}")
+
+    mem, rc, mem_state = serve.run(IN_MEMORY_SERVE, return_state=True)
+    if not mem_state or (rc != 0 and "agreement_fail" not in mem):
+        fail(f"in-memory serve at N/K {ARTIFACT_N_OVER_K} exited {rc}: {mem}")
+    same = {
+        "leaves": _same_leaves(torch, art_state["params"], mem_state["params"]),
+        "prefill_logits": _prefill_logits_equal(
+            torch, quant, mem_state["model"], art_state["params"], mem_state["params"],
+            mem_state["seq"][:, :PROMPT]),
+        "tokens": bool(torch.equal(art_state["seq"], mem_state["seq"])),
+        "served_leg_teacher_forced": bool(torch.equal(art_state["logits_q"],
+                                                      mem_state["logits_q"])),
+        "f32_leg_teacher_forced": bool(torch.equal(art_state["logits_f"], mem_state["logits_f"])),
+    }
+    del art_state, mem_state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # CI's reduced artifact smoke (export, cold-start serve, bit-exact
+    # logits against the in-memory tree on a fresh-seed target) and its
+    # deepseek expert export gate
+    ci_path = str(scratch / "sm.pvqz")
+    ci_exp, rc = export.run(CI_ARTIFACT_EXPORT + ["--out", ci_path])
+    if rc != 0:
+        fail(f"ci artifact export exited {rc}")
+    ci_serve, rc = serve.run(CI_ARTIFACT_SERVE + ["--artifact", ci_path, "--metrics-out",
+                                                   str(scratch / "obs-art-ci")])
+    if rc != 0:
+        fail(f"ci artifact serve exited {rc}: {ci_serve}")
+    ci_exact = _ci_artifact_logits(torch, ci_path)
+    if not ci_exact:
+        fail("ci artifact smoke: logits from the file differ from the in-memory packed tree")
+    dsl, rc = export.run(CI_EXPERT_EXPORT + ["--out", str(scratch / "dsl.pvqz")])
+    if rc != 0:
+        fail(f"ci deepseek expert export gate: {dsl.get('gate_fail')}")
+
+    summary = {"artifact_phase": {
+        "card": smi, "host_cpu": host_cpu(), "arch": "smollm-360m",
+        "n_over_k": float(ARTIFACT_N_OVER_K),
+        "file_bytes": exp["file_bytes"], "bits_per_weight": exp["bits_per_weight"],
+        "packed_numel": exp["packed_numel"], "compression_vs_dense": exp["compression_vs_dense"],
+        "codecs": codecs, "encode_s": exp["encode_s"], "write_s": exp["write_s"],
+        "export_wall_s": round(export_wall, 2), "export_encoder_launches": export_encoder,
+        "artifact_decode_s": art["artifact_decode_s"],
+        "artifact_decode_mb_s": art.get("artifact_decode_mb_s"),
+        "serve_wall_s": round(serve_wall, 2), "identical_to_in_memory": same,
+        "agreement": {"artifact": art["act_int8_top1_agreement"],
+                      "in_memory": mem["act_int8_top1_agreement"], "gated": False},
+        "decode_ms_per_step": {"artifact": art["decode_ms_per_step"],
+                               "in_memory": mem["decode_ms_per_step"]},
+        "kernel_launches": counts, "v3_body_launches": bodies, "v2_body_launches": v2_bodies,
+        "ci_reduced": {"file_bytes": ci_exp["file_bytes"],
+                       "bits_per_weight": ci_exp["bits_per_weight"],
+                       "agreement": ci_serve["act_int8_top1_agreement"],
+                       "artifact_decode_mb_s": ci_serve.get("artifact_decode_mb_s"),
+                       "logits_bit_exact": ci_exact,
+                       "deepseek_expert_bits_per_weight": dsl["expert_bits_per_weight"]},
+        "seconds": round(time.time() - t_phase, 2)}}
+    print(json.dumps(summary), flush=True)
+    flat = [same["leaves"], *same["prefill_logits"].values(), same["tokens"],
+            same["served_leg_teacher_forced"], same["f32_leg_teacher_forced"]]
+    if not all(flat):
+        fail(f"artifact serve differs from the in-memory packed serve: {same}")
+    return counts, summary
+
+
+def _ci_artifact_logits(torch, path, device="cuda") -> bool:
+    """CI's bit-exact step: prefill logits from the file, loaded into a
+    fresh-seed target, equal those of ``quantize_params`` on the same init."""
+    from repro_torch.checkpoint import load_pvqz
+    from repro_torch.configs import get_config
+    from repro_torch.core.packed import quantize_params
+    from repro_torch.launch.serve import serving_policy
+    from repro_torch.nn.models import build_model
+
+    cfg = get_config("smollm-360m").reduced()
+    model = build_model(cfg)
+    qparams = quantize_params(model.init(0, device=device),
+                              serving_policy(cfg, float(ARTIFACT_N_OVER_K)))
+    restored = load_pvqz(path, target=model.init(123, device=device), device=device)
+    toks = torch.arange(16, dtype=torch.int64, device=device).reshape(2, 8) % cfg.vocab_size
+    lm, _ = model.prefill(qparams, {"tokens": toks}, cache_len=8)
+    la, _ = model.prefill(restored, {"tokens": toks}, cache_len=8)
+    return bool(torch.equal(lm, la))
+
+
 def start_ptxas_report(build, source="pvq_matmul"):
     """Starts ``nvcc -Xptxas -v`` on ``csrc/<source>.cu`` (a cubin under the
     build directory), beside the library builds."""
@@ -1706,7 +1909,7 @@ def run_phases(torch, tree, kernels_only, smi, scratch) -> int:
     import repro_torch.kernels as kernels_mod
     from repro_torch.core import quantize as quant
     from repro_torch.core.quantize import quantize_activations
-    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import autotune, build, ops
     from repro_torch.kernels import pvq_encode as enc
     from repro_torch.kernels import pvq_matmul as mm
     from repro_torch.launch import serve
@@ -1777,6 +1980,11 @@ def run_phases(torch, tree, kernels_only, smi, scratch) -> int:
                scratch / "tune.json")
     gc.collect()
     torch.cuda.empty_cache()
+    # back to the rules' choices for the artifact phase
+    os.environ[TUNE_CACHE_ENV] = str(scratch / "untuned.json")
+    autotune.clear_memory_cache()
+    counts["smollm-360m artifact"], _ = artifact_phase(torch, serve, kernels_mod, quant, smi,
+                                                       scratch)
     run_b = engine["smollm-360m engine (b)"]
     # the timed runs' (replays counted, the warm-up's taken off)
     entries["pvq_attn_q"]["launches_from_chunk_caller"] = {

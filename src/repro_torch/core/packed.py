@@ -705,6 +705,35 @@ def _rows(t: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Pulse geometry: layout -> canonical symbol orders (entropy coding + stats)
+# ---------------------------------------------------------------------------
+
+
+def pulse_stream(pk: PackedPVQ) -> np.ndarray:
+    """1-D int64 host stream of the *logical* pulse symbols (no structural
+    padding): the order the ``.pvqz`` entropy streams encode.  The matmul
+    layout walks column-major over the contraction dim (groups stay
+    contiguous) and drops the group-padding rows; the flat layout walks
+    row-major and drops the tail padding."""
+    pulses = pk.pulses.detach().cpu().numpy().astype(np.int64)
+    if pk.layout == "matmul":
+        d_in = int(pk.shape[-2])
+        return np.swapaxes(pulses, -1, -2)[..., :d_in].ravel()
+    numel = int(np.prod(pk.shape))
+    lead = pulses.shape[:-2]
+    return pulses.reshape(*lead, -1)[..., :numel].ravel()
+
+
+def pulse_groups(pk: PackedPVQ) -> np.ndarray:
+    """(G_total, group) group-major int64 host view, padded groups included:
+    the geometry the enumeration codec and the per-group size models price."""
+    pulses = pk.pulses.detach().cpu().numpy().astype(np.int64)
+    if pk.layout == "matmul":
+        return np.swapaxes(pulses, -1, -2).reshape(-1, pk.group)
+    return pulses.reshape(-1, pk.group)
+
+
+# ---------------------------------------------------------------------------
 # Encoding single arrays
 # ---------------------------------------------------------------------------
 
@@ -804,6 +833,17 @@ def tree_map_with_path(fn, tree, prefix: str = ""):
     return fn(prefix, tree)
 
 
+def sorted_leaves(tree, prefix: str = ""):
+    """``(path, leaf)`` of a nested dict in sorted key order at every level
+    (the order in which JAX flattens a dict, so the reference's): the leaf
+    order of a ``.pvqz`` file and of the size reports."""
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from sorted_leaves(tree[key], f"{prefix}/{key}" if prefix else str(key))
+    else:
+        yield prefix, tree
+
+
 def _pack_leaf(pstr: str, leaf: torch.Tensor, n_over_k: float, group: Optional[int],
                scale_mode: str) -> Optional[PackedPVQ]:
     g = group or 256
@@ -889,25 +929,50 @@ def expert_leaves(params: Any) -> Dict[str, PackedPVQ]:
     return {k: v for k, v in packed_leaves(params).items() if re.search(EXPERT_LEAF_REGEX, k)}
 
 
-def packed_stats(params: Any, *, entropy: bool = False) -> Dict[str, float]:
-    """Artifact-size report (int8 + f32 bytes).  The entropy-coded sizes
-    need the bitstream codecs, which arrive with the artifact slice."""
-    if entropy:
-        raise NotImplementedError("entropy-coded sizes arrive with the artifact slice")
-    packed_bytes = replaced = untouched = n_packed = 0
+def dequantize_params(params: Any) -> Any:
+    """Inverse transform: expand every ``PackedPVQ`` leaf back to dense."""
+    return tree_map_with_path(lambda _, leaf: materialize(leaf), params)
 
-    def visit(_, leaf):
-        nonlocal packed_bytes, replaced, untouched, n_packed
+
+def packed_stats(params: Any, *, entropy: bool = True) -> Dict[str, float]:
+    """Aggregate artifact-size report for a mixed parameter tree.
+
+    Beyond the int8 + f32 byte counts, ``entropy=True`` (default) prices the
+    pulse streams under the paper's §VI codecs with the exact ``codes`` size
+    models.  ``entropy_bits_per_weight`` applies the ``.pvqz`` per-leaf
+    selection rule itself (``bitstream.choose_codec``), so it reports what
+    ``write_pvqz`` would produce; the per-codec ``*_bits_per_weight`` keys
+    are whole-tree totals under that single codec (``enum`` wherever its
+    count tables fit memory).  Leaves are walked in sorted key order, the
+    reference's, so the float sums match it bit for bit.
+    """
+    packed_bytes = replaced = untouched = n_packed = 0
+    numel = scale_bits = 0
+    best_bits = 0.0
+    codec_bits = {"golomb": 0.0, "rle": 0.0, "enum": 0.0}
+    enum_priceable = True
+    for _, leaf in sorted_leaves(params):
         if is_packed(leaf):
             packed_bytes += leaf.nbytes_packed
             replaced += leaf.nbytes_dense
             n_packed += 1
+            if entropy:
+                from . import bitstream
+
+                stream = pulse_stream(leaf)
+                numel += stream.size
+                scale_bits += 32 * leaf.scales.numel()
+                chosen, sizes = bitstream.choose_codec(stream, pulse_groups(leaf), leaf.k)
+                best_bits += sizes[chosen]
+                codec_bits["golomb"] += sizes["golomb"]
+                codec_bits["rle"] += sizes["rle"]
+                if "enum" in sizes:
+                    codec_bits["enum"] += sizes["enum"]
+                else:
+                    enum_priceable = False
         elif isinstance(leaf, torch.Tensor):
             untouched += leaf.numel() * leaf.element_size()
-        return leaf
-
-    tree_map_with_path(visit, params)
-    return {
+    out = {
         "packed_tensors": n_packed,
         "packed_bytes": packed_bytes,
         "replaced_dense_bytes": replaced,
@@ -915,3 +980,12 @@ def packed_stats(params: Any, *, entropy: bool = False) -> Dict[str, float]:
         "weight_compression_ratio": replaced / max(packed_bytes, 1),
         "total_bytes": packed_bytes + untouched,
     }
+    if entropy and n_packed:
+        if not enum_priceable:
+            del codec_bits["enum"]
+        for codec, bits in codec_bits.items():
+            out[f"{codec}_bits_per_weight"] = bits / max(numel, 1)
+        out["entropy_bits_per_weight"] = (best_bits + scale_bits) / max(numel, 1)
+        out["entropy_coded_bytes_est"] = int((best_bits + scale_bits) // 8)
+        out["entropy_compression_ratio"] = 8.0 * replaced / max(best_bits + scale_bits, 1.0)
+    return out

@@ -19,6 +19,7 @@ the plain version here and the kernel agree bit for bit on any device.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -162,3 +163,40 @@ def _scales(w: torch.Tensor, pulses: torch.Tensor, mode: str) -> torch.Tensor:
     else:
         raise ValueError(f"unknown scale mode {mode!r}")
     return torch.where(ynorm2 > 0, rho, torch.zeros_like(rho))
+
+
+@dataclasses.dataclass(frozen=True)
+class PVQCode:
+    """A product-PVQ code: integer pulses on P(N, K) plus one scale per group."""
+
+    pulses: torch.Tensor  # int32 (..., N), sum(|pulses|, -1) == K (0 for a null row)
+    scale: torch.Tensor   # f32 (...,), rho
+    k: int                # pulse budget
+
+    def dequantize(self, dtype=torch.float32) -> torch.Tensor:
+        return (self.scale[..., None] * self.pulses.to(torch.float32)).to(dtype)
+
+
+def pvq_encode(w: torch.Tensor, k: int, scale_mode: str = "paper") -> PVQCode:
+    """Product-PVQ encode the last axis of ``w`` with pulse budget K."""
+    pulses = pvq_quantize_direction(w, k)
+    return PVQCode(pulses=pulses, scale=_scales(w, pulses, scale_mode), k=k)
+
+
+def pvq_decode(code: PVQCode, dtype=torch.float32) -> torch.Tensor:
+    return code.dequantize(dtype)
+
+
+def pvq_encode_grouped(w: torch.Tensor, group: int, k: int,
+                       scale_mode: str = "paper") -> PVQCode:
+    """Encode the last axis of ``w`` in groups of ``group`` dims (one rho a
+    group), zero-padded to a multiple of ``group`` (zeros get no pulses)."""
+    pad = (-w.shape[-1]) % group
+    if pad:
+        w = torch.nn.functional.pad(w, (0, pad))
+    return pvq_encode(w.reshape(*w.shape[:-1], w.shape[-1] // group, group), k, scale_mode)
+
+
+def pvq_decode_grouped(code: PVQCode, n: int, dtype=torch.float32) -> torch.Tensor:
+    flat = code.dequantize(dtype)
+    return flat.reshape(*flat.shape[:-2], -1)[..., :n]

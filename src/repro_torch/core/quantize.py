@@ -1,11 +1,13 @@
-"""Activation / KV-cache quantization contracts and the PVQ policy
-(PyTorch port of the serving half of ``repro.core.quantize``).
+"""Activation / KV-cache quantization contracts, the PVQ policy and the
+dequantized simulation (PyTorch port of ``repro.core.quantize``).
 
 ``ActQuant`` says how activations are quantized to symmetric int8 before the
 int8 x int8 matmul kernel; ``KVQuant`` says how the decode KV cache is
 PVQ-packed; ``QuantPolicy`` maps parameter paths to ``(n_over_k, group)``.
 The process defaults (``set_default_act_quant`` / ``set_default_kv_quant``)
 are what ``launch/serve.py --act-int8 / --kv-pvq`` set once.
+``quantize_tree`` encodes every matching leaf and expands it back to dense
+(``serve --pvq-sim``); ``total_bits`` prices its codes.
 """
 
 from __future__ import annotations
@@ -13,9 +15,13 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import re
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
+
+from . import codes as codes_lib
+from .pvq import PVQCode, pvq_decode_grouped, pvq_encode, pvq_encode_grouped
 
 ACT_QUANT_MODES = ("per_row", "per_tile", "per_tensor")
 
@@ -214,5 +220,106 @@ class QuantPolicy:
         return None
 
 
+def _path_str(path) -> str:
+    """The ``/``-joined keys of a parameter path."""
+    return "/".join(str(p) for p in path)
+
+
 def k_for(n: int, n_over_k: float) -> int:
     return max(int(round(n / n_over_k)), 1)
+
+
+def quantize_array(
+    w: torch.Tensor, n_over_k: float, group: Optional[int], scale_mode: str = "paper"
+) -> Tuple[torch.Tensor, PVQCode, Dict[str, Any]]:
+    """Quantize one tensor. Returns (dequantized tensor, code, stats)."""
+    flat = w.reshape(-1)
+    n = flat.shape[0]
+    if group is None:
+        k = k_for(n, n_over_k)
+        code = pvq_encode(flat, k, scale_mode)
+        deq = code.dequantize().reshape(w.shape).to(w.dtype)
+        eff_n = n
+    else:
+        k = k_for(group, n_over_k)
+        code = pvq_encode_grouped(flat, group, k, scale_mode)
+        deq = pvq_decode_grouped(code, n).reshape(w.shape).to(w.dtype)
+        eff_n = group
+    err = torch.linalg.vector_norm(deq.to(torch.float32) - w.to(torch.float32))
+    ref = torch.linalg.vector_norm(w.to(torch.float32))
+    stats = {
+        "N": eff_n,
+        "K": k,
+        "n_over_k": n_over_k,
+        "rel_err": float(err / torch.clamp(ref, min=1e-30)),
+        "numel": int(n),
+    }
+    return deq, code, stats
+
+
+def quantize_tree(
+    params: Any, policy: QuantPolicy
+) -> Tuple[Any, Dict[str, PVQCode], Dict[str, Dict[str, Any]]]:
+    """PVQ-quantize every matching leaf. Returns (dequantized tree, codes,
+    stats); leaves are visited in sorted key order, as the reference's
+    pytree walk visits them."""
+    codes: Dict[str, PVQCode] = {}
+    stats: Dict[str, Dict[str, Any]] = {}
+
+    def visit(tree, path):
+        if isinstance(tree, dict):
+            return {key: visit(tree[key], path + (key,)) for key in sorted(tree)}
+        if not isinstance(tree, torch.Tensor) or tree.ndim == 0:
+            return tree
+        pstr = _path_str(path)
+        m = policy.match(pstr)
+        if m is None or tree.numel() < 8:
+            return tree
+        n_over_k, group = m
+        deq, code, st = quantize_array(tree, n_over_k, group, policy.scale_mode)
+        codes[pstr] = code
+        stats[pstr] = st
+        return deq
+
+    return visit(params, ()), codes, stats
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def tree_compression_report(codes: Dict[str, PVQCode]) -> Dict[str, Dict[str, float]]:
+    """Paper §VI/§VII: per-tensor pulse histograms + bits/weight estimates."""
+    out = {}
+    for path, code in codes.items():
+        pulses = _host(code.pulses).ravel()
+        rep = codes_lib.pulse_histogram(pulses)
+        rep.update(codes_lib.compression_report(pulses))
+        out[path] = rep
+    return out
+
+
+def total_bits(codes: Dict[str, PVQCode], scheme: str = "golomb") -> Dict[str, float]:
+    """Aggregate compressed size across a model (weights only, + scales at f32)."""
+    total_w_bits = 0.0
+    total_scale_bits = 0.0
+    numel = 0
+    for code in codes.values():
+        pulses = _host(code.pulses).ravel()
+        numel += pulses.size
+        if scheme == "golomb":
+            total_w_bits += float(codes_lib.golomb_length(pulses).sum())
+        elif scheme == "rle":
+            _, nbits, _ = codes_lib.rle_encode(pulses)
+            total_w_bits += nbits
+        else:
+            raise ValueError(scheme)
+        total_scale_bits += 32.0 * np.prod(tuple(code.scale.shape))
+    return {
+        "numel": numel,
+        "weight_bits": total_w_bits,
+        "scale_bits": total_scale_bits,
+        "bits_per_weight": (total_w_bits + total_scale_bits) / max(numel, 1),
+        "vs_fp32_ratio": 32.0 * numel / max(total_w_bits + total_scale_bits, 1),
+        "vs_bf16_ratio": 16.0 * numel / max(total_w_bits + total_scale_bits, 1),
+    }

@@ -33,6 +33,14 @@ same steps run eagerly; ``generate``, ``teacher_forced_logits`` and
 ``PVQEngine`` take ``eager=True`` for the host-index steps (a
 comparison's other leg).
 
+``--artifact model.pvqz`` (written by ``repro_torch.launch.export``) skips
+the encode: the entropy-coded file is decoded leaf by leaf on the host
+straight into ``PackedPVQ`` on the device, identical pulses and scales, no
+re-encode, and served through the same packed path, so the logits equal
+those of the in-memory ``--pvq`` parameters it was exported from.
+``--pvq-sim`` encodes and expands every matching leaf back to dense
+(``quantize_tree``: the paper tables' numerics, none of the memory win).
+
 ``--tune`` pre-tunes the kernels' choices for this configuration's GEMM
 and kernel-v4 shapes (the reference's shape set, ``tune_config``) into the
 autotuner's cache (``REPRO_TORCH_PVQ_TUNE_CACHE``) before the first step,
@@ -79,8 +87,10 @@ from ..core.quantize import (
     default_act_quant,
     default_kv_quant,
     kv_quant_scope,
+    quantize_tree,
     set_default_act_quant,
     set_default_kv_quant,
+    total_bits,
 )
 from ..kernels import launches, reset_launches, v2_body_launches, v3_body_launches
 from ..nn.models import build_model
@@ -389,8 +399,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--pvq", action="store_true",
                     help="serve the packed PVQ artifact (int8 pulses streamed into the kernels)")
+    ap.add_argument("--pvq-sim", action="store_true",
+                    help="dequantized simulation: encode, then expand back to dense "
+                    "(paper-table numerics, no memory win)")
+    ap.add_argument("--artifact", default=None, metavar="MODEL.PVQZ",
+                    help="serve a .pvqz artifact (repro_torch.launch.export): the entropy-coded "
+                    "pulses decode leaf by leaf into PackedPVQ with no re-encode")
     ap.add_argument("--act-int8", action="store_true",
-                    help="per-row int8 activations into the int8 x int8 kernel; requires --pvq")
+                    help="per-row int8 activations into the int8 x int8 kernel; requires --pvq "
+                    "or --artifact")
     ap.add_argument("--kv-pvq", action="store_true",
                     help="PVQ-compress the decode KV cache (packed attention kernel)")
     ap.add_argument("--kv-block", type=int, default=32)
@@ -445,8 +462,9 @@ def run(argv=None, *, return_state: bool = False):
     telemetry switch are restored afterwards."""
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.act_int8 and not args.pvq:
-        ap.error("--act-int8 quantizes the packed matmul activations; it requires --pvq")
+    if args.act_int8 and not (args.pvq or args.artifact):
+        ap.error("--act-int8 quantizes the packed matmul activations; "
+                 "it requires --pvq or --artifact")
     if args.agreement_min is not None and not (args.act_int8 or args.kv_pvq):
         ap.error("--agreement-min compares a quantized path against the f32 reference; "
                  "it requires --act-int8 and/or --kv-pvq")
@@ -549,6 +567,50 @@ def tune_config(cfg, args, device) -> dict:
             "tune_wall_s": round(time.time() - t_tune, 2), "tune_stats": autotune.tune_stats()}
 
 
+def _load_artifact(path: str, params, device, report: dict):
+    """``--artifact``: ``params`` (the model's init, for its structure,
+    dtypes and devices) with every leaf from the ``.pvqz`` at ``path``.
+    The wall of the load (host decode and the copies to the device) is the
+    ``artifact/cold_start`` span, the gauge ``artifact.cold_start_s`` and
+    the report's ``artifact_decode_s``; with telemetry on, the report also
+    gets each codec's decode rate (``artifact_decode_mb_s``)."""
+    import os
+
+    from ..checkpoint.artifact import load_pvqz, read_toc
+
+    t0 = time.time()
+    with obs.span("artifact/cold_start", args={"path": path}):
+        params = load_pvqz(path, target=params, device=device)
+        _sync(device)
+    cold_s = time.time() - t0
+    # entropy=False: the at-rest bits/weight is in the export report and
+    # the TOC; re-pricing every pulse stream at startup would double the cost
+    st = packed_stats(params, entropy=False)
+    report["pvq_mode"] = "artifact"
+    report["artifact"] = path
+    report["artifact_bytes"] = os.path.getsize(path)
+    report["artifact_meta"] = read_toc(path).get("meta", {})
+    report["pvq_tensors"] = st["packed_tensors"]
+    report["artifact_decode_s"] = round(cold_s, 2)
+    if obs.enabled():
+        obs.gauge("artifact.cold_start_s").set(cold_s)
+        # the per-codec throughput counters, folded into the startup report
+        snap = {(m["name"], m["labels"].get("codec")): m["value"]
+                for m in obs.registry().snapshot()
+                if m["name"].startswith("artifact.decode_") and m["kind"] == "counter"}
+        mbps = {}
+        for (name, codec), sym in snap.items():
+            if name != "artifact.decode_symbols":
+                continue
+            secs = snap.get(("artifact.decode_s", codec), 0.0)
+            if secs:
+                mbps[codec] = round(sym / secs / 1e6, 1)
+        if mbps:
+            report["artifact_decode_mb_s"] = mbps
+    report.update(_expert_report(params))
+    return params
+
+
 def _serve(args):
     """Returns ``(report, exit_code, state)``."""
     device = torch.device(args.device)
@@ -566,19 +628,30 @@ def _serve(args):
     if args.tune:
         report.update(tune_config(cfg, args, device))
 
-    if args.pvq:
+    if args.artifact:
+        params = _load_artifact(args.artifact, params, device, report)
+    elif args.pvq or args.pvq_sim:
         t0 = time.time()
-        with obs.span("serve/pack"):
-            # each dense leaf is released as soon as it is packed
-            params = quantize_params(params, serving_policy(cfg, args.n_over_k))
+        if args.pvq_sim:
+            params, codes, _ = quantize_tree(params, serving_policy(cfg, args.n_over_k))
             _sync(device)
-        st = packed_stats(params)
-        report["pvq_mode"] = "packed"
-        report["pvq_tensors"] = st["packed_tensors"]
-        report["packed_bytes"] = st["packed_bytes"]
-        report["weight_compression_ratio"] = round(st["weight_compression_ratio"], 3)
+            report["pvq_mode"] = "dequant-sim"
+            report["pvq_tensors"] = len(codes)
+            report.update({k: round(v, 3) for k, v in total_bits(codes).items()
+                           if "ratio" in k or "bits_per" in k})
+        else:
+            with obs.span("serve/pack"):
+                # each dense leaf is released as soon as it is packed
+                params = quantize_params(params, serving_policy(cfg, args.n_over_k))
+                _sync(device)
+            # entropy=False: pricing every pulse stream is the export's work
+            st = packed_stats(params, entropy=False)
+            report["pvq_mode"] = "packed"
+            report["pvq_tensors"] = st["packed_tensors"]
+            report["packed_bytes"] = st["packed_bytes"]
+            report["weight_compression_ratio"] = round(st["weight_compression_ratio"], 3)
+            report.update(_expert_report(params))
         report["pvq_encode_s"] = round(time.time() - t0, 2)
-        report.update(_expert_report(params))
 
     if args.act_int8:
         set_default_act_quant(ActQuant(mode="per_row"))

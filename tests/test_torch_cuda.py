@@ -1233,3 +1233,66 @@ def test_cuda_autotune_persists_a_fitting_entry_and_a_second_call_hits(tmp_path,
             (ent["body"], ent["chunk"])
         assert autotune.get_attn_tiles(3, 64, 160, group=32, search=True) == (att["km"], att["w"])
         assert autotune.get_encode_params(1280, 32, 127, search=True) == enc["delta_max"]
+
+
+def _artifact_trees(arch, n_over_k=2.0):
+    """(model, packed params of seed 0 on the card) for a reduced ``arch``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.packed import quantize_params
+    from repro_torch.launch.serve import serving_policy
+    from repro_torch.nn.models import Model
+
+    cfg = get_config(arch).reduced()
+    model = Model(cfg)
+    return model, quantize_params(model.init(0, device="cuda"), serving_policy(cfg, n_over_k))
+
+
+@needs_cuda
+@pytest.mark.parametrize("arch", ["smollm-360m", "deepseek-v2-lite-16b"])
+def test_cuda_artifact_loads_onto_the_card_with_identical_leaves(tmp_path, arch):
+    """A ``.pvqz`` written from packed parameters on the card loads back onto
+    the card into a fresh-seed target: every packed leaf's pulses and scales
+    and every raw leaf identical, on the card, pulses contiguous."""
+    from repro_torch.checkpoint import load_pvqz, write_pvqz
+    from repro_torch.core.packed import is_packed, sorted_leaves
+
+    model, qparams = _artifact_trees(arch)
+    write_pvqz(tmp_path / "m.pvqz", qparams)
+    restored = load_pvqz(tmp_path / "m.pvqz", target=model.init(123, device="cuda"))
+    want = dict(sorted_leaves(qparams))
+    got = dict(sorted_leaves(restored))
+    assert list(got) == list(want)
+    for path, leaf in want.items():
+        if is_packed(leaf):
+            mine = got[path]
+            assert mine.pulses.is_cuda and mine.pulses.is_contiguous()
+            assert torch.equal(mine.pulses, leaf.pulses) and torch.equal(mine.scales, leaf.scales)
+            assert (mine.group, mine.k, mine.shape, mine.dtype, mine.layout) == (
+                leaf.group, leaf.k, leaf.shape, leaf.dtype, leaf.layout)
+        else:
+            assert got[path].is_cuda and got[path].dtype == leaf.dtype
+            assert torch.equal(got[path], leaf)
+
+
+@needs_cuda
+def test_cuda_export_load_prefill_logits_bitwise(tmp_path):
+    """``export --arch`` on the card (the encoder kernel packs), then
+    ``load_pvqz`` onto the card: prefill logits through the kernels are
+    bitwise equal to those of the in-memory packed tree of the same seed."""
+    from repro_torch.checkpoint import load_pvqz
+    from repro_torch.core.quantize import ActQuant, act_quant_scope
+    from repro_torch.launch import export
+
+    before = LAUNCHES["pvq_encode_batch"]
+    report, rc = export.run(["--arch", "smollm-360m", "--reduced", "--n-over-k", "2.0",
+                             "--out", str(tmp_path / "sm.pvqz")])
+    assert rc == 0 and LAUNCHES["pvq_encode_batch"] > before
+    model, qparams = _artifact_trees("smollm-360m")
+    restored = load_pvqz(tmp_path / "sm.pvqz", target=model.init(123, device="cuda"))
+    toks = (torch.arange(16, dtype=torch.int64, device="cuda").reshape(2, 8)
+            % model.cfg.vocab_size)
+    for aq in (None, ActQuant()):
+        with act_quant_scope(aq):
+            lm, _ = model.prefill(qparams, {"tokens": toks}, cache_len=8)
+            la, _ = model.prefill(restored, {"tokens": toks}, cache_len=8)
+        assert torch.equal(lm, la)
