@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only   # phases 1-3 only (no result line)
     python3 chip_smoke.py --kernels-only --tree DIR   # the same rows on DIR's kernels
+    python3 chip_smoke.py --paper          # the build and phase 10 only (no result line)
 
 Needs one CUDA card and the repository checkout around this file; exits
 non-zero (printing no result) without either.  ``--tree DIR`` (with
@@ -127,7 +128,27 @@ order, it:
    bytes and bits/weight, ``encode_s``, ``write_s``, the cold start's
    ``artifact_decode_s`` (host decode and copies to the card) and each
    codec's decode MB/s, beside the card's name and the host CPU's model;
-10. prints the ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
+10. the paper phase (the §VII nets A-D at published width, seed 0):
+   ``SequentialNet.pvq_kernel_encode`` at group 256 (export's) and 128
+   (``kernel_apply``'s default) and ``kernel_apply`` at m 4 and 2048 with
+   f32 activations (v2) and ``ActQuant()`` (v3), the launch counts set to 0
+   just before and read just after (every net's 10-column head on the
+   direct bodies); then the same calls through the plain versions on the
+   card: the packed codes and v3's logits identical, v2's within rtol 1e-5;
+   times ``kernel_apply`` at m 2048, and v3 and v2 on net A's head (2048 x
+   512 x 10, the direct bodies) and net B's fc (2048 x 4096 x 512) against
+   their plain versions and ``torch.matmul``, and traces ``kernel_apply``
+   at m 2048 and three training steps of nets A and B under
+   ``torch.profiler`` (device ms against host wall, the top kernels);
+   CI's first artifact gate
+   (``export --paper-net A --max-bits-per-weight 1.65``, loaded back to
+   leaves identical to the in-memory packing), printing ``bits_per_weight``,
+   ``write_s`` and the file's bytes; Tables 1-4 at the benchmark's fast
+   steps (``tools.paper_tables``: accuracy before/after PVQ, the LS rho, the
+   fold check on A and B, train ms per step), where net A must meet the
+   reference test's gates (``acc_before > 0.5``, ``acc_after > 0.3``, fold
+   argmax agreement > 0.99, every layer's zeros > 60%); and its wall time;
+11. prints the ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
 
 Except in the tune phase the autotuner's cache is a path that does not
 exist, so every other phase runs the rules' choices, as without the tuner.
@@ -1823,6 +1844,241 @@ def _ci_artifact_logits(torch, path, device="cuda") -> bool:
     return bool(torch.equal(lm, la))
 
 
+# the paper slice (§VII nets A-D at published width, seed 0): the packed
+# serving form at export's group and kernel_apply's default, the test set's
+# rows and a decode-sized batch; CI's first artifact gate (ci.yml:27-33);
+# Tables 1-4 at the benchmark's fast steps
+PAPER_NETS_RUN = ("A", "B", "C", "D")
+PAPER_GROUPS = (256, 128)
+PAPER_M = (4, 2048)
+PAPER_EXPORT = ["--paper-net", "A", "--max-bits-per-weight", "1.65", "--seed", "0"]
+# the kernel rows the slice adds: (what, net, packed layer, group, m)
+PAPER_ROWS = [("net A head 512 x 10 (direct body)", "A", "layer4", 256, 2048),
+              ("net B fc 4096 x 512", "B", "layer9", 256, 2048)]
+
+
+def _paper_bytes(m, k, n, group, v3):
+    """Bytes a paper-net matmul must move: x (int8 with its row scale for
+    v3, f32 for v2), int8 pulses, f32 rho, f32 out."""
+    x = m * k + 4 * m if v3 else 4 * m * k
+    return x + k * n + 4 * (k // group) * n + 4 * m * n
+
+
+def paper_rows(torch, timer, mm, quantize, kparams):
+    """The slice's new matmul shapes (``PAPER_ROWS``) through v3 and v2:
+    identical (v3) or within rtol 1e-5 (v2) of the plain version, timed
+    beside it and ``torch.matmul`` on the dequantized weights (CUDA
+    events, L2 flushed), each with its body and bound."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+    for what, net_id, layer, group, m in PAPER_ROWS:
+        pk = kparams[(net_id, group)][layer]["kernel"]
+        k, n = pk.pulses.shape
+        x = torch.randn(m, k, generator=gen, device="cuda")
+        x_q, a = quantize(x)
+        w_deq = pk.pulses.float() * torch.repeat_interleave(pk.scales, pk.group, dim=0)
+        for name, kern, plain, tol, rate, bodies in (
+            ("pvq_matmul_q", partial(mm.pvq_matmul_q_cuda, x_q, pk.pulses, pk.scales, a,
+                                     group=pk.group),
+             partial(mm.pvq_matmul_q_plain, x_q, pk.pulses, pk.scales, a, group=pk.group),
+             0.0, INT8_OPS_PER_S, mm.V3_BODY_LAUNCHES),
+            ("pvq_matmul", partial(mm.pvq_matmul_cuda, x, pk.pulses, pk.scales, group=pk.group),
+             partial(mm.pvq_matmul_plain, x, pk.pulses, pk.scales, group=pk.group),
+             1e-5, F64_TC_FLOPS_PER_S, mm.V2_BODY_LAUNCHES),
+        ):
+            before = dict(bodies)
+            err = check_close(f"{name} {what} m{m}", kern(), plain(), tol)
+            body = [b for b in bodies if bodies[b] != before[b]]
+            nbytes = _paper_bytes(m, k, n, pk.group, name == "pvq_matmul_q")
+            b_ms, b_by = bound_ms(nbytes, 2.0 * m * k * n, rate)
+            rows.append({"kernel": name, "matrix": what, "m": m, "k": k, "n": n,
+                         "group": pk.group, "body": body, "ms": timer(kern),
+                         "plain_ms": timer(plain),
+                         "library_ms": timer(partial(torch.matmul, x, w_deq)),
+                         "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err})
+        del w_deq
+    return rows
+
+
+def profile_call(torch, fn, reps=5, attempts=3):
+    """One ``torch.profiler`` trace of ``reps`` calls of ``fn`` (after one
+    warm call): the device ms a call (every CUDA kernel's time), the host
+    wall a call (under the profiler) and the four kernels with the most
+    device time, with their ms a call.  A trace whose kernel count is not
+    a positive multiple of ``reps`` lost events (``Timer.measure_device``)
+    and is taken again, up to ``attempts`` times; after that the numbers
+    are marked ``lost_events`` (a diagnostic, not a gate: late in a long
+    process the profiler has dropped a whole trace's device events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels = [evt for evt in prof.events()
+                   if getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA]
+        if kernels and len(kernels) % reps == 0:
+            break
+    by_name = {}
+    for evt in kernels:
+        by_name[evt.name] = by_name.get(evt.name, 0.0) + float(evt.device_time_total)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    return {"device_ms": sum(by_name.values()) / reps / 1e3, "wall_ms": 1e3 * wall / reps,
+            "kernels_a_call": len(kernels) / reps,
+            "lost_events": not kernels or len(kernels) % reps != 0,
+            "top": [[name[:90], us / reps / 1e3] for name, us in top]}
+
+
+def paper_phase(torch, kernels_mod, mm, enc, quant, smi, scratch):
+    """The paper slice (module docstring, item 10).  Returns the kernel path's
+    launch counts (all, v3's and v2's bodies), its kernel rows and summary."""
+    from repro_torch.checkpoint import load_pvqz
+    from repro_torch.configs.paper_nets import PAPER_NETS
+    from repro_torch.data.synthetic import ClassifyTask
+    from repro_torch.launch import export
+    from repro_torch.launch.export import pack_paper_net
+    from repro_torch.nn.sequential import SequentialNet
+    from repro_torch.paper.experiment import train_net
+    from repro_torch.tools import paper_tables
+
+    t_phase = time.time()
+    nets = {net_id: SequentialNet(PAPER_NETS[net_id]) for net_id in PAPER_NETS_RUN}
+    params = {net_id: net.init(0, device="cuda") for net_id, net in nets.items()}
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    inputs = {(net_id, m): torch.randn(m, *net.cfg.input_shape, generator=gen, device="cuda")
+              for net_id, net in nets.items() for m in PAPER_M}
+    legs = (("v2", None), ("v3", quant.ActQuant()))
+
+    # (a) the kernel path, the launch counts set to 0 just before and read
+    # just after; then the same calls through the plain versions on the card
+    torch.cuda.synchronize()
+    kernels_mod.reset_launches()
+    kparams, out = {}, {}
+    for net_id, net in nets.items():
+        for group in PAPER_GROUPS:
+            kparams[(net_id, group)] = net.pvq_kernel_encode(params[net_id], group=group)
+            for m in PAPER_M:
+                for leg, aq in legs:
+                    out[(net_id, group, m, leg)] = net.kernel_apply(
+                        params[net_id], kparams[(net_id, group)], inputs[(net_id, m)],
+                        group=group, act_quant=aq)
+    torch.cuda.synchronize()
+    counts = _launch_counts(kernels_mod)
+    kernels_mod.reset_launches()
+    errs = {}
+    with plain_versions(mm, enc):
+        for net_id, net in nets.items():
+            for group in PAPER_GROUPS:
+                plain_k = net.pvq_kernel_encode(params[net_id], group=group)
+                for name, sub in kparams[(net_id, group)].items():
+                    if not (torch.equal(sub["kernel"].pulses, plain_k[name]["kernel"].pulses)
+                            and torch.equal(sub["kernel"].scales,
+                                            plain_k[name]["kernel"].scales)):
+                        fail(f"paper net {net_id} group {group} {name}: the encoder's "
+                             f"packing differs from its plain version")
+                for m in PAPER_M:
+                    for leg, aq in legs:
+                        got = out[(net_id, group, m, leg)]
+                        want = net.kernel_apply(params[net_id], plain_k, inputs[(net_id, m)],
+                                                group=group, act_quant=aq)
+                        what = f"paper net {net_id} group {group} m {m} {leg}"
+                        if got.shape != (m, 10) or not bool(torch.isfinite(got).all()):
+                            fail(f"{what}: logits {tuple(got.shape)}, finite "
+                                 f"{bool(torch.isfinite(got).all())}")
+                        errs[what] = check_close(what, got, want, 1e-5 if leg == "v2" else 0.0)
+    if any(kernels_mod.launches().values()):
+        fail(f"the plain path launched kernels: {kernels_mod.launches()}")
+    launches, v3_bodies, v2_bodies = counts
+    n_fc = sum(len(kp) for kp in kparams.values())
+    for leg, bodies in (("v3", v3_bodies), ("v2", v2_bodies)):
+        if bodies["direct"] != len(kparams) * len(PAPER_M):  # each net's 10-column head
+            fail(f"paper nets: {leg} direct body launched {bodies['direct']} times, "
+                 f"not once per call: {bodies}")
+        if sum(bodies.values()) != n_fc * len(PAPER_M):
+            fail(f"paper nets: {leg} launched {sum(bodies.values())} times for "
+                 f"{n_fc * len(PAPER_M)} packed fc calls: {bodies}")
+    if launches["pvq_encode_batch"] <= 0:
+        fail("paper nets: the encoder never launched")
+
+    timer = Timer(torch)
+    times = {}
+    for net_id, net in nets.items():
+        kp = kparams[(net_id, 256)]
+        x = inputs[(net_id, 2048)]
+        times[net_id] = {
+            "pvq_kernel_encode_ms_group256": timer(partial(net.pvq_kernel_encode, params[net_id],
+                                                           group=256), reps=5, warmup=1),
+            **{f"kernel_apply_{leg}_m2048_ms": timer(partial(
+                net.kernel_apply, params[net_id], kp, x, group=256, act_quant=aq))
+               for leg, aq in legs},
+            "float_apply_m2048_ms": timer(partial(net.apply, params[net_id], x)),
+        }
+    rows = paper_rows(torch, timer, mm, quant.quantize_activations, kparams)
+    del timer
+    # where a call's time goes: kernel_apply at m 2048 and three training
+    # steps (the data sampled on the host, as run_net does)
+    profiles = {}
+    for net_id in ("A", "B"):
+        net, kp, x = nets[net_id], kparams[(net_id, 256)], inputs[(net_id, 2048)]
+        for leg, aq in legs:
+            profiles[f"{net_id} kernel_apply {leg} m2048"] = profile_call(
+                torch, partial(net.kernel_apply, params[net_id], kp, x, group=256, act_quant=aq))
+        task = ClassifyTask(net.cfg.input_shape, noise=6.0, seed=0)
+        profiles[f"{net_id} train 3 steps"] = profile_call(
+            torch, partial(train_net, net, task, steps=3, init_params=params[net_id]), reps=2)
+    for row in rows:
+        print(json.dumps({"paper_kernel_row": row}), flush=True)
+    kernel_s = time.time() - t_phase
+
+    # (b) CI's first artifact gate: export --paper-net A at <= 1.65 bits/weight
+    t0 = time.time()
+    path = str(scratch / "paper_a.pvqz")
+    exp, rc = export.run(PAPER_EXPORT + ["--out", path])
+    if rc != 0:
+        fail(f"export --paper-net A exited {rc}: {exp.get('gate_fail')}")
+    loaded = load_pvqz(path, device="cuda")
+    in_memory, _ = pack_paper_net("A", nets["A"].init(0, device="cuda"), group=256, seed=0)
+    if not _same_leaves(torch, loaded, in_memory):
+        fail("export --paper-net A: the file's leaves differ from the in-memory packing")
+    export_s = time.time() - t0
+
+    # (c) Tables 1-4 on the card (the benchmark's fast steps), the reference
+    # test's gates on net A (tests/test_integration.py:75-82)
+    t0 = time.time()
+    results = []
+    table_rows = paper_tables.tables_1_to_4("".join(PAPER_NETS_RUN), device="cuda",
+                                            results=results)
+    tables_s = time.time() - t0
+    a = results[0]
+    gates = {"acc_before > 0.5": a.acc_before > 0.5, "acc_after > 0.3": a.acc_after > 0.3,
+             "fold argmax agreement > 0.99": a.fold_check["argmax_agreement"] > 0.99,
+             "every layer's zeros > 60%": all(t["0_pct"] > 60 for t in a.weight_tables.values())}
+
+    summary = {"paper_phase": {
+        "card": smi, "nets": list(PAPER_NETS_RUN), "groups": list(PAPER_GROUPS),
+        "m": list(PAPER_M), "kernel_launches": launches, "v3_body_launches": v3_bodies,
+        "v2_body_launches": v2_bodies, "max_abs_err_v2": max(
+            v for k, v in errs.items() if k.endswith("v2")),
+        "times": times, "profiles": profiles,
+        "export": {"bits_per_weight": exp["bits_per_weight"], "file_bytes": exp["file_bytes"],
+                   "encode_s": exp["encode_s"], "write_s": exp["write_s"],
+                   "identical_after_load": True},
+        "tables_1_4": table_rows, "net_a_gates": gates,
+        "seconds": {"kernel_path": round(kernel_s, 2), "export": round(export_s, 2),
+                    "tables_1_4": round(tables_s, 2),
+                    "phase": round(time.time() - t_phase, 2)}}}
+    print(json.dumps(summary), flush=True)
+    if not all(gates.values()):
+        fail(f"net A misses the reference test's gates: {gates}")
+    return counts, rows, summary
+
+
 def start_ptxas_report(build, source="pvq_matmul"):
     """Starts ``nvcc -Xptxas -v`` on ``csrc/<source>.cu`` (a cubin under the
     build directory), beside the library builds."""
@@ -1878,6 +2134,7 @@ def main() -> int:
         return 2
     args = sys.argv[1:]
     kernels_only = "--kernels-only" in args
+    paper_only = "--paper" in args
     tree = ROOT
     if "--tree" in args:
         if not kernels_only or args.index("--tree") + 1 >= len(args):
@@ -1900,12 +2157,12 @@ def main() -> int:
     scratch = tempfile.mkdtemp(prefix="chip_smoke_")
     os.environ[TUNE_CACHE_ENV] = str(Path(scratch) / "untuned.json")
     try:
-        return run_phases(torch, tree, kernels_only, smi, Path(scratch))
+        return run_phases(torch, tree, kernels_only, smi, Path(scratch), paper_only)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
 
-def run_phases(torch, tree, kernels_only, smi, scratch) -> int:
+def run_phases(torch, tree, kernels_only, smi, scratch, paper_only=False) -> int:
     import repro_torch.kernels as kernels_mod
     from repro_torch.core import quantize as quant
     from repro_torch.core.quantize import quantize_activations
@@ -1931,6 +2188,10 @@ def run_phases(torch, tree, kernels_only, smi, scratch) -> int:
         if not found:
             fail(f"nvcc -Xptxas -v reported no {part} kernel")
         print(json.dumps({key: found}), flush=True)
+
+    if paper_only:  # the slice's phase alone, without the other main paths
+        paper_phase(torch, kernels_mod, mm, enc, quant, smi, scratch)
+        return 0
 
     timer = Timer(torch)
     entries, rows = check_matmuls(torch, timer, mm, ops, quantize_activations, kernels_mod)
@@ -1985,6 +2246,12 @@ def run_phases(torch, tree, kernels_only, smi, scratch) -> int:
     autotune.clear_memory_cache()
     counts["smollm-360m artifact"], _ = artifact_phase(torch, serve, kernels_mod, quant, smi,
                                                        scratch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    (counts["paper nets"], bodies["paper nets"], v2_bodies["paper nets"]), paper_kernel_rows, _ = \
+        paper_phase(torch, kernels_mod, mm, enc, quant, smi, scratch)
+    for name in ("pvq_matmul_q", "pvq_matmul"):
+        entries[name]["paper"] = [r for r in paper_kernel_rows if r["kernel"] == name]
     run_b = engine["smollm-360m engine (b)"]
     # the timed runs' (replays counted, the warm-up's taken off)
     entries["pvq_attn_q"]["launches_from_chunk_caller"] = {
@@ -2007,6 +2274,7 @@ def run_phases(torch, tree, kernels_only, smi, scratch) -> int:
         if name in ("pvq_matmul", "pvq_matmul_batched"):
             e["v2_body_launches_by_path"] = v2_bodies
         line.append(e)
+    print(json.dumps({"chip_smoke_wall_s": round(time.time() - t0, 2)}), flush=True)
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

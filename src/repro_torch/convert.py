@@ -8,9 +8,13 @@ parameters: the same nested dicts with torch tensors and
 :class:`~repro_torch.core.packed.PackedPVQ` leaves, stacked ones included
 (a MoE expert bank packed under a layer stack is 4-D: ``(repeats, E,
 k_pad, n)``).  Leaves without a packed form (the f32 MoE router, the MLA
-b-projections, norms) stay tensors.  Both packages then compute on
-identical weights and identical packed codes.  Turning JAX
-arrays into numpy is the caller's step, so this module imports no JAX.
+b-projections, norms) stay tensors.  A sequential net's tree (the paper's
+nets A-D: ``{"layer<i>": {"kernel", "bias"}}``) comes across the same way,
+its conv kernels as 4-D HWIO tensors in the reference's layout (the port's
+``nn.sequential`` keeps that layout and permutes only at ``F.conv2d``).
+Both packages then compute on identical weights and identical packed
+codes.  Turning JAX arrays into numpy is the caller's step, so this module
+imports no JAX.
 """
 
 from __future__ import annotations

@@ -8,6 +8,8 @@ The process defaults (``set_default_act_quant`` / ``set_default_kv_quant``)
 are what ``launch/serve.py --act-int8 / --kv-pvq`` set once.
 ``quantize_tree`` encodes every matching leaf and expands it back to dense
 (``serve --pvq-sim``); ``total_bits`` prices its codes.
+``act_matmul_error_bound`` bounds the gap that int8 activations open
+against f32 ones on a packed matmul.
 """
 
 from __future__ import annotations
@@ -151,6 +153,33 @@ def _probe_act_quant(q: torch.Tensor, scale: torch.Tensor) -> None:
         obs.histogram("quant.act_zero_scale_frac").record(
             float((scale == 0).sum()) / scale.numel()
         )
+
+
+def act_matmul_error_bound(
+    act_scale: torch.Tensor,  # (m, 1) per-row | (m, k//group) per-tile f32 scales
+    w_pulses: torch.Tensor,  # (k, n) int8 PVQ pulses
+    w_scales: torch.Tensor,  # (k // group, n) f32 per-group rho
+    group: int,
+) -> torch.Tensor:
+    """Exact worst-case |int8-act output - f32-act output| per logit, (m, n):
+
+        |sum_i e_i * W_in|  <=  0.5 * sum_g a_mg * |rho_gn| * L1(pulses_gn)
+
+    where ``a_mg`` is the activation scale covering group g of row m (the
+    row's one scale, or column g of a per-tile scale matrix).  The L1 is
+    taken from the pulses actually stored, so the bound holds after the
+    K > 127 int8 clamp too; zero scales (all-pad rows) give a zero bound."""
+    k, n = w_pulses.shape
+    l1 = torch.abs(w_pulses.to(torch.float32)).reshape(k // group, group, n).sum(dim=1)
+    weighted = torch.abs(w_scales.to(torch.float32)) * l1  # (k//group, n)
+    a = act_scale.to(torch.float32)
+    if a.shape[-1] == 1:
+        return 0.5 * a * weighted.sum(dim=0)[None, :]
+    if a.shape[-1] != k // group:
+        raise ValueError(
+            f"per-tile act_scale has {a.shape[-1]} groups, weight has {k // group}"
+        )
+    return 0.5 * (a @ weighted)
 
 
 @dataclasses.dataclass(frozen=True)

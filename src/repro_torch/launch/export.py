@@ -1,22 +1,30 @@
 """Export CLI: model parameters -> ``.pvqz`` compressed artifact (PyTorch
-port of ``repro.launch.export``'s ``--arch`` mode, paper §VI).
+port of ``repro.launch.export``, paper §VI).
 
+    # a transformer config (packed with the serving policy):
     python -m repro_torch.launch.export --arch smollm-360m --n-over-k 2.0 \\
         --out model.pvqz
     python -m repro_torch.launch.export --arch smollm-360m --reduced \\
         --n-over-k 2.0 --out model.pvqz --device cpu
 
-Packs the parameters ONCE into ``PackedPVQ`` leaves with the serving
-policy (``quantize_params``: on the card the encoder kernel packs every
-leaf), entropy-codes the pulse streams on the host into the single-file
+    # one of the paper's own nets (§VII; fc layers at their Table N/K ratios):
+    python -m repro_torch.launch.export --paper-net A --out a.pvqz \\
+        --max-bits-per-weight 1.65
+
+Packs the parameters ONCE into ``PackedPVQ`` leaves (``--arch``: every
+matmul leaf with the serving policy, ``quantize_params``; ``--paper-net``:
+the fc kernels at ``--group``, ``SequentialNet.pvq_kernel_encode``, conv
+kernels and biases raw), the encoder kernel packing every leaf on the
+card, entropy-codes the pulse streams on the host into the single-file
 container, and prints the per-leaf bits/weight report.
 ``--max-bits-per-weight`` and ``--max-expert-bits-per-weight`` turn the
 report into gates (exit 1 when the artifact, or its MoE expert leaves
 alone, miss the budget).  It runs on the CUDA card unless ``--device cpu``
 is given.
 
-``repro_torch.launch.serve --artifact model.pvqz`` consumes the file and
-restores the identical pulses and scales with no re-encode.
+``repro_torch.launch.serve --artifact model.pvqz`` consumes an ``--arch``
+file and restores the identical pulses and scales with no re-encode;
+``checkpoint.load_pvqz`` reads either kind.
 """
 
 from __future__ import annotations
@@ -61,12 +69,40 @@ def export_arch(args) -> tuple:
     return qparams, meta
 
 
+def pack_paper_net(net_id: str, params, *, group: int, seed: int) -> tuple:
+    """(params with the fc kernels packed, meta) for one of the §VII nets
+    from its float ``params``: each fc kernel packed at its layer's Table
+    N/K ratio through ``pvq_quantize_dense``; conv kernels (4-D, HWIO) and
+    biases stay raw."""
+    from ..configs.paper_nets import PAPER_NETS
+    from ..nn.sequential import SequentialNet
+
+    net = SequentialNet(PAPER_NETS[net_id])
+    merged = dict(params)
+    merged.update(net.pvq_kernel_encode(params, group=group))
+    meta = {"kind": "paper_net", "net": net_id, "group": group, "seed": seed}
+    return merged, meta
+
+
+def export_paper_net(args) -> tuple:
+    """(params with packed fc kernels, meta) for one of the §VII nets,
+    initialised from ``--seed`` on ``--device``."""
+    from ..configs.paper_nets import PAPER_NETS
+    from ..nn.sequential import SequentialNet
+
+    device = torch.device(args.device)
+    params = SequentialNet(PAPER_NETS[args.paper_net]).init(args.seed, device=device)
+    qparams, meta = pack_paper_net(args.paper_net, params, group=args.group, seed=args.seed)
+    _sync(device)
+    return qparams, meta
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     src = ap.add_mutually_exclusive_group()
     src.add_argument("--arch", default=None, help="transformer config name")
     src.add_argument("--paper-net", default=None, choices=("A", "B", "C", "D"),
-                     help="one of the paper's §VII experiment nets (not ported yet)")
+                     help="one of the paper's §VII experiment nets")
     ap.add_argument("--out", required=True, help="output .pvqz path")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--n-over-k", type=float, default=1.0, help="kernel N/K ratio")
@@ -95,16 +131,13 @@ def run(argv=None):
 
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.paper_net:
-        ap.error("--paper-net needs the paper's sequential nets (nn/sequential.py), "
-                 "which arrive with the paper slice; use --arch")
-    if not args.arch:
+    if not args.arch and not args.paper_net:
         args.arch = "smollm-360m"
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to run the plain versions")
 
     t0 = time.time()
-    qparams, meta = export_arch(args)
+    qparams, meta = export_paper_net(args) if args.paper_net else export_arch(args)
     encode_s = time.time() - t0
 
     t0 = time.time()

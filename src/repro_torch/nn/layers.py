@@ -62,6 +62,19 @@ def dense(p: Params, x: torch.Tensor, *, act_quant=None) -> torch.Tensor:
     return y
 
 
+def pvq_quantize_dense(p: Params, *, group: int = 128, k_pulses: int) -> Params:
+    """A float dense param dict as the packed serving artifact:
+    ``{"kernel": PackedPVQ (matmul layout) [, "bias"]}``, the same dict shape,
+    so ``dense``/``pvq_dense`` apply it as they apply the float layer.  The
+    bias stays float: it rides the kernel's fused epilogue."""
+    from ..core.packed import pack_matmul
+
+    q: Params = {"kernel": pack_matmul(p["kernel"].to(torch.float32), group=group, k=k_pulses)}
+    if "bias" in p:
+        q["bias"] = p["bias"]
+    return q
+
+
 def pvq_dense(p: Params, x: torch.Tensor, *, activation: str = "none", act_quant=None) -> torch.Tensor:
     """Packed dense layer: x goes to the kernel in f32 (int8 after
     quantization when an ``ActQuant`` is in effect, by default the process

@@ -680,10 +680,13 @@ def test_engine_serves_an_artifact_on_cpu(tmp_path):
 def test_cli_flags_follow_the_reference(tmp_path, monkeypatch):
     with pytest.raises(SystemExit):  # --act-int8 needs --pvq or --artifact
         port_serve.run(["--reduced", "--device", "cpu", "--act-int8"])
-    with pytest.raises(SystemExit):  # --paper-net waits for the paper slice
-        port_export.run(["--paper-net", "A", "--out", "x.pvqz", "--device", "cpu"])
+    with pytest.raises(SystemExit):  # --arch and --paper-net exclude each other
+        port_export.run(["--arch", "smollm-360m", "--paper-net", "A",
+                         "--out", str(tmp_path / "x.pvqz"), "--device", "cpu"])
     # the card is the default: without one the entry points raise
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_export.run(["--reduced", "--out", str(tmp_path / "x.pvqz")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_export.run(["--paper-net", "A", "--out", str(tmp_path / "x.pvqz")])
     assert list(tmp_path.iterdir()) == []

@@ -1296,3 +1296,42 @@ def test_cuda_export_load_prefill_logits_bitwise(tmp_path):
             lm, _ = model.prefill(qparams, {"tokens": toks}, cache_len=8)
             la, _ = model.prefill(restored, {"tokens": toks}, cache_len=8)
         assert torch.equal(lm, la)
+
+
+@needs_cuda
+@pytest.mark.parametrize("group", [256, 128])
+@pytest.mark.parametrize("net_id", ["A", "B", "C", "D"])
+def test_cuda_paper_net_kernel_apply_matches_plain(net_id, group):
+    """The §VII nets at published width: ``pvq_kernel_encode`` on the
+    encoder kernel is identical to its plain version, and ``kernel_apply``
+    at m 4 and 2048 through v3 (``ActQuant``, identical) and v2 (f32, within
+    rtol 1e-5), the 10-column heads on the direct bodies."""
+    from repro_torch.configs.paper_nets import PAPER_NETS
+    from repro_torch.nn.sequential import SequentialNet
+
+    net = SequentialNet(PAPER_NETS[net_id])
+    params = net.init(0, device="cuda")
+    before = LAUNCHES["pvq_encode_batch"]
+    kp = net.pvq_kernel_encode(params, group=group)
+    assert LAUNCHES["pvq_encode_batch"] > before
+    with _plain_versions():
+        kp_plain = net.pvq_kernel_encode(params, group=group)
+    for name, sub in kp.items():
+        assert torch.equal(sub["kernel"].pulses, kp_plain[name]["kernel"].pulses)
+        assert torch.equal(sub["kernel"].scales, kp_plain[name]["kernel"].scales)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for m in (4, 2048):
+        x = torch.randn(m, *net.cfg.input_shape, generator=gen, device="cuda")
+        for aq in (None, port_q.ActQuant()):
+            before_v3, before_v2 = dict(V3_BODY_LAUNCHES), dict(V2_BODY_LAUNCHES)
+            got = net.kernel_apply(params, kp, x, group=group, act_quant=aq)
+            bodies = (_body_launches_since(before_v3) if aq else _v2_launches_since(before_v2))
+            assert bodies["direct"] == 1  # the 10-column head
+            assert sum(bodies.values()) == len(kp)
+            with _plain_versions():
+                want = net.kernel_apply(params, kp, x, group=group, act_quant=aq)
+            assert got.shape == (m, 10) and bool(torch.isfinite(got).all())
+            if aq is None:
+                _close(got, want)
+            else:
+                assert torch.equal(got, want)
