@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernels-only   # phases 1-3 only (no result line)
     python3 chip_smoke.py --kernels-only --tree DIR   # the same rows on DIR's kernels
     python3 chip_smoke.py --paper          # the build and phase 10 only (no result line)
+    python3 chip_smoke.py --train          # the build and phase 11 only (no result line)
 
 Needs one CUDA card and the repository checkout around this file; exits
 non-zero (printing no result) without either.  ``--tree DIR`` (with
@@ -148,7 +149,28 @@ order, it:
    fold check on A and B, train ms per step), where net A must meet the
    reference test's gates (``acc_before > 0.5``, ``acc_after > 0.3``, fold
    argmax agreement > 0.99, every layer's zeros > 60%); and its wall time;
-11. prints the ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
+11. the train phase (``launch.train``, smollm-360m at full width in bf16,
+   ``--steps 8 --batch 8 --seq 64 --pvq-qat --pvq-k 256 --ckpt-every 0``,
+   eager steps), the launch counts set to 0 just before and read just
+   after: every step's loss and grad norm finite, no restore, the encoder
+   launched once per projected leaf (8) every step and its plain version
+   never, no other kernel; the final checkpoint restored into a fresh
+   state bit for bit; step 1 again with the encoder's plain version on the
+   card: every leaf's STE pulses and rho identical and the step-1 loss
+   identical; one ``torch.profiler`` trace of two steps (device ms against
+   host wall, the encoder's device ms a step), the projection timed on the
+   kernel and on the plain version; the full-width step-1 gradients through
+   ``make_ef_compressor`` (default ``CompressionConfig``: group 256, K 128)
+   and ``packed_update`` on one full-width packed leaf (the first layer
+   stack's ``wi_gate``, 32 x 960 x 2560), each identical on the kernel and
+   the plain version, with ``wire_bytes``; then reduced smollm-360m: 30
+   ``--pvq-qat --pvq-k 128`` steps (batch 8, sequence 32) whose last loss
+   is below its first (``tests/test_integration.py:33-43``), and an
+   injected failure at step 17 of a 30-step run with ``--ckpt-every 5``
+   (one restore, step 15 run twice, the loss falling); prints host wall
+   ms a step, ``save_s``, ``restore_s``, the checkpoint's bytes and the
+   peak device memory beside the card's name and power limit;
+12. prints the ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
 
 Except in the tune phase the autotuner's cache is a path that does not
 exist, so every other phase runs the rules' choices, as without the tuner.
@@ -165,6 +187,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import math
 import os
 from functools import partial
 import re
@@ -1900,11 +1923,12 @@ def paper_rows(torch, timer, mm, quantize, kparams):
     return rows
 
 
-def profile_call(torch, fn, reps=5, attempts=3):
+def profile_call(torch, fn, reps=5, attempts=3, match=None):
     """One ``torch.profiler`` trace of ``reps`` calls of ``fn`` (after one
     warm call): the device ms a call (every CUDA kernel's time), the host
     wall a call (under the profiler) and the four kernels with the most
-    device time, with their ms a call.  A trace whose kernel count is not
+    device time, with their ms a call; with ``match``, also ``match_ms``,
+    the device ms a call of the kernels whose name holds it.  A trace whose kernel count is not
     a positive multiple of ``reps`` lost events (``Timer.measure_device``)
     and is taken again, up to ``attempts`` times; after that the numbers
     are marked ``lost_events`` (a diagnostic, not a gate: late in a long
@@ -1929,10 +1953,13 @@ def profile_call(torch, fn, reps=5, attempts=3):
     for evt in kernels:
         by_name[evt.name] = by_name.get(evt.name, 0.0) + float(evt.device_time_total)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
-    return {"device_ms": sum(by_name.values()) / reps / 1e3, "wall_ms": 1e3 * wall / reps,
-            "kernels_a_call": len(kernels) / reps,
-            "lost_events": not kernels or len(kernels) % reps != 0,
-            "top": [[name[:90], us / reps / 1e3] for name, us in top]}
+    out = {"device_ms": sum(by_name.values()) / reps / 1e3, "wall_ms": 1e3 * wall / reps,
+           "kernels_a_call": len(kernels) / reps,
+           "lost_events": not kernels or len(kernels) % reps != 0,
+           "top": [[name[:90], us / reps / 1e3] for name, us in top]}
+    if match is not None:
+        out["match_ms"] = sum(us for name, us in by_name.items() if match in name) / reps / 1e3
+    return out
 
 
 def paper_phase(torch, kernels_mod, mm, enc, quant, smi, scratch):
@@ -2079,6 +2106,315 @@ def paper_phase(torch, kernels_mod, mm, enc, quant, smi, scratch):
     return counts, rows, summary
 
 
+# the training slice: full-width smollm-360m, --pvq-qat at the config's own
+# K (group 256, N/K 1), eager steps; the reduced runs mirror
+# tests/test_integration.py:33-43 and tests/test_fault_tolerance.py:60
+TRAIN_FULL = ["--arch", "smollm-360m", "--steps", "8", "--batch", "8", "--seq", "64",
+              "--pvq-qat", "--pvq-k", "256", "--ckpt-every", "0"]
+TRAIN_REDUCED = ["--arch", "smollm-360m", "--reduced", "--steps", "30", "--batch", "8",
+                 "--seq", "32", "--pvq-qat", "--pvq-k", "128", "--ckpt-every", "0"]
+TRAIN_RECOVERY = ["--arch", "smollm-360m", "--reduced", "--steps", "30", "--batch", "8",
+                  "--seq", "32", "--ckpt-every", "5"]
+TRAIN_PACKED_LEAF = "segments/seg0/b0/ffn/wi_gate/kernel"  # 32 x 960 x 2560
+ENCODE_KERNEL_MATCH = "pvq_encode"
+
+
+def _tree_equal(torch, a, b) -> bool:
+    """Two trainer states ``(params, AdamWState)`` identical, leaf for leaf
+    (values, dtypes, devices), the step counter too."""
+    from repro_torch.checkpoint.checkpointer import _flatten
+
+    fa, fb = _flatten(a), _flatten(b)
+    if list(fa) != list(fb):
+        return False
+    for key, x in fa.items():
+        y = fb[key]
+        if isinstance(x, int):
+            if x != y:
+                return False
+        elif x.dtype != y.dtype or x.device != y.device or not torch.equal(x, y):
+            return False
+    return True
+
+
+@contextlib.contextmanager
+def timed_saves(ckpt_cls, times):
+    """Appends each blocking ``Checkpointer.save``'s seconds to ``times``
+    while active (a harness-only wrapper of the class method)."""
+    save = ckpt_cls.save
+
+    def timed(self, step, state, *, block=True):
+        t0 = time.perf_counter()
+        out = save(self, step, state, block=block)
+        if block:
+            times.append(time.perf_counter() - t0)
+        return out
+
+    ckpt_cls.save = timed
+    try:
+        yield
+    finally:
+        ckpt_cls.save = save
+
+
+@contextlib.contextmanager
+def counted_plain_encoder(enc, calls):
+    """Counts the calls of the encoder's plain version while active (the
+    dispatch reads ``pvq_encode_batch_plain`` from the module at each call)."""
+    plain = enc.pvq_encode_batch_plain
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return plain(*args, **kwargs)
+
+    enc.pvq_encode_batch_plain = counted
+    try:
+        yield
+    finally:
+        enc.pvq_encode_batch_plain = plain
+
+
+def _projected_leaves(params, project_rule):
+    from repro_torch.core.packed import sorted_leaves
+
+    return {path: leaf for path, leaf in sorted_leaves(params) if project_rule(path, leaf)}
+
+
+def train_phase(torch, kernels_mod, mm, enc, smi, scratch):
+    """The training slice (module docstring, item 11).  Returns the
+    full-width run's launch counts and its summary."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.core.packed import pack_matmul, packed_update
+    from repro_torch.core.quantize import QuantPolicy
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.optim.grad_compress import CompressionConfig, make_ef_compressor, wire_bytes
+
+    t_phase = time.time()
+    policy = QuantPolicy()
+    k_full = int(TRAIN_FULL[TRAIN_FULL.index("--pvq-k") + 1])
+    n_steps = int(TRAIN_FULL[TRAIN_FULL.index("--steps") + 1])
+    sync = torch.cuda.synchronize
+
+    def projected(path, leaf):  # launch.train's --pvq-qat rule
+        return leaf.ndim >= 2 and policy.match(path) and leaf.numel() >= train.QAT_MIN_SIZE
+
+    # (a) the full-width run, the launch counts set to 0 just before and
+    # read just after; every blocking save timed
+    ckpt_dir = scratch / "train_full"
+    save_s, plain_calls = [], []
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    kernels_mod.reset_launches()
+    t0 = time.time()
+    with timed_saves(Checkpointer, save_s), counted_plain_encoder(enc, plain_calls):
+        report, rc, st = train.run(TRAIN_FULL + ["--ckpt-dir", str(ckpt_dir), "--device", "cuda"],
+                                   return_state=True)
+    sync()
+    run_s = time.time() - t0
+    counts = _launch_counts(kernels_mod)
+    launches = counts[0]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    runner, model, step_fn, loader = st["runner"], st["model"], st["step_fn"], st["loader"]
+    hist = runner.history
+    print(json.dumps({"train_full_report": report}), flush=True)
+    if rc != 0 or len(hist) != n_steps:
+        fail(f"train (full width) exited {rc} after {len(hist)} steps")
+    bad = [h["step"] for h in hist
+           if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]))]
+    if bad:
+        fail(f"train (full width): loss or grad norm not finite at steps {bad}")
+    if runner.restores:
+        fail(f"train (full width): {runner.restores} restores (a step raised)")
+    n_leaves = len(_projected_leaves(runner.state[0], projected))
+    if launches["pvq_encode_batch"] != n_leaves * n_steps or plain_calls:
+        fail(f"train (full width): the encoder launched {launches['pvq_encode_batch']} times "
+             f"for {n_leaves} projected leaves x {n_steps} steps, its plain version ran "
+             f"{len(plain_calls)} times")
+    others = {k: v for k, v in launches.items() if k != "pvq_encode_batch" and v}
+    if others:
+        fail(f"train (full width) launched kernels that training does not use: {others}")
+    if len(save_s) != 1:
+        fail(f"train (full width): {len(save_s)} blocking saves, expected the final one")
+
+    # (b) the checkpoint restores bit-identical into a fresh state
+    final = runner.state
+    fresh_state, _ = train.make_state_and_step(model, st["optimizer"], seed=1, device="cuda")
+    t0 = time.perf_counter()
+    restored, step = st["checkpointer"].restore(fresh_state)
+    sync()
+    restore_s = time.perf_counter() - t0
+    if step != n_steps - 1 or not _tree_equal(torch, restored, final):
+        fail(f"train (full width): the checkpoint of step {step} does not restore the saved "
+             f"state bit for bit")
+    ckpt_bytes = sum(f.stat().st_size for f in ckpt_dir.rglob("*") if f.is_file())
+    del restored, fresh_state
+    gc.collect()
+
+    # (c) step 1 again: the STE's pulses of every leaf and the step-1 loss on
+    # the kernel against the plain version on the card
+    init_state, step_fn0 = train.make_state_and_step(
+        model, st["optimizer"], pvq_qat=True, pvq_k=k_full, seed=0, device="cuda")
+    batch0 = loader.device_batch(0)
+    leaves = _projected_leaves(init_state[0], projected)
+    kernels_mod.reset_launches()
+    pulses = {path: ops.pvq_encode_grouped_fast(leaf.reshape(-1), 256, k_full,
+                                                scale_mode="paper")
+              for path, leaf in leaves.items()}
+    with plain_versions(mm, enc):
+        for path, leaf in leaves.items():
+            p_plain, rho_plain = ops.pvq_encode_grouped_fast(leaf.reshape(-1), 256, k_full,
+                                                             scale_mode="paper")
+            if not (torch.equal(pulses[path][0], p_plain)
+                    and torch.equal(pulses[path][1], rho_plain)):
+                fail(f"train: the STE's encoder on {path} differs from its plain version")
+        _, m_plain = step_fn0(init_state, batch0)
+    if kernels_mod.launches()["pvq_encode_batch"] != len(leaves):
+        fail("train: the plain rerun launched the encoder")
+    loss_plain = float(m_plain["loss"])
+    if loss_plain != hist[0]["loss"]:
+        fail(f"train: step-1 loss {hist[0]['loss']!r} on the kernel, {loss_plain!r} on the "
+             f"plain version")
+    rows = sum(int(p.shape[0]) for p, _ in pulses.values())
+    del pulses
+
+    # (d) where a step's time goes: one profiler trace of 2 steps; the
+    # projection alone, kernel and plain version (events)
+    prof = profile_call(torch, partial(step_fn0, init_state, batch0), reps=2,
+                        match=ENCODE_KERNEL_MATCH)
+    enc_device_ms = prof.pop("match_ms")
+    project = train.qat_projector(k_full)
+
+    def wall_ms(fn, reps=3):  # median host wall of a call, the card synchronized
+        fn()
+        times = []
+        for _ in range(reps):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(times)
+
+    project_ms = wall_ms(partial(project, init_state[0]))
+    with plain_versions(mm, enc):
+        project_plain_ms = wall_ms(partial(project, init_state[0]), reps=1)
+    nbytes = sum(4 * 2 * leaf.numel() + 4 * -(-leaf.numel() // 256) for leaf in leaves.values())
+    nops = sum(_encode_ops(torch, torch.nn.functional.pad(
+        leaf.reshape(-1).float(), (0, (-leaf.numel()) % 256)).reshape(-1, 256), k_full,
+        enc.DELTA_MAX) for leaf in leaves.values())
+    enc_bound = bound_ms(nbytes, nops, F32_FLOPS_PER_S)
+
+    # (e) the full-width step-1 gradients through the error-feedback
+    # compressor, and packed_update on one full-width packed leaf: kernel
+    # against plain version on the card
+    _, _, grads = train.loss_and_grads(model, init_state[0], batch0,
+                                      train.step_generator(0, 0, "cuda"), project)
+    cfg = CompressionConfig()
+    init_ef, apply_ef = make_ef_compressor(cfg)
+    ef0 = init_ef(grads)
+    kernels_mod.reset_launches()
+    t0 = time.perf_counter()
+    dec, ef1 = apply_ef(grads, ef0)
+    sync()
+    ef_s = time.perf_counter() - t0
+    ef_launches = kernels_mod.launches()["pvq_encode_batch"]
+    with plain_versions(mm, enc):
+        dec_p, ef1_p = apply_ef(grads, ef0)
+    if ef_launches <= 0 or not all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(dec) + tree_leaves(ef1), tree_leaves(dec_p) + tree_leaves(ef1_p))):
+        fail(f"train: the EF compressor on the kernel ({ef_launches} launches) differs from "
+             f"its plain version")
+    comp_bytes, raw_bytes = wire_bytes(grads, cfg)
+    del dec, ef1, dec_p, ef1_p, ef0
+    leaf = dict(_projected_leaves(init_state[0], projected))[TRAIN_PACKED_LEAF]
+    pk = pack_matmul(leaf, group=256, n_over_k=model.cfg.pvq.n_over_k)
+    # a fine-tune's update along the gradient, its RMS 30% of the weights'
+    # (steps below half a pulse's quantum re-encode to the same pulses)
+    g_leaf = dict(_projected_leaves(grads, projected))[TRAIN_PACKED_LEAF].float()
+    delta = -0.3 * g_leaf * (leaf.float().std() / g_leaf.std())
+    kernels_mod.reset_launches()
+    t0 = time.perf_counter()
+    pk2 = packed_update(pk, delta)
+    sync()
+    update_s = time.perf_counter() - t0
+    update_launches = kernels_mod.launches()["pvq_encode_batch"]
+    with plain_versions(mm, enc):
+        pk2_p = packed_update(pk, delta)
+    if update_launches <= 0 or not (torch.equal(pk2.pulses, pk2_p.pulses)
+                                    and torch.equal(pk2.scales, pk2_p.scales)):
+        fail(f"train: packed_update on the kernel ({update_launches} launches) differs from "
+             f"its plain version")
+    if torch.equal(pk2.pulses, pk.pulses) and torch.equal(pk2.scales, pk.scales):
+        fail("train: packed_update left the code unchanged")
+    pk2_pulses_changed = int((pk2.pulses != pk.pulses).sum())
+    del grads, pk, pk2, pk2_p, delta, init_state, st, runner, final
+    gc.collect()
+    torch.cuda.empty_cache()
+    full_s = time.time() - t_phase
+
+    # (f) reduced: the loss falls over 30 --pvq-qat steps; an injected
+    # failure at step 17 restores the last committed step (14)
+    t0 = time.time()
+    red, rc, red_st = train.run(TRAIN_REDUCED + ["--ckpt-dir", str(scratch / "train_red"),
+                                                 "--device", "cuda"], return_state=True)
+    red_hist = red_st["runner"].history
+    if rc != 0 or not red_hist[-1]["loss"] < red_hist[0]["loss"]:
+        fail(f"train (reduced): loss {red_hist[0]['loss']} -> {red_hist[-1]['loss']}, exit {rc}")
+    crashed = []
+
+    def injector(step):
+        if step == 17 and not crashed:
+            crashed.append(step)
+            raise RuntimeError("simulated node failure")
+
+    rec, rc, rec_st = train.run(TRAIN_RECOVERY + ["--ckpt-dir", str(scratch / "train_rec"),
+                                                  "--device", "cuda"],
+                                return_state=True, failure_injector=injector)
+    rec_hist = rec_st["runner"].history
+    reran = [h["step"] for h in rec_hist].count(15)
+    if rc != 0 or rec["restores"] != 1 or reran != 2 or not rec_hist[-1]["loss"] < rec_hist[0][
+            "loss"]:
+        fail(f"train (reduced) recovery: restores {rec['restores']}, step 15 ran {reran} "
+             f"times, loss {rec_hist[0]['loss']} -> {rec_hist[-1]['loss']}")
+    reduced_s = time.time() - t0
+
+    dts = [1e3 * h["dt"] for h in hist]
+    summary = {"train_phase": {
+        "card": smi, "argv": TRAIN_FULL, "report": report,
+        "loss": [h["loss"] for h in hist], "grad_norm": [h["grad_norm"] for h in hist],
+        "host_wall_ms_per_step": dts, "host_wall_ms_per_step_median_after_first":
+            statistics.median(dts[1:]),
+        "profile_2_steps": {**prof, "idle_share": 1.0 - prof["device_ms"] / prof["wall_ms"]},
+        "encoder": {"launches": launches["pvq_encode_batch"],
+                    "launches_per_step": launches["pvq_encode_batch"] / n_steps,
+                    "projected_leaves": n_leaves, "group_rows_per_step": rows,
+                    "device_ms_per_step": enc_device_ms,
+                    "bound_ms_per_step": enc_bound[0], "bound_by": enc_bound[1],
+                    "projection_ms_per_step": project_ms,
+                    "projection_plain_ms_per_step": project_plain_ms,
+                    "plain_calls_in_run": len(plain_calls)},
+        "step1_loss_kernel": hist[0]["loss"], "step1_loss_plain": loss_plain,
+        "checkpoint": {"save_s": save_s[0], "restore_s": restore_s, "bytes": ckpt_bytes,
+                       "bit_identical": True},
+        "peak_device_gb": peak_gb,
+        "ef_compress": {"encoder_launches": ef_launches, "seconds": ef_s,
+                        "wire_bytes": comp_bytes, "raw_f32_bytes": raw_bytes,
+                        "ratio": comp_bytes / raw_bytes, "identical_to_plain": True},
+        "packed_update": {"leaf": TRAIN_PACKED_LEAF, "encoder_launches": update_launches,
+                          "seconds": update_s, "identical_to_plain": True,
+                          "pulses_changed": int((pk2_pulses_changed))},
+        "reduced": {"report": red, "loss_first": red_hist[0]["loss"],
+                    "loss_last": red_hist[-1]["loss"], "recovery": rec},
+        "seconds": {"full_run": round(run_s, 2), "full_width_checks": round(full_s, 2),
+                    "reduced": round(reduced_s, 2), "phase": round(time.time() - t_phase, 2)}}}
+    print(json.dumps(summary), flush=True)
+    return counts, summary
+
+
 def start_ptxas_report(build, source="pvq_matmul"):
     """Starts ``nvcc -Xptxas -v`` on ``csrc/<source>.cu`` (a cubin under the
     build directory), beside the library builds."""
@@ -2135,6 +2471,7 @@ def main() -> int:
     args = sys.argv[1:]
     kernels_only = "--kernels-only" in args
     paper_only = "--paper" in args
+    train_only = "--train" in args
     tree = ROOT
     if "--tree" in args:
         if not kernels_only or args.index("--tree") + 1 >= len(args):
@@ -2157,12 +2494,13 @@ def main() -> int:
     scratch = tempfile.mkdtemp(prefix="chip_smoke_")
     os.environ[TUNE_CACHE_ENV] = str(Path(scratch) / "untuned.json")
     try:
-        return run_phases(torch, tree, kernels_only, smi, Path(scratch), paper_only)
+        return run_phases(torch, tree, kernels_only, smi, Path(scratch), paper_only, train_only)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
 
-def run_phases(torch, tree, kernels_only, smi, scratch, paper_only=False) -> int:
+def run_phases(torch, tree, kernels_only, smi, scratch, paper_only=False,
+               train_only=False) -> int:
     import repro_torch.kernels as kernels_mod
     from repro_torch.core import quantize as quant
     from repro_torch.core.quantize import quantize_activations
@@ -2191,6 +2529,9 @@ def run_phases(torch, tree, kernels_only, smi, scratch, paper_only=False) -> int
 
     if paper_only:  # the slice's phase alone, without the other main paths
         paper_phase(torch, kernels_mod, mm, enc, quant, smi, scratch)
+        return 0
+    if train_only:
+        train_phase(torch, kernels_mod, mm, enc, smi, scratch)
         return 0
 
     timer = Timer(torch)
@@ -2252,6 +2593,11 @@ def run_phases(torch, tree, kernels_only, smi, scratch, paper_only=False) -> int
         paper_phase(torch, kernels_mod, mm, enc, quant, smi, scratch)
     for name in ("pvq_matmul_q", "pvq_matmul"):
         entries[name]["paper"] = [r for r in paper_kernel_rows if r["kernel"] == name]
+    gc.collect()
+    torch.cuda.empty_cache()
+    (counts["smollm-360m train"], _, _), train_summary = train_phase(
+        torch, kernels_mod, mm, enc, smi, scratch)
+    entries["pvq_encode_batch"]["train"] = train_summary["train_phase"]["encoder"]
     run_b = engine["smollm-360m engine (b)"]
     # the timed runs' (replays counted, the warm-up's taken off)
     entries["pvq_attn_q"]["launches_from_chunk_caller"] = {

@@ -13,8 +13,11 @@ nets A-D: ``{"layer<i>": {"kernel", "bias"}}``) comes across the same way,
 its conv kernels as 4-D HWIO tensors in the reference's layout (the port's
 ``nn.sequential`` keeps that layout and permutes only at ``F.conv2d``).
 Both packages then compute on identical weights and identical packed
-codes.  Turning JAX arrays into numpy is the caller's step, so this module
-imports no JAX.
+codes.  ``from_reference_opt_state(state)`` carries the reference's
+``AdamWState`` (``step`` a 0-d int array, ``mu`` and ``nu`` trees of numpy
+arrays) across as the port's (``step`` a host int), so both packages can
+train on from the same ``(params, opt_state)``.  Turning JAX arrays into
+numpy is the caller's step, so this module imports no JAX.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from .core.packed import PackedPVQ
+from .optim.adamw import AdamWState
 
 PACKED_KEYS = {"pulses", "scales", "group", "k", "shape", "dtype", "layout", "scale_mode"}
 
@@ -51,3 +55,11 @@ def from_reference_params(tree: Any, device="cpu") -> Any:
     if isinstance(tree, dict):
         return {key: from_reference_params(sub, device) for key, sub in tree.items()}
     return _tensor(tree, device)
+
+
+def from_reference_opt_state(state: Any, device="cpu") -> AdamWState:
+    """The reference's ``AdamWState`` (any object with ``step``, ``mu`` and
+    ``nu``, their leaves numpy arrays) as the port's."""
+    return AdamWState(step=int(np.asarray(state.step)),
+                      mu=from_reference_params(state.mu, device),
+                      nu=from_reference_params(state.nu, device))

@@ -1,6 +1,7 @@
 """Packed PVQ weights and the PVQ-compressed KV cache (PyTorch port of
 ``repro.core.packed``: ``PackedPVQ``, ``PackedKV``, the engine's paged
-pool ``PagedKV``, the pack functions and ``quantize_params``).
+pool ``PagedKV``, the pack functions, ``quantize_params`` and
+``packed_update``).
 
 ``PackedPVQ`` is int8 pulses plus per-group f32 scales and the metadata to
 consume them.  Layouts:
@@ -816,6 +817,24 @@ def pack_flat(
         shape=tuple(int(s) for s in w.shape), dtype=dtype_name(w.dtype),
         layout="flat", scale_mode=scale_mode,
     )
+
+
+def packed_update(packed: PackedPVQ, delta: torch.Tensor) -> PackedPVQ:
+    """Apply a dense additive update to a packed leaf: dequantize, add,
+    re-encode onto the same pyramid (same layout, group and K).  The
+    explicit re-encode point for fine-tuning or an EMA on a packed
+    artifact; the gradient pipeline (``optim.grad_compress``) leaves packed
+    leaves frozen."""
+    dense = packed.dequantize(torch.float32)
+    lead = packed.pulses.shape[: packed.pulses.ndim - 2]
+    updated = dense + delta.to(torch.float32).reshape(*lead, *packed.shape)
+    dtype = torch_dtype(packed.dtype)
+    if packed.layout == "matmul":
+        return pack_matmul(updated.to(dtype), group=packed.group, k=packed.k,
+                           scale_mode=packed.scale_mode)
+    return pack_flat(updated.to(dtype), group=packed.group, k=packed.k,
+                     scale_mode=packed.scale_mode,
+                     row_align=packed.shape[-1] if len(packed.shape) >= 2 else None)
 
 
 # ---------------------------------------------------------------------------

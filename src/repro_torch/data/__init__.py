@@ -1,3 +1,4 @@
+from .pipeline import Prefetcher, TokenLoader
 from .synthetic import ClassifyTask, TokenTask
 
-__all__ = ["TokenTask", "ClassifyTask"]
+__all__ = ["TokenTask", "ClassifyTask", "TokenLoader", "Prefetcher"]

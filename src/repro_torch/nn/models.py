@@ -3,6 +3,7 @@
 
     model = Model(cfg)
     params = model.init(seed, device=...)
+    loss, metrics = model.loss(params, {"tokens": ..., "targets": ...}, rng)  # train
     logits, cache = model.prefill(params, {"tokens": tokens}, cache_len)
     logits, cache = model.decode_step(params, cache, token, pos)
 
@@ -63,17 +64,45 @@ class Model:
             return L.unembed(params["embed"], x)
         return L.dense(params["lm_head"], x.to(torch.float32))
 
-    def forward(self, params: Params, batch: Dict[str, torch.Tensor], *, mode: str = "prefill"):
-        """Full-sequence forward: ``(logits, caches | None)``."""
+    def forward(self, params: Params, batch: Dict[str, torch.Tensor], *, mode: str = "train",
+                rng: Optional[torch.Generator] = None):
+        """Full-sequence forward: ``(logits, aux_loss, caches | None)``.
+
+        ``mode`` is 'train' or 'prefill'.  In train mode ``aux_loss`` is the
+        MoE layers' summed Switch loss (an f32 scalar) and ``rng``, a
+        ``torch.Generator`` on the params' device, turns on the router
+        jitter; omit it for a deterministic forward.  In prefill mode
+        ``aux_loss`` is None and the caches come back."""
         cfg = self.cfg
-        x = self._embed_tokens(params, batch["tokens"])
+        x = self._embed_tokens(params, batch["tokens"].to(torch.int64))
+        aux = torch.zeros((), dtype=torch.float32, device=x.device) if mode == "train" else None
         caches = {}
         for i, seg in enumerate(self.plan):
-            x, c = T.run_segment(cfg, seg, params["segments"][f"seg{i}"], x, mode=mode)
+            x, aux_i, c = T.run_segment(cfg, seg, params["segments"][f"seg{i}"], x, mode=mode,
+                                        rng=T.fold_in(rng, i))
+            if aux is not None:
+                aux = aux + aux_i
             if c is not None:
                 caches[f"seg{i}"] = c
         x = T._norm(cfg, params["final_norm"], x)
-        return self._head(params, x), (caches if mode == "prefill" else None)
+        return self._head(params, x), aux, (caches if mode == "prefill" else None)
+
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor],
+             rng: Optional[torch.Generator] = None):
+        """``(total, {"ce", "aux", "accuracy"})``: the mean cross-entropy
+        (through logsumexp) plus ``moe_aux_coef`` times the aux loss and,
+        when ``z_loss_coef`` is set, the z-loss on the log-partition."""
+        cfg = self.cfg
+        logits, aux, _ = self.forward(params, batch, mode="train", rng=rng)
+        targets = batch["targets"].to(device=logits.device, dtype=torch.int64)
+        logz = torch.logsumexp(logits, dim=-1)
+        tgt_logit = torch.gather(logits, -1, targets[..., None])[..., 0]
+        ce = torch.mean(logz - tgt_logit)
+        total = ce + cfg.moe_aux_coef * aux
+        if cfg.z_loss_coef:
+            total = total + cfg.z_loss_coef * torch.mean(logz * logz)
+        acc = torch.mean((torch.argmax(logits, dim=-1) == targets).to(torch.float32))
+        return total, {"ce": ce, "aux": aux, "accuracy": acc}
 
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor], cache_len: int = 0):
         """Run the prompt; return (last-position logits, decode cache).  The
@@ -85,7 +114,7 @@ class Model:
         no step writes or reads.  So a cache's shapes follow from its batch
         and ``cache_len``, and one captured step serves every prompt length
         of a bucket.  The tail ring keeps its block length."""
-        logits, caches = self.forward(params, batch, mode="prefill")
+        logits, _, caches = self.forward(params, batch, mode="prefill")
         s = batch["tokens"].shape[1]
         pad = cache_len - s if cache_len and cache_len > s else 0
         if pad:
@@ -150,7 +179,7 @@ class Model:
         Returns ``(logits (b, 1, vocab), caches)``; the caches cover the
         bucket, and rows at and after ``real_len`` are garbage behind the
         engine's length masks."""
-        logits, caches = self.forward(params, batch, mode="prefill")
+        logits, _, caches = self.forward(params, batch, mode="prefill")
         idx = (real_len.to(torch.int64) - 1).reshape(-1, 1, 1).expand(-1, 1, logits.shape[-1])
         return torch.gather(logits, 1, idx), caches
 

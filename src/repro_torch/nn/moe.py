@@ -7,10 +7,12 @@ tokens).  Capacity per group:
 Tokens over capacity are dropped (GShard semantics); the residual path
 carries them unchanged.
 
-The reference reads ``ShardingPolicy.moe_light_combine`` (default False)
-at serve time; the port runs that default, the full f32 combine tensor.
-The light combine and the router jitter are training features and come
-with the training slice.
+The reference reads ``ShardingPolicy.moe_light_combine`` (default False);
+the port runs that default, the full f32 combine tensor (the light combine
+is a sharding option and comes with the multi-device code).  In train mode
+a ``torch.Generator`` drives the router jitter: no torch generator gives
+``jax.random``'s draws, so the noise is the reference's in law, not in
+value.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ class MoEConfig(NamedTuple):
     capacity_factor: float = 1.25
     group_size: int = 4096  # routing group (tokens)
     activation: str = "swiglu"
-    # multiplicative router-logit noise (training only; not ported yet)
+    # multiplicative router-logit noise (training only)
     router_jitter: float = 0.0
 
 
@@ -184,9 +186,14 @@ def _expert_matmul(buf: torch.Tensor, w, *, activation: str = "none", act_quant=
     return y.reshape(e, g, c, f).permute(1, 0, 2, 3).to(buf.dtype)
 
 
-def moe_forward(p: Params, x: torch.Tensor, cfg: MoEConfig, *,
+def moe_forward(p: Params, x: torch.Tensor, cfg: MoEConfig, *, train: bool = False,
+                rng: Optional[torch.Generator] = None,
                 act_quant=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns ``(out (b, s, d), aux_loss)``.
+
+    ``train=True`` with a generator ``rng`` (on x's device) multiplies the
+    router logits by uniform noise in ``1 +- cfg.router_jitter``; without
+    either, or at zero jitter, the forward is the deterministic one.
 
     ``act_quant`` (default: the process ``ActQuant``) runs the packed expert
     contractions int8 x int8: the dispatch buffer is quantized ONCE for the
@@ -211,6 +218,10 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: MoEConfig, *,
 
     logits = torch.einsum("gsd,de->gse", xg.to(torch.float32),
                           p["router"]["kernel"].to(torch.float32))
+    if train and cfg.router_jitter > 0.0 and rng is not None:
+        noise = torch.empty_like(logits).uniform_(1.0 - cfg.router_jitter,
+                                                  1.0 + cfg.router_jitter, generator=rng)
+        logits = logits * noise
     dispatch, combine, aux = _routing(logits, cfg, token_mask=token_mask)
 
     # dispatch: each slot holds at most one token, so this sum is exact

@@ -10,6 +10,12 @@ Per-segment parameters are stacked along a leading ``repeats`` axis, as in
 the reference; where the reference runs ``lax.scan`` over that axis, the
 port runs a Python loop over the stacked layer params.  Decode caches are a
 list with one entry per layer.
+
+Train mode carries the MoE aux loss up the stack and a generator per layer
+(:func:`fold_in`, the counterpart of ``jax.random.fold_in``): segment ``i``
+of a model's generator, then layer ``r`` and block ``b`` of the segment's.
+The reference's remat policy (``jax.checkpoint`` over the scan body) is a
+memory policy, not a numerical one; it comes with the multi-device code.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
@@ -113,25 +120,47 @@ def init_segment(gen, cfg: ModelConfig, seg: Segment, device) -> Params:
     return stacked
 
 
-def layer_params(seg_params: Any, r: int) -> Any:
-    """Layer ``r`` of a stacked segment (views, no copies)."""
+def unstack_layers(seg_params: Any, repeats: int) -> List[Any]:
+    """Layers ``0 .. repeats - 1`` of a stacked segment (views, no copies),
+    each stacked tensor split by one ``unbind``: its backward writes the stacked
+    gradient once, where ``repeats`` indexings would each add a
+    stack-sized gradient."""
     if isinstance(seg_params, dict):
-        return {k: layer_params(v, r) for k, v in seg_params.items()}
+        per_key = {k: unstack_layers(v, repeats) for k, v in seg_params.items()}
+        return [{k: layers[r] for k, layers in per_key.items()} for r in range(repeats)]
     if is_packed(seg_params):
-        return seg_params.stack_item(r)
-    return seg_params[r]
+        return [seg_params.stack_item(r) for r in range(repeats)]
+    return list(torch.unbind(seg_params, 0))
 
 
-def _ffn(cfg, spec: BlockSpec, p: Params, h: torch.Tensor) -> torch.Tensor:
+def fold_in(gen: Optional[torch.Generator], *data: int) -> Optional[torch.Generator]:
+    """A new generator on ``gen``'s device, seeded by ``gen``'s seed and
+    ``data``: a pure function of both, as ``jax.random.fold_in`` is of its
+    key (``gen``'s own draws do not move it).  None stays None."""
+    if gen is None:
+        return None
+    mixed = np.random.SeedSequence([gen.initial_seed(), *data]).generate_state(2, np.uint32)
+    out = torch.Generator(device=gen.device)
+    out.manual_seed((int(mixed[0]) << 31) | (int(mixed[1]) >> 1))
+    return out
+
+
+def _ffn(cfg, spec: BlockSpec, p: Params, h: torch.Tensor, *, train: bool = False,
+         rng: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``(y, aux_loss or None)``: the MoE FFN returns its Switch aux loss."""
     if spec.ffn in ("dense", "dense0"):
-        return L.ffn(p, h, cfg.ffn_activation)
+        return L.ffn(p, h, cfg.ffn_activation), None
     if spec.ffn == "moe":
-        return moe_lib.moe_forward(p, h, cfg.moe)[0]
+        return moe_lib.moe_forward(p, h, cfg.moe, train=train, rng=rng)
     raise ValueError(spec.ffn)
 
 
-def block_forward(cfg, spec: BlockSpec, p: Params, x: torch.Tensor, *, mode: str):
-    """Returns ``(x, cache_entry_or_None)``; mode is 'train' or 'prefill'."""
+def block_forward(cfg, spec: BlockSpec, p: Params, x: torch.Tensor, *, mode: str,
+                  rng: Optional[torch.Generator] = None):
+    """Returns ``(x, aux_loss or None, cache_entry_or_None)``; mode is
+    'train' or 'prefill'.  The aux loss is the MoE FFN's (None for a dense
+    FFN).  ``rng`` (train only) feeds the MoE router jitter; None keeps
+    every layer deterministic."""
     cache: Dict[str, Any] = {}
     h = _norm(cfg, p["ln_mix"], x)
     if spec.mixer == "attn":
@@ -150,8 +179,9 @@ def block_forward(cfg, spec: BlockSpec, p: Params, x: torch.Tensor, *, mode: str
         raise ValueError(spec.mixer)
     x = x + y
     h = _norm(cfg, p["ln_ffn"], x)
-    x = x + _ffn(cfg, spec, p["ffn"], h)
-    return x, (cache if mode == "prefill" else None)
+    y, aux = _ffn(cfg, spec, p["ffn"], h, train=(mode == "train"), rng=rng)
+    x = x + y
+    return x, aux, (cache if mode == "prefill" else None)
 
 
 def block_decode(cfg, spec: BlockSpec, p: Params, x: torch.Tensor, cache: Dict[str, Any], pos,
@@ -173,7 +203,7 @@ def block_decode(cfg, spec: BlockSpec, p: Params, x: torch.Tensor, cache: Dict[s
         raise ValueError(spec.mixer)
     x = x + y
     h = _norm(cfg, p["ln_ffn"], x)
-    x = x + _ffn(cfg, spec, p["ffn"], h)
+    x = x + _ffn(cfg, spec, p["ffn"], h)[0]
     return x, new_cache
 
 
@@ -216,27 +246,36 @@ def init_block_cache(cfg, spec: BlockSpec, batch: int, cache_len: int, device, *
     }
 
 
-def run_segment(cfg, seg: Segment, seg_params: Params, x: torch.Tensor, *, mode: str):
+def run_segment(cfg, seg: Segment, seg_params: Params, x: torch.Tensor, *, mode: str,
+                rng: Optional[torch.Generator] = None):
+    """Returns ``(x, aux, caches or None)``: in train mode ``aux`` is the
+    layers' aux losses summed (an f32 scalar, 0 without MoE), in prefill
+    None (the serving callers drop it, and their steps stay as they were);
+    layer ``r``'s block ``i`` draws from ``fold_in(fold_in(rng, r), i)``."""
     repeats, pattern = seg
+    train = mode == "train"
+    aux = torch.zeros((), dtype=torch.float32, device=x.device) if train else None
     caches: Optional[List[Dict[str, Any]]] = [] if mode == "prefill" else None
-    for r in range(repeats):
-        p_r = layer_params(seg_params, r)
+    for r, p_r in enumerate(unstack_layers(seg_params, repeats)):
+        rng_r = fold_in(rng, r)
         layer_cache = {}
         for i, spec in enumerate(pattern):
-            x, c = block_forward(cfg, spec, p_r[f"b{i}"], x, mode=mode)
+            x, aux_i, c = block_forward(cfg, spec, p_r[f"b{i}"], x, mode=mode,
+                                        rng=fold_in(rng_r, i))
+            if train and aux_i is not None:
+                aux = aux + aux_i
             if c is not None:
                 layer_cache[f"b{i}"] = c
         if caches is not None:
             caches.append(layer_cache)
-    return x, caches
+    return x, aux, caches
 
 
 def decode_segment(cfg, seg: Segment, seg_params: Params, seg_cache: List[Dict[str, Any]],
                    x: torch.Tensor, pos, fill: Optional[bool] = None):
     repeats, pattern = seg
     new_cache = []
-    for r in range(repeats):
-        p_r = layer_params(seg_params, r)
+    for r, p_r in enumerate(unstack_layers(seg_params, repeats)):
         c_r = {}
         for i, spec in enumerate(pattern):
             x, c_r[f"b{i}"] = block_decode(cfg, spec, p_r[f"b{i}"], x, seg_cache[r][f"b{i}"], pos,
@@ -265,7 +304,7 @@ def block_chunk(cfg, spec: BlockSpec, p: Params, x: torch.Tensor, cache: Dict[st
     )
     x = x + y
     h = _norm(cfg, p["ln_ffn"], x)
-    x = x + _ffn(cfg, spec, p["ffn"], h)
+    x = x + _ffn(cfg, spec, p["ffn"], h)[0]
     return x, new_cache
 
 
@@ -273,8 +312,7 @@ def chunk_segment(cfg, seg: Segment, seg_params: Params, seg_cache: List[Dict[st
                   x: torch.Tensor, slot, start, page_ids, real_len):
     repeats, pattern = seg
     new_cache = []
-    for r in range(repeats):
-        p_r = layer_params(seg_params, r)
+    for r, p_r in enumerate(unstack_layers(seg_params, repeats)):
         c_r = {}
         for i, spec in enumerate(pattern):
             x, c_r[f"b{i}"] = block_chunk(cfg, spec, p_r[f"b{i}"], x, seg_cache[r][f"b{i}"],

@@ -1335,3 +1335,77 @@ def test_cuda_paper_net_kernel_apply_matches_plain(net_id, group):
                 _close(got, want)
             else:
                 assert torch.equal(got, want)
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_qat_ste_encoder_matches_plain(dtype):
+    """``--pvq-qat``'s projection on the card: the STE over a stacked
+    smollm-shaped leaf (2 x 960 x 320, group 256, K 256) and a reduced
+    step's leaves launches the encoder and gives the plain version's
+    values exactly, with the gradient straight through."""
+    from repro_torch.launch.train import qat_projector
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    params = {"seg": {"wk": {"kernel": (torch.randn(2, 960, 320, generator=gen, device="cuda")
+                                        * 0.03).to(dtype)}},
+              "norm": {"rms_scale": torch.ones(960, device="cuda", dtype=dtype)}}
+    project = qat_projector(256)
+    before = LAUNCHES["pvq_encode_batch"]
+    got = project(params)
+    assert LAUNCHES["pvq_encode_batch"] == before + 1
+    with _plain_versions():
+        want = project(params)
+    assert LAUNCHES["pvq_encode_batch"] == before + 1
+    assert got["norm"]["rms_scale"] is params["norm"]["rms_scale"]  # not projected
+    assert got["seg"]["wk"]["kernel"].dtype == dtype
+    assert torch.equal(got["seg"]["wk"]["kernel"], want["seg"]["wk"]["kernel"])
+    w = params["seg"]["wk"]["kernel"].detach().requires_grad_(True)
+    out = project({"seg": {"wk": {"kernel": w}}})["seg"]["wk"]["kernel"]
+    (g,) = torch.autograd.grad(out.float().sum(), (w,))
+    assert torch.equal(g, torch.ones_like(w))
+
+
+@needs_cuda
+def test_cuda_checkpoint_round_trip_of_device_tensors(tmp_path):
+    """A ``(params, AdamWState)`` of device tensors (bf16 params, f32
+    moments) and a packed leaf: saved asynchronously, restored onto the card
+    bit for bit, the step a host int."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.core.packed import pack_matmul
+    from repro_torch.optim import AdamW
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = {"w": {"kernel": torch.randn(96, 64, generator=gen, device="cuda").bfloat16()},
+              "ln": {"rms_scale": torch.ones(64, device="cuda", dtype=torch.bfloat16)},
+              "pk": {"kernel": pack_matmul(torch.randn(300, 48, generator=gen, device="cuda"),
+                                           group=256, k=256)}}
+    opt = AdamW()
+    dense = {k: v for k, v in params.items() if k != "pk"}
+    grads = {k: {n: torch.randn(t.shape, generator=gen, device="cuda").to(t.dtype)
+                 for n, t in v.items()} for k, v in dense.items()}
+    new, opt_state, _ = opt.update(grads, opt.init(dense), dense)
+    state = (dict(new, pk=params["pk"]), opt_state)
+    ck = Checkpointer(tmp_path)
+    ck.save(4, state, block=False)
+    ck.wait()
+    zero = lambda t: torch.zeros_like(t)  # noqa: E731
+    target = ({"w": {"kernel": zero(new["w"]["kernel"])},
+               "ln": {"rms_scale": zero(new["ln"]["rms_scale"])}, "pk": params["pk"]},
+              type(opt_state)(step=0, mu={k: {n: zero(t) for n, t in v.items()}
+                                          for k, v in opt_state.mu.items()},
+                              nu={k: {n: zero(t) for n, t in v.items()}
+                                  for k, v in opt_state.nu.items()}))
+    got, step = ck.restore(target)
+    assert step == 4 and got[1].step == 1
+    for key in ("w", "ln"):
+        for name, t in state[0][key].items():
+            r = got[0][key][name]
+            assert r.device.type == "cuda" and r.dtype == t.dtype and torch.equal(r, t)
+        for tree, want in ((got[1].mu, state[1].mu), (got[1].nu, state[1].nu)):
+            for name, t in want[key].items():
+                assert tree[key][name].device.type == "cuda" and torch.equal(tree[key][name], t)
+    pk = got[0]["pk"]["kernel"]
+    assert pk.pulses.device.type == "cuda"
+    assert torch.equal(pk.pulses, params["pk"]["kernel"].pulses)
+    assert torch.equal(pk.scales, params["pk"]["kernel"].scales)

@@ -188,9 +188,9 @@ def test_attention_prefill_cache_and_init_cache(models):
     x = np.random.default_rng(6).normal(size=(2, 12, 64)).astype(np.float32)
     # layer 0 of the stacked segment (PackedPVQ is a pytree of pulses/scales)
     ref_p = jax.tree.map(lambda t: t[0], ref_params["segments"]["seg0"]["b0"]["mixer"])
-    from repro_torch.nn.transformer import layer_params
+    from repro_torch.nn.transformer import unstack_layers
 
-    port_p = layer_params(port_params["segments"]["seg0"], 0)["b0"]["mixer"]
+    port_p = unstack_layers(port_params["segments"]["seg0"], 1)[0]["b0"]["mixer"]
     kw = dict(n_heads=4, n_kv_heads=4, head_dim=16)
     kvq_r, kvq_p = ref_q.KVQuant(block=8, group=16), port_q.KVQuant(block=8, group=16)
     want = ref_attn.attention_prefill_cache(ref_p, jnp.asarray(x), quantized=kvq_r, **kw)

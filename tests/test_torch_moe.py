@@ -327,12 +327,12 @@ def test_packed_matmul_stacked_checks_raise_like_reference():
 
 def _moe_layer(models, which):
     """Layer 0 of the MoE segment in both packages (reference params sliced
-    from its scan stack; the port's through ``layer_params``)."""
-    from repro_torch.nn.transformer import layer_params
+    from its scan stack; the port's through ``unstack_layers``)."""
+    from repro_torch.nn.transformer import unstack_layers
 
     ref_params, port_params = models[which]
     ref_p = jax.tree.map(lambda t: t[0], ref_params["segments"]["seg1"]["b0"]["ffn"])
-    port_p = layer_params(port_params["segments"]["seg1"], 0)["b0"]["ffn"]
+    port_p = unstack_layers(port_params["segments"]["seg1"], 1)[0]["b0"]["ffn"]
     return ref_p, port_p
 
 
@@ -368,11 +368,11 @@ def test_moe_forward_matches_reference(models, which, act, monkeypatch):
 
 
 def test_mla_forward_and_decode_match_reference(models):
-    from repro_torch.nn.transformer import layer_params
+    from repro_torch.nn.transformer import unstack_layers
 
     ref_params, port_params = models["packed"]
     ref_p = jax.tree.map(lambda t: t[0], ref_params["segments"]["seg0"]["b0"]["mixer"])
-    port_p = layer_params(port_params["segments"]["seg0"], 0)["b0"]["mixer"]
+    port_p = unstack_layers(port_params["segments"]["seg0"], 1)[0]["b0"]["mixer"]
     cfg_r, cfg_p = models["ref_cfg"].mla, get_config(ARCH).reduced().mla
     rng = np.random.default_rng(71)
     b, s, steps, h = 2, 10, 3, 4
