@@ -6,6 +6,7 @@
     python3 chip_smoke.py --kernels-only --tree DIR   # the same rows on DIR's kernels
     python3 chip_smoke.py --paper          # the build and phase 10 only (no result line)
     python3 chip_smoke.py --train          # the build and phase 11 only (no result line)
+    python3 chip_smoke.py --families       # the build and phase 12 only (no result line)
 
 Needs one CUDA card and the repository checkout around this file; exits
 non-zero (printing no result) without either.  ``--tree DIR`` (with
@@ -43,6 +44,7 @@ order, it:
    ``device_ms``.  The encoder is held identical and timed (``ms`` and
    ``device_ms``) on one smollm layer's weights, the tied embedding, a
    smollm block-fill step's KV encode and one deepseek MoE layer's up bank;
+   the families' rows (item 12) are held and timed here too;
 4. serves full-width smollm-360m from random weights (``--pvq --act-int8
    --kv-pvq --agreement-min 0.99``, batch 4, prompt 128, 32 new tokens)
    with every kernel launch count set to 0 just before and read just after;
@@ -113,10 +115,13 @@ order, it:
    and the second serve all hits (no search, no miss, as many hits as the
    first made lookups); prints, for every key, the rule's choice and its
    median time beside the tuned choice and its time;
-9. the artifact phase (``.pvqz``): exports full-width smollm-360m at N/K
-   2.0 from seed 0 (``python -m repro_torch.launch.export``; the encoder
-   kernel packs every leaf, the host entropy-codes the pulse streams),
-   cold-starts it with the first phase's flags (``serve --artifact ...
+9. the artifact phase (``.pvqz``): exports smollm-360m at published
+   widths with its whole embedding and 4 of its 32 layers (the cut is
+   printed; the harness's ``depth_cut``, not a flag of the package) at N/K
+   2.0 from seed 0 (``launch.export``'s ``run`` in-process, which calls
+   ``write_pvqz``; the encoder kernel packs every leaf, the host
+   entropy-codes the pulse streams),
+   cold-starts it (``load_pvqz``) with the first phase's flags (``serve --artifact ...
    --act-int8 --kv-pvq --agreement-min 0.99``, the launch counts set to 0
    just before and read just after: the encoder, v3, v4 and v2 must
    launch), then serves the in-memory ``--pvq --n-over-k 2.0`` parameters
@@ -170,7 +175,30 @@ order, it:
    (one restore, step 15 run twice, the loss falling); prints host wall
    ms a step, ``save_s``, ``restore_s``, the checkpoint's bytes and the
    peak device memory beside the card's name and power limit;
-12. prints the ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
+12. the families phase: serves gemma-2b (18 layers), paligemma-3b (18
+   layers, a 256-patch prefix) and whisper-small (12 encoder and 12
+   decoder layers, frames as long as the prompt) at published width and
+   depth, and starcoder2-15b and granite-8b at published width with 4
+   decoder layers (the cut printed), each with the first phase's flags
+   (batch 4, prompt 128, 32 tokens), the launch counts set to 0 just
+   before and read just after: finite logits of the expected shape, the
+   encoder, v3, v4 and v2 launched, the step captured; a second
+   ``generate`` of the same shape captures nothing, gives the same tokens
+   and times the steady decode step; the served leg's teacher-forced
+   logits again through the plain versions on the card must be identical
+   (so the plain path's tokens are the served ones); the
+   f32 leg's agreement is printed, not gated; prints packed bytes and the
+   ratio against bf16, decode ms a step captured, tokens/s, prefill s,
+   peak GB and the phase's wall per model; then the five reduced (CI's
+   int8 flags with the PVQ KV cache) gated at 0.99; with ``--families``
+   it then times (in the whole run, phase 3 does, since torch.profiler
+   lost device events in traces taken after the train phase) kernel v4
+   at gemma-2b's decode (BH 4, m 8, hd 256, group 32, S 160 and 2048), v3
+   and v2 over one gemma-2b layer at m 4 and m 512, v3 and v2 with the
+   bias epilogue over one starcoder2-15b layer at m 4 (each identical, v2
+   within rtol 1e-5, against its plain version), and gemma-2b's tied head
+   (glue, ``layers.unembed`` on the 256,000 x 2048 packed embedding);
+13. prints the ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
 
 Except in the tune phase the autotuner's cache is a path that does not
 exist, so every other phase runs the rules' choices, as without the tuner.
@@ -705,23 +733,26 @@ def attn_bytes(bh, m, s, hd, ng):
         + 4 * bh * m * hd + 2 * 4 * bh * m
 
 
-def check_attention(torch, timer, mm, quant):
-    """Kernel v4 at each of ``ATTN_ROWS``: identical to its plain version,
+def check_attention(torch, timer, mm, quant, rows_spec=ATTN_ROWS,
+                    geometry=(ATTN_N_KV, ATTN_M, ATTN_HD, ATTN_GROUP), seed=2):
+    """Kernel v4 at each of ``rows_spec`` (``(what, batch, S)``; by default
+    ``ATTN_ROWS``) at ``geometry`` (kv heads, query rows a kv head, head
+    dim, group; by default smollm-360m's): identical to its plain version,
     timed (events and device) beside the plain version and
     ``scaled_dot_product_attention`` on the dequantized f32 K/V; the first
     row also with the L2 warm between launches (``warm_ms``,
     ``warm_device_ms``), as the decode step finds it right after the layer
     that wrote the cache.  The entry's numbers are the first row's, each
     row is under ``decode``."""
-    n_kv, m, hd, group = ATTN_N_KV, ATTN_M, ATTN_HD, ATTN_GROUP
+    n_kv, m, hd, group = geometry
     ng = hd // group
     scale = hd ** -0.5
-    gen = torch.Generator(device="cuda").manual_seed(2)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     plan = getattr(mm, "_v4_plan", None)  # a parent tree (--tree) may not have one
     entry = {"name": "pvq_attn_q", "route": "cuda", "source": ATTN_SOURCE,
              "replaces": "src/repro/kernels/pvq_matmul.py:813", "device_ms_by": DEVICE_MS_BY}
     rows = {}
-    for i, (what, b, s) in enumerate(ATTN_ROWS):
+    for i, (what, b, s) in enumerate(rows_spec):
         bh = b * n_kv
         q_i8, a = quant(torch.randn(bh, m, hd, generator=gen, device="cuda"))
         kp = torch.randint(-20, 21, (b, s, n_kv, hd), generator=gen, device="cuda",
@@ -1684,6 +1715,9 @@ def tune_phase(torch, serve, kernels_mod, untuned, untuned_engine, smi, cache):
 # then served from the file with the first phase's flags; CI's reduced
 # artifact smoke (ci.yml:34-77) and its deepseek expert gate (ci.yml:155-164)
 ARTIFACT_N_OVER_K = "2.0"
+# the artifact phase's smollm-360m: published widths, the whole embedding,
+# 4 of its 32 layers (the host's entropy coding of all 32 took 250-350 s)
+ARTIFACT_LAYERS = 4
 ARTIFACT_EXPORT = ["--arch", "smollm-360m", "--n-over-k", ARTIFACT_N_OVER_K, "--seed", "0"]
 ARTIFACT_FLAGS = [f for f in FULL_SERVE if f != "--pvq"]
 IN_MEMORY_SERVE = FULL_SERVE + ["--n-over-k", ARTIFACT_N_OVER_K]
@@ -1746,6 +1780,13 @@ def artifact_phase(torch, serve, kernels_mod, quant, smi, scratch):
     serve's launch counts and the printed summary."""
     from repro_torch.launch import export
 
+    with depth_cut("smollm-360m", ARTIFACT_LAYERS) as cut:
+        print(json.dumps({"artifact_phase_depth": cut}), flush=True)
+        return _artifact_phase_cut(torch, serve, kernels_mod, quant, smi, scratch, export, cut)
+
+
+def _artifact_phase_cut(torch, serve, kernels_mod, quant, smi, scratch, export, cut):
+    """:func:`artifact_phase` under its depth cut ``cut``."""
     t_phase = time.time()
     path = str(scratch / "smollm-360m.pvqz")
     kernels_mod.reset_launches()
@@ -1818,7 +1859,7 @@ def artifact_phase(torch, serve, kernels_mod, quant, smi, scratch):
         fail(f"ci deepseek expert export gate: {dsl.get('gate_fail')}")
 
     summary = {"artifact_phase": {
-        "card": smi, "host_cpu": host_cpu(), "arch": "smollm-360m",
+        "card": smi, "host_cpu": host_cpu(), "arch": "smollm-360m", "depth": cut,
         "n_over_k": float(ARTIFACT_N_OVER_K),
         "file_bytes": exp["file_bytes"], "bits_per_weight": exp["bits_per_weight"],
         "packed_numel": exp["packed_numel"], "compression_vs_dense": exp["compression_vs_dense"],
@@ -2415,6 +2456,304 @@ def train_phase(torch, kernels_mod, mm, enc, smi, scratch):
     return counts, summary
 
 
+# the attention families (gemma-2b, paligemma-3b, whisper-small at published
+# width and depth; starcoder2-15b and granite-8b at published width, depth
+# cut to FAMILY_CUT_LAYERS): served with the first phase's flags; (arch,
+# layers or None for all)
+FAMILY_FULL = [("gemma-2b", None), ("paligemma-3b", None), ("whisper-small", None),
+               ("starcoder2-15b", 4), ("granite-8b", 4)]
+FAMILY_SERVE = ["--batch", str(BATCH), "--prompt-len", str(PROMPT), "--gen", str(GEN), "--pvq",
+                "--act-int8", "--kv-pvq", "--kv-block", str(KV_BLOCK), "--kv-group",
+                str(KV_GROUP), "--agreement-min", "0.99", "--seed", "0"]
+# the acceptance flags of each reduced family serve, gated at 0.99
+FAMILY_REDUCED = ["--reduced", "--batch", "2", "--prompt-len", "8", "--gen", "4", "--pvq",
+                  "--act-int8", "--kv-pvq", "--kv-block", "8", "--kv-group", "16",
+                  "--agreement-min", "0.99", "--seed", "0"]
+# one gemma-2b layer's packed matmuls (k_pad, n): wq, wk, wv, wo, wi_gate,
+# wi_up, wo(ffn); one starcoder2-15b layer's (every one with a bias): wq,
+# wk, wv, wo, wi_up, wo(ffn)
+GEMMA_LAYER = [(2048, 2048), (2048, 256), (2048, 256), (2048, 2048), (2048, 16384),
+               (2048, 16384), (16384, 2048)]
+STARCODER2_LAYER = [(6144, 6144), (6144, 512), (6144, 512), (6144, 6144), (6144, 24576),
+                    (24576, 6144)]
+# kernel v4 at gemma-2b's (and paligemma-3b's) decode: batch 4 x 1 kv head,
+# 8 query rows, hd 256, KV group 32; S 160 (prompt 128 + 32) and 2048
+FAMILY_ATTN_ROWS = [("gemma-2b decode", BATCH, 160), ("gemma-2b at 2048", BATCH, 2048)]
+FAMILY_ATTN_GEOMETRY = (1, 8, 256, KV_GROUP)
+
+
+@contextlib.contextmanager
+def depth_cut(arch, layers):
+    """For the duration, ``configs.get_config(arch)`` gives the published
+    config with ``layers`` decoder layers (None: unchanged): the harness's
+    cut, which the package has no flag for.  Yields the cut's description."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    full = configs.ARCHS[arch]
+    if layers:
+        configs.ARCHS[arch] = dataclasses.replace(full, n_layers=layers)
+    try:
+        yield {"arch": arch, "n_layers": layers or full.n_layers,
+               "published_n_layers": full.n_layers, "cut": bool(layers)}
+    finally:
+        configs.ARCHS[arch] = full
+
+
+def family_serve(torch, serve, kernels_mod, mm, enc, quant, arch, layers, smi):
+    """One family model at published width (``layers`` cuts the depth)
+    with ``FAMILY_SERVE``'s flags, the launch counts set to 0 just before
+    and read just after: finite logits of the expected shape, the encoder,
+    v3, v4 and v2 launched, the decode step captured; a second
+    ``generate`` (replays only: its decode ms a step is the steady one,
+    its tokens the served ones); then the served leg's teacher-forced
+    logits again through the plain versions on the card, which must be
+    identical, so the plain path's tokens are the served ones.  The f32 leg's agreement is printed, not gated.  Returns
+    the launch counts, v3's and v2's by body, and the packed embedding and
+    a decode-sized activation for the head's timing (gemma only)."""
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    kernels_mod.reset_launches()
+    with depth_cut(arch, layers) as cut:
+        report, rc, state = serve.run(["--arch", arch] + FAMILY_SERVE, return_state=True)
+    counts = kernels_mod.launches()
+    bodies = kernels_mod.v3_body_launches()
+    v2_bodies = kernels_mod.v2_body_launches()
+    serve_wall = time.time() - t0
+    if not state or (rc != 0 and "agreement_fail" not in report):
+        fail(f"{arch} serve exited {rc}: {report}")
+    if report.get("generated_shape") != [BATCH, PROMPT + GEN] or not report.get("logits_finite"):
+        fail(f"{arch} serve produced {report.get('generated_shape')} / "
+             f"finite={report.get('logits_finite')}")
+    missing = [name for name in SMOLLM_KERNELS if counts[name] <= 0]
+    if missing:
+        fail(f"{arch} serve never launched {missing}: {counts}")
+    if report["decode_step_captures"] < 1:
+        fail(f"{arch} serve captured no decode step: {report}")
+    prompt = PROMPT
+    # the serve's first generate captured its graphs: time a second one
+    # (replays only) for the steady decode step
+    timings = {}
+    captures = serve.TRACE_COUNTS["decode_step"]
+    with quant.act_quant_scope(quant.ActQuant()), \
+            quant.kv_quant_scope(quant.KVQuant(KV_BLOCK, KV_GROUP)):
+        again = serve.generate(state["model"], state["params"], state["seq"][:, :prompt],
+                               gen=GEN, cache_len=prompt + GEN,
+                               extra_batch=state["extra_batch"], timings=timings)
+    recaptured = serve.TRACE_COUNTS["decode_step"] - captures
+    t1 = time.time()
+    with plain_versions(mm, enc), quant.act_quant_scope(quant.ActQuant()), \
+            quant.kv_quant_scope(quant.KVQuant(KV_BLOCK, KV_GROUP)):
+        plain_q = serve.teacher_forced_logits(state["model"], state["params"], state["seq"],
+                                              prompt_len=prompt,
+                                              extra_batch=state["extra_batch"], eager=True)
+    plain_s = time.time() - t1
+    kern_q = state["logits_q"]
+    same = {"served_leg_teacher_forced": bool(torch.equal(kern_q, plain_q)),
+            "served_tokens": bool(torch.equal(plain_q.argmax(-1), state["seq"][:, prompt:])),
+            "second_generate_tokens": bool(torch.equal(again, state["seq"]))}
+    summary = {"family_serve": {
+        "arch": arch, "card": smi, "depth": cut, "flags": FAMILY_SERVE,
+        "pvq_tensors": report["pvq_tensors"], "packed_bytes": report["packed_bytes"],
+        "weight_compression_ratio_vs_bf16": report["weight_compression_ratio"],
+        "kv_quant": report.get("kv_quant"),
+        "decode_ms_per_step_first_generate": report["decode_ms_per_step"],
+        "decode_ms_per_step_captured": round(1e3 * timings["decode_s"] / GEN, 3),
+        "captures_by_second_generate": recaptured,
+        "tokens_per_s": report["tokens_per_s"], "prefill_s": report["prefill_s"],
+        "pvq_encode_s": report["pvq_encode_s"],
+        "peak_device_gb": round(report["peak_device_memory_bytes"] / 1e9, 3),
+        "decode_step_captures": report["decode_step_captures"],
+        "kernel_launches": counts, "v3_body_launches": bodies, "v2_body_launches": v2_bodies,
+        "kernels_vs_plain_on_card": same, "plain_rerun_s": round(plain_s, 2),
+        "f32_leg_agreement": {"measured": report["act_int8_top1_agreement"],
+                              "strict": report["act_int8_top1_agreement_strict"],
+                              "gated": False},
+        "serve_wall_s": round(serve_wall, 2), "phase_wall_s": round(time.time() - t0, 2)}}
+    print(json.dumps(summary), flush=True)
+    if not all(same.values()) or recaptured:
+        fail(f"{arch}: the kernel path differs from the plain path or a second generate "
+             f"captured ({recaptured}): {same}")
+    return counts, bodies, v2_bodies, summary
+
+
+def head_glue_row(torch, timer, quant, embed, x):
+    """gemma-2b's tied head on its packed 256,000 x 2048 embedding at a
+    decode step (``layers.unembed`` under ``ActQuant``: per group an
+    f32 copy of the (256, 256000) pulse slice and an exact int8 dot; glue,
+    not a kernel, as the reference's): event and device time beside the
+    bytes bound of reading the pulses and scales once, and the f32
+    ``torch.matmul`` of x with the dequantized table."""
+    from repro_torch.nn import layers
+
+    table = embed["embedding"]
+    fn = partial(layers.unembed, embed, x, act_quant=quant.ActQuant())
+    row = {"what": "gemma-2b tied head (glue), m 4", "ms": timer(fn, reps=5)}
+    deq = table.dequantize(torch.float32)
+    library = partial(torch.matmul, x.float(), deq.t())
+    row["library_ms"] = timer(library, reps=5)
+    vocab, d = table.shape
+    nbytes = table.pulses.numel() + 4 * table.scales.numel() + 4 * BATCH * (d + vocab)
+    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 2.0 * BATCH * d * vocab, INT8_OPS_PER_S)
+    row["groups"] = d // table.group
+    timer.device_later(fn, (row, "device_ms", 1))
+    timer.device_later(library, (row, "library_device_ms", 1))
+    return row
+
+
+def family_matmuls(torch, timer, mm, quant, kernels_mod):
+    """Kernels v3 and v2 over one gemma-2b layer at m 4 (decode rows: v2
+    against its direct body too) and m 512 (prefill rows: the mma bodies
+    against their direct bodies), and v3 and v2 with the bias epilogue over
+    one starcoder2-15b layer at m 4; random pulses and rho, identical (v3)
+    or within rtol 1e-5 (v2) of the plain versions.  Returns the
+    ``families`` entries of both kernels and the rows."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rows = []
+    totals = {key: _decode_total(direct=(name == "pvq_matmul"))
+              for key, name in (("v3_gemma", "pvq_matmul_q"), ("v2_gemma", "pvq_matmul"),
+                                ("v3_star", "pvq_matmul_q"), ("v2_star", "pvq_matmul"))}
+    prefill = {"v3": _new_total(), "v2": _new_total()}
+    for layer, shapes, with_bias in (("gemma", GEMMA_LAYER, False),
+                                     ("star", STARCODER2_LAYER, True)):
+        for k, n in shapes:
+            pulses = torch.randint(-9, 10, (k, n), generator=gen, device="cuda", dtype=torch.int8)
+            scales = torch.rand(k // GROUP, n, generator=gen, device="cuda") * 0.01
+            bias = torch.randn(n, generator=gen, device="cuda") if with_bias else None
+            w_deq = pulses.float() * torch.repeat_interleave(scales, GROUP, dim=0)
+            m = DECODE_M
+            x = torch.randn(m, k, generator=gen, device="cuda")
+            x_q, a = quant(x)
+            lib = (partial(torch.addmm, bias, x, w_deq) if with_bias
+                   else partial(torch.matmul, x, w_deq))
+            extra = 4 * n if with_bias else 0
+            head = {"m": m, "k": k, "n": n, "bias": with_bias,
+                    "layer": "gemma-2b" if layer == "gemma" else "starcoder2-15b"}
+            rows.append(decode_row(
+                timer, {"kernel": "pvq_matmul_q", **head},
+                partial(mm.pvq_matmul_q_cuda, x_q, pulses, scales, a, bias, group=GROUP),
+                partial(mm.pvq_matmul_q_plain, x_q, pulses, scales, a, bias, group=GROUP), lib,
+                v3_bytes(m, k, n) + extra, 2.0 * m * k * n, INT8_OPS_PER_S,
+                body_launches=kernels_mod.v3_body_launches, total=totals[f"v3_{layer}"]))
+            rows.append(decode_row(
+                timer, {"kernel": "pvq_matmul", **head},
+                partial(mm.pvq_matmul_cuda, x, pulses, scales, bias, group=GROUP),
+                partial(mm.pvq_matmul_plain, x, pulses, scales, bias, group=GROUP), lib,
+                v2_bytes(m, k, n) + extra, 2.0 * m * k * n, F64_TC_FLOPS_PER_S, tol=1e-5,
+                body_launches=kernels_mod.v2_body_launches,
+                direct=partial(mm.pvq_matmul_cuda, x, pulses, scales, bias, group=GROUP,
+                               _body="direct"), total=totals[f"v2_{layer}"]))
+            if layer == "gemma":
+                m = PREFILL_M
+                x = torch.randn(m, k, generator=gen, device="cuda")
+                x_q, a = quant(x)
+                def call(body): return mm.pvq_matmul_q_cuda(x_q, pulses, scales, a, group=GROUP,
+                                                            _body=body)
+                def plain(): return mm.pvq_matmul_q_plain(x_q, pulses, scales, a, group=GROUP)
+                row = prefill_row(timer, kernels_mod.v3_body_launches,
+                                  f"gemma-2b pvq_matmul_q m{m} k{k} n{n}", call, plain,
+                                  lambda: torch.matmul(x, w_deq), v3_bytes(m, k, n),
+                                  2.0 * m * k * n, total=prefill["v3"])
+                rows.append({"kernel": "pvq_matmul_q", "layer": "gemma-2b", "m": m, "k": k,
+                             "n": n, **row})
+                def call_f(body): return mm.pvq_matmul_cuda(x, pulses, scales, group=GROUP,
+                                                            _body=body)
+                def plain_f(): return mm.pvq_matmul_plain(x, pulses, scales, group=GROUP)
+                row = prefill_row(timer, kernels_mod.v2_body_launches,
+                                  f"gemma-2b pvq_matmul m{m} k{k} n{n}", call_f, plain_f,
+                                  lambda: torch.matmul(x, w_deq), v2_bytes(m, k, n),
+                                  2.0 * m * k * n, rtol=1e-5, rate=F64_TC_FLOPS_PER_S,
+                                  total=prefill["v2"])
+                rows.append({"kernel": "pvq_matmul", "layer": "gemma-2b", "m": m, "k": k,
+                             "n": n, **row})
+            del w_deq
+    gemma = "one gemma-2b layer's 7 matmuls (d 2048, one KV head of 256, d_ff 16384)"
+    star = ("one starcoder2-15b layer's 6 matmuls with bias (d 6144, 4 KV heads of 128, "
+            "d_ff 24576, ungated gelu)")
+    out = {}
+    for name, v3 in (("pvq_matmul_q", True), ("pvq_matmul", False)):
+        tag, rate = ("v3", INT8_OPS_PER_S) if v3 else ("v2", F64_TC_FLOPS_PER_S)
+        f32 = "" if v3 else ", f32 x"
+        out[name] = {
+            "gemma_layer_m4": decode_entry(totals[f"{tag}_gemma"], rate,
+                                           shape=f"{gemma}, m={DECODE_M}{f32}"),
+            "starcoder2_layer_bias_m4": decode_entry(totals[f"{tag}_star"], rate,
+                                                     shape=f"{star}, m={DECODE_M}{f32}"),
+            "gemma_layer_m512": prefill_entry(prefill[tag], f"{gemma}, m={PREFILL_M}{f32}",
+                                              MMA_SOURCE if v3 else F_MMA_SOURCE, rate),
+        }
+    return out, rows
+
+
+# gemma-2b's tied embedding (vocab x d), packed as serve packs it
+GEMMA_EMBED = (256000, 2048)
+
+
+def family_kernel_rows(torch, timer, mm, quant, kernels_mod):
+    """The families' kernel rows on ``timer`` (module docstring, item 12):
+    v4 at gemma-2b's decode, v3 and v2 over one gemma-2b layer and one
+    starcoder2-15b layer with bias (``family_matmuls``), and gemma-2b's
+    tied head (glue) on an embedding of its shape drawn from seed 7 and
+    packed as ``serve --pvq`` packs it (N/K 0.5, group 256).  Their device
+    times arrive with ``timer.measure_device``.  Returns the kernels line's
+    ``families`` entries of v3, v2 and v4, and the rows."""
+    from repro_torch.core.packed import pack_flat
+    from repro_torch.core.quantize import quantize_activations
+
+    attn = check_attention(torch, timer, mm, quantize_activations, FAMILY_ATTN_ROWS,
+                           FAMILY_ATTN_GEOMETRY, seed=11)
+    entries, rows = family_matmuls(torch, timer, mm, quantize_activations, kernels_mod)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    vocab, d = GEMMA_EMBED
+    table = pack_flat(torch.randn(vocab, d, generator=gen, device="cuda") * 0.02, group=GROUP,
+                      n_over_k=0.5, scale_mode="ls", row_align=d)
+    x = torch.randn(BATCH, 1, d, generator=gen, device="cuda")
+    glue = head_glue_row(torch, timer, quant, {"embedding": table}, x)
+    entries["pvq_attn_q"] = attn
+    entries["pvq_matmul_q"]["head_glue"] = glue
+    return entries, rows + list(attn["decode"].values()) + [glue]
+
+
+def families_phase(torch, serve, kernels_mod, mm, enc, quant, smi, kernel_rows=True):
+    """The attention families (module docstring, item 12).  With
+    ``kernel_rows`` also its kernel rows (``family_kernel_rows``, on a
+    timer of its own: ``--families``; the whole script times them in the
+    kernel phase).  Returns the launch counts, v3's and v2's by body, each
+    by path, and the rows' kernels-line entries (None without them)."""
+    t_phase = time.time()
+    counts, bodies, v2_bodies, walls = {}, {}, {}, {}
+    for arch, layers in FAMILY_FULL:
+        path = arch if not layers else f"{arch} ({layers} layers)"
+        t0 = time.time()
+        counts[path], bodies[path], v2_bodies[path], _ = family_serve(
+            torch, serve, kernels_mod, mm, enc, quant, arch, layers, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+        walls[path] = round(time.time() - t0, 2)
+    t0 = time.time()
+    reduced = {}
+    for arch, _ in FAMILY_FULL:
+        rep = serve_reduced(serve, ["--arch", arch] + FAMILY_REDUCED, kernels_mod,
+                            expect=SMOLLM_KERNELS, what=f"{arch} reduced")
+        reduced[arch] = rep["act_int8_top1_agreement"]
+    walls["reduced serves"] = round(time.time() - t0, 2)
+    entries = None
+    if kernel_rows:
+        t0 = time.time()
+        timer = Timer(torch)
+        entries, rows = family_kernel_rows(torch, timer, mm, quant, kernels_mod)
+        timer.measure_device()
+        for row in rows:
+            print(json.dumps({"family_kernel_check": row}), flush=True)
+        walls["kernel rows"] = round(time.time() - t0, 2)
+    print(json.dumps({"families_phase": {"card": smi, "reduced_agreement": reduced,
+                                         "walls_s": walls,
+                                         "seconds": round(time.time() - t_phase, 2)}}),
+          flush=True)
+    return counts, bodies, v2_bodies, entries
+
+
 def start_ptxas_report(build, source="pvq_matmul"):
     """Starts ``nvcc -Xptxas -v`` on ``csrc/<source>.cu`` (a cubin under the
     build directory), beside the library builds."""
@@ -2472,6 +2811,7 @@ def main() -> int:
     kernels_only = "--kernels-only" in args
     paper_only = "--paper" in args
     train_only = "--train" in args
+    families_only = "--families" in args
     tree = ROOT
     if "--tree" in args:
         if not kernels_only or args.index("--tree") + 1 >= len(args):
@@ -2494,13 +2834,14 @@ def main() -> int:
     scratch = tempfile.mkdtemp(prefix="chip_smoke_")
     os.environ[TUNE_CACHE_ENV] = str(Path(scratch) / "untuned.json")
     try:
-        return run_phases(torch, tree, kernels_only, smi, Path(scratch), paper_only, train_only)
+        return run_phases(torch, tree, kernels_only, smi, Path(scratch), paper_only, train_only,
+                          families_only)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
 
 def run_phases(torch, tree, kernels_only, smi, scratch, paper_only=False,
-               train_only=False) -> int:
+               train_only=False, families_only=False) -> int:
     import repro_torch.kernels as kernels_mod
     from repro_torch.core import quantize as quant
     from repro_torch.core.quantize import quantize_activations
@@ -2533,6 +2874,9 @@ def run_phases(torch, tree, kernels_only, smi, scratch, paper_only=False,
     if train_only:
         train_phase(torch, kernels_mod, mm, enc, smi, scratch)
         return 0
+    if families_only:
+        families_phase(torch, serve, kernels_mod, mm, enc, quant, smi)
+        return 0
 
     timer = Timer(torch)
     entries, rows = check_matmuls(torch, timer, mm, ops, quantize_activations, kernels_mod)
@@ -2542,9 +2886,14 @@ def run_phases(torch, tree, kernels_only, smi, scratch, paper_only=False,
     entries["pvq_encode_batch"], enc_rows = check_encode(torch, timer, enc)
     batched, batched_rows = check_batched(torch, timer, mm, quantize_activations, kernels_mod)
     entries.update(batched)
+    fam_entries, fam_rows = family_kernel_rows(torch, timer, mm, quant, kernels_mod)
     timer.measure_device()
     for row in rows + enc_rows + batched_rows + list(entries["pvq_attn_q"]["prefill_chunk"].values()):
         print(json.dumps({"kernel_check": row}), flush=True)
+    for row in fam_rows:
+        print(json.dumps({"family_kernel_check": row}), flush=True)
+    for name, fam in fam_entries.items():
+        entries[name]["families"] = fam
     del timer
     if kernels_only:  # the kernels' numbers, without main-path launches
         print(json.dumps({"kernel_entries": list(entries.values())}), flush=True)
@@ -2598,6 +2947,13 @@ def run_phases(torch, tree, kernels_only, smi, scratch, paper_only=False,
     (counts["smollm-360m train"], _, _), train_summary = train_phase(
         torch, kernels_mod, mm, enc, smi, scratch)
     entries["pvq_encode_batch"]["train"] = train_summary["train_phase"]["encoder"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    fam_counts, fam_bodies, fam_v2_bodies, _ = families_phase(
+        torch, serve, kernels_mod, mm, enc, quant, smi, kernel_rows=False)
+    counts.update(fam_counts)
+    bodies.update(fam_bodies)
+    v2_bodies.update(fam_v2_bodies)
     run_b = engine["smollm-360m engine (b)"]
     # the timed runs' (replays counted, the warm-up's taken off)
     entries["pvq_attn_q"]["launches_from_chunk_caller"] = {

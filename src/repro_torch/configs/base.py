@@ -5,7 +5,8 @@ JAX layer modules; the port keeps its own copies of ``MoEConfig`` and
 ``MLAConfig`` (in ``repro_torch.nn.moe`` / ``repro_torch.nn.mla``).  The
 SSM and RWKV families are not ported yet: their fields exist (so
 ``dataclasses.asdict`` matches the reference field for field) but only
-``None`` is accepted.
+``None`` is accepted.  The dense, MoE, VLM (``prefix_len``) and enc-dec
+(``encoder_layers``, ``learned_positions``, ``max_position``) families are.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ class PVQConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # 'dense' | 'moe' are ported
+    family: str  # 'dense' | 'moe' | 'vlm' | 'encdec' are ported
     n_layers: int
     d_model: int
     n_heads: int
@@ -46,7 +47,7 @@ class ModelConfig:
     tie_embeddings: bool = True
     attn_bias: bool = False
     learned_positions: bool = False
-    max_position: int = 0
+    max_position: int = 0  # for learned positions; 0 -> max_seq at init time
     # --- MoE ---
     moe: Optional[MoEConfig] = None
     moe_period: int = 1  # MoE FFN every `moe_period` layers (others dense)
@@ -58,9 +59,10 @@ class ModelConfig:
     hybrid_period: int = 0
     ssm: Optional[Any] = None
     rwkv: Optional[Any] = None
-    # --- enc-dec / vlm (not ported) ---
+    # --- enc-dec (whisper) ---
     encoder_layers: int = 0
-    prefix_len: int = 0
+    # --- vlm ---
+    prefix_len: int = 0  # patch tokens prepended (stub embeddings)
     # --- numerics ---
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
@@ -87,7 +89,7 @@ class ModelConfig:
 
     def reduced(self) -> "ModelConfig":
         """Tiny same-family variant for CPU smoke tests (the reference's
-        ``reduced()`` values for the dense and MoE/MLA families)."""
+        ``reduced()`` values)."""
         small_moe = None
         if self.moe is not None:
             small_moe = self.moe._replace(

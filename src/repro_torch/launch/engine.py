@@ -351,6 +351,23 @@ def _argmax_last(logits: torch.Tensor) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
+def check_engine_model(cfg) -> None:
+    """Raises ``NotImplementedError`` for a configuration the engine cannot
+    serve: an enc-dec model (the paged slot pool holds plain attention
+    blocks only, no cross-attention cache) or a VLM (a request carries
+    tokens, no patch prefix).  The reference's engine fails on both too,
+    later: ``NotImplementedError`` from its paged cache, ``KeyError:
+    'patches'`` in its prefill."""
+    if cfg.encoder_layers or cfg.family == "encdec":
+        raise NotImplementedError(
+            f"PVQEngine: {cfg.name} is enc-dec: the paged slot-pool cache supports plain "
+            "attention blocks only, not cross-attention")
+    if cfg.prefix_len or cfg.family == "vlm":
+        raise NotImplementedError(
+            f"PVQEngine: {cfg.name} is a VLM: the engine's requests carry tokens only, "
+            "no patch prefix")
+
+
 class PVQEngine:
     """Continuous-batching decode over a paged, PVQ-compressed KV cache.
 
@@ -381,6 +398,7 @@ class PVQEngine:
         prefix_cache: bool = True,
         eager: bool = False,
     ):
+        check_engine_model(model.cfg)
         kvq = default_kv_quant()
         if kvq is None:
             raise ValueError(

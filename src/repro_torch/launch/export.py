@@ -56,7 +56,7 @@ def export_arch(args) -> tuple:
     if args.reduced:
         cfg = cfg.reduced()
     model = build_model(cfg)
-    params = model.init(args.seed, device=device)
+    params = model.init(args.seed, device=device, max_seq=args.max_seq)
     policy = QuantPolicy(
         rules=(("embedding", cfg.pvq.n_over_k_embed, cfg.pvq.group),
                ("kernel|experts", args.n_over_k, cfg.pvq.group)),
@@ -113,7 +113,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--chunk", type=int, default=1024,
                     help="symbols per decodable chunk of the entropy streams")
     ap.add_argument("--max-seq", type=int, default=32,
-                    help="length of a learned positional table (no ported arch has one)")
+                    help="length of a learned positional table when the config sets no "
+                    "max_position")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--max-bits-per-weight", type=float, default=None,
                     help="fail (exit 1) if the packed artifact exceeds this")

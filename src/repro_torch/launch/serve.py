@@ -96,7 +96,7 @@ from ..kernels import launches, reset_launches, v2_body_launches, v3_body_launch
 from ..nn.models import build_model
 from ..runtime import obs
 from .capture import CapturedStep
-from .engine import param_device, bucket_len
+from .engine import bucket_len, check_engine_model, param_device
 
 # Captures of the fixed-batch decode step (the reference counts its jit's
 # traces here): a second generate() of the same shape captures nothing.
@@ -261,24 +261,33 @@ def _lockstep(model, params, cache, tokens: torch.Tensor, *, eager: bool):
     return step
 
 
+def _prefix_len(batch: dict) -> int:
+    """A VLM's patch prefix: the rows of the cache before the first token."""
+    return int(batch["patches"].shape[1]) if "patches" in batch else 0
+
+
 def generate(model, params, tokens: torch.Tensor, *, gen: int, cache_len: int,
-             timings: Optional[dict] = None, eager: bool = False,
-             step_logits: Optional[list] = None) -> torch.Tensor:
-    """Greedy decode; tokens (b, s) -> (b, s + gen).  Each decode step is a
-    replay of the model's captured step on a card, and that step run
-    eagerly on the CPU; ``eager=True`` runs the host-int step instead.
-    ``cache_len`` is rounded up to the KV block, so the prompt lengths of a
-    bucket share one capture.  A ``timings`` dict receives ``prefill_s``
-    and ``decode_s`` (host clock, the device synchronized at the
-    prefill/decode boundary and at the end); a ``step_logits`` list
-    receives each decode step's logits ``(b, vocab)``."""
+             extra_batch: Optional[dict] = None, timings: Optional[dict] = None,
+             eager: bool = False, step_logits: Optional[list] = None) -> torch.Tensor:
+    """Greedy decode; tokens (b, s) -> (b, s + gen).  ``extra_batch`` holds
+    an enc-dec model's ``frames`` or a VLM's ``patches``; a VLM decodes
+    at positions after its patch prefix (the reference's ``generate``
+    does not: it decodes at ``s + i``, over the prefix's cache rows).
+    Each decode step is a replay of the model's captured step on a card,
+    and that step run eagerly on the CPU; ``eager=True`` runs the host-int
+    step instead.  ``cache_len`` is rounded up to the KV block, so the
+    prompt lengths of a bucket share one capture.  A ``timings`` dict
+    receives ``prefill_s`` and ``decode_s`` (host clock, the device
+    synchronized at the prefill/decode boundary and at the end); a
+    ``step_logits`` list receives each decode step's logits ``(b, vocab)``."""
     cache_len = bucket_len(cache_len, _decode_bucket())
     t0 = time.perf_counter()
     with obs.span("serve/generate", args={
         "batch": int(tokens.shape[0]), "gen": int(gen), "cache_len": cache_len,
     }):
+        batch = {"tokens": tokens, **(extra_batch or {})}
         with obs.span("serve/prefill"):
-            logits, cache = model.prefill(params, {"tokens": tokens}, cache_len=cache_len)
+            logits, cache = model.prefill(params, batch, cache_len=cache_len)
         out = [tokens]
         tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
         if timings is not None:
@@ -287,7 +296,7 @@ def generate(model, params, tokens: torch.Tensor, *, gen: int, cache_len: int,
             timings["prefill_s"] = t1 - t0
         step = _lockstep(model, params, cache, tokens, eager=eager)
         del logits, cache
-        pos0 = tokens.shape[1]
+        pos0 = _prefix_len(batch) + tokens.shape[1]
         for i in range(gen):
             out.append(tok)
             logits, tok = step(tok, pos0 + i)
@@ -301,21 +310,24 @@ def generate(model, params, tokens: torch.Tensor, *, gen: int, cache_len: int,
 
 
 def teacher_forced_logits(model, params, seq: torch.Tensor, *, prompt_len: int,
-                          eager: bool = False) -> torch.Tensor:
+                          extra_batch: Optional[dict] = None, eager: bool = False) -> torch.Tensor:
     """Next-token logits along a FIXED sequence through the decode path (the
-    captured step on a card, ``eager`` as for :func:`generate`):
+    captured step on a card, ``eager`` as for :func:`generate`, a VLM's
+    positions after its prefix as there):
     (b, seq_len - prompt_len, vocab) predicting positions prompt_len.."""
     with obs.span("serve/teacher_forced", args={
         "batch": int(seq.shape[0]), "seq_len": int(seq.shape[1]),
     }):
         cache_len = bucket_len(seq.shape[1], _decode_bucket())
-        logits, cache = model.prefill(params, {"tokens": seq[:, :prompt_len]}, cache_len=cache_len)
+        batch = {"tokens": seq[:, :prompt_len], **(extra_batch or {})}
+        logits, cache = model.prefill(params, batch, cache_len=cache_len)
         steps = [logits[:, -1, :]]
         step = _lockstep(model, params, cache, seq, eager=eager)
         del cache
+        pos0 = _prefix_len(batch) + prompt_len
         for i in range(seq.shape[1] - prompt_len - 1):
             tok = seq[:, prompt_len + i : prompt_len + i + 1]
-            logits, _ = step(tok, prompt_len + i)
+            logits, _ = step(tok, pos0 + i)
             steps.append(logits[:, -1, :].clone())  # a graph's output, as above
         return torch.stack(steps, dim=1)
 
@@ -494,14 +506,17 @@ def main(argv=None) -> int:
 
 def tune_config(cfg, args, device) -> dict:
     """``--tune``: the autotuner over the reference's shape set for ``cfg``
-    and the serve flags in ``args``, letter for letter: the decode (m =
-    batch) and prefill (m = batch x prompt) GEMMs of a block; with
-    ``--engine`` the slot pool's, the chunk's and the batched admission's;
-    the MoE dispatch GEMMs (expert-batched here, so their keys carry the
-    expert count); each for f32 activations and, with ``--act-int8``,
-    int8; with ``--kv-pvq`` kernel v4's decode shape and the engine's.
-    Returns the report's ``tuned_tiles`` (the reference's key strings),
-    ``tune_cache``, ``tune_wall_s`` and ``tune_stats``."""
+    and the serve flags in ``args``: the decode (m = batch) and prefill (m
+    = batch x prompt) GEMMs of a block; with ``--engine`` the slot pool's,
+    the chunk's and the batched admission's; the MoE dispatch GEMMs
+    (expert-batched here, so their keys carry the expert count); each for
+    f32 activations and, with ``--act-int8``, int8; with ``--kv-pvq``
+    kernel v4's decode shape and the engine's.  Beyond the reference's set:
+    the decode GEMMs of the attention projections whose width is not d
+    (K/V of GQA and MQA, a q of ``n_heads x hd != d``), and a VLM's v4
+    planes count its patch prefix.  Returns the report's ``tuned_tiles``
+    (the reference's key strings), ``tune_cache``, ``tune_wall_s`` and
+    ``tune_stats``."""
     from ..kernels import autotune
     from ..nn.moe import dispatch_gemm_rows
 
@@ -516,6 +531,12 @@ def tune_config(cfg, args, device) -> dict:
         (args.batch, d_ff, d_model),
         (args.batch * args.prompt_len, d_model, d_ff),
     }
+    # the attention projections' own widths where they are not d (gemma's
+    # one KV head of 256, starcoder2's four of 128)
+    hd = cfg.resolved_head_dim
+    if cfg.mla is None:
+        shapes |= {(args.batch, d_model, cfg.n_kv_heads * hd),
+                   (args.batch, cfg.n_heads * hd, d_model)}
     if args.engine:
         shapes |= {(args.engine_slots, d_model, d_model), (args.engine_slots, d_model, d_ff),
                    (args.engine_slots, d_ff, d_model)}
@@ -549,7 +570,8 @@ def tune_config(cfg, args, device) -> dict:
         g = _fit_group(args.kv_group, hd)
         blk = max(args.kv_block, 1)
         m_q = max(cfg.n_heads // cfg.n_kv_heads, 1)
-        s_planes = -(-args.prompt_len // blk) * blk + args.gen
+        # a VLM's planes also hold its patch prefix
+        s_planes = -(-(cfg.prefix_len + args.prompt_len) // blk) * blk + args.gen
         # v4 over the lockstep batch's rows, the slot pool's, one slot's chunk
         ea = autotune.autotune_attn(m_q, hd, s_planes, group=g, device=device,
                                     bh=args.batch * cfg.n_kv_heads)
@@ -611,12 +633,29 @@ def _load_artifact(path: str, params, device, report: dict):
     return params
 
 
+def stub_inputs(cfg, batch: int, length: int, seed: int, device) -> dict:
+    """The stub frontends' inputs, standard normal from ``seed`` as the
+    reference's serve makes them (there from the prompt's key): an enc-dec
+    model's ``frames`` ``(batch, length, d)``, a VLM's ``patches``
+    ``(batch, prefix_len, d)``; else empty."""
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(seed)
+    if cfg.family == "encdec":
+        return {"frames": torch.randn((batch, length, cfg.d_model), generator=gen).to(device)}
+    if cfg.family == "vlm":
+        return {"patches": torch.randn((batch, cfg.prefix_len, cfg.d_model),
+                                       generator=gen).to(device)}
+    return {}
+
+
 def _serve(args):
     """Returns ``(report, exit_code, state)``."""
     device = torch.device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.engine:
+        check_engine_model(cfg)
     model = build_model(cfg)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -678,13 +717,14 @@ def _serve(args):
     gen = torch.Generator(device="cpu")
     gen.manual_seed(args.seed + 1)
     tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len), generator=gen).to(device)
+    extra = stub_inputs(cfg, args.batch, args.prompt_len, args.seed + 1, device)
 
     _sync(device)
     timings: dict = {}
     captures0 = TRACE_COUNTS["decode_step"]
     t0 = time.time()
     out = generate(model, params, tokens, gen=args.gen, cache_len=args.prompt_len + args.gen,
-                   timings=timings)
+                   extra_batch=extra, timings=timings)
     dt = time.time() - t0
     report.update({
         "arch": cfg.name, "batch": args.batch,
@@ -697,12 +737,14 @@ def _serve(args):
     })
 
     rc = 0
-    state = {"model": model, "params": params, "seq": out}
+    state = {"model": model, "params": params, "seq": out, "extra_batch": extra}
     if args.agreement_min is not None:
-        lg_q = teacher_forced_logits(model, params, out, prompt_len=args.prompt_len)
+        lg_q = teacher_forced_logits(model, params, out, prompt_len=args.prompt_len,
+                                     extra_batch=extra)
         state["logits_q"] = lg_q
         with act_quant_scope(None), kv_quant_scope(None):
-            lg_f = teacher_forced_logits(model, params, out, prompt_len=args.prompt_len)
+            lg_f = teacher_forced_logits(model, params, out, prompt_len=args.prompt_len,
+                                         extra_batch=extra)
         state["logits_f"] = lg_f
         ag = top1_agreement(lg_f, lg_q)
         report["logits_finite"] = bool(torch.isfinite(lg_q).all() and torch.isfinite(lg_f).all())

@@ -1,7 +1,8 @@
-"""Attention: GQA with RoPE, causal prefill, and KV-cache decode over a dense,
-a PVQ-packed or a paged PVQ cache, plus the engine's chunked prefill (port
-of the dense, ``PackedKV`` and ``PagedKV`` parts of ``repro.nn.attention``).
-Float matmuls here run in full f32 (TF32 is off for the package)."""
+"""Attention: GQA with RoPE (or none), causal, prefix-LM and bidirectional
+prefill, KV-cache decode over a dense, a PVQ-packed or a paged PVQ cache,
+the engine's chunked prefill, and enc-dec cross-attention (port of
+``repro.nn.attention``).  Float matmuls here run in full f32 (TF32 is off
+for the package)."""
 
 from __future__ import annotations
 
@@ -32,12 +33,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0)
     return out.to(x.dtype)
 
 
-def init_attention(gen, d_model, n_heads, n_kv_heads, head_dim, *, dtype, device) -> Params:
+def init_attention(gen, d_model, n_heads, n_kv_heads, head_dim, *, bias: bool = False, dtype,
+                   device) -> Params:
+    kw = dict(bias=bias, dtype=dtype, device=device)
     return {
-        "wq": init_dense(gen, d_model, n_heads * head_dim, dtype=dtype, device=device),
-        "wk": init_dense(gen, d_model, n_kv_heads * head_dim, dtype=dtype, device=device),
-        "wv": init_dense(gen, d_model, n_kv_heads * head_dim, dtype=dtype, device=device),
-        "wo": init_dense(gen, n_heads * head_dim, d_model, dtype=dtype, device=device),
+        "wq": init_dense(gen, d_model, n_heads * head_dim, **kw),
+        "wk": init_dense(gen, d_model, n_kv_heads * head_dim, **kw),
+        "wv": init_dense(gen, d_model, n_kv_heads * head_dim, **kw),
+        "wo": init_dense(gen, n_heads * head_dim, d_model, **kw),
     }
 
 
@@ -67,35 +70,44 @@ def _group_q(q: torch.Tensor, n_kv: int) -> torch.Tensor:
     return q.reshape(b, s, n_kv, h // n_kv, hd)
 
 
-def full_causal_attention(q, k, v, *, scale: float, q_offset: int = 0) -> torch.Tensor:
+def full_causal_attention(q, k, v, *, scale: float, q_offset: int = 0, prefix_len: int = 0,
+                          causal: bool = True) -> torch.Tensor:
     """q: (b, s, h, hd); k/v: (b, s, n_kv, hd); grouped (no KV expansion).
-    Scores in f32; probabilities cast to v's dtype, as the reference does."""
+    Scores in f32; probabilities cast to v's dtype, as the reference does.
+    ``prefix_len > 0`` gives the prefix-LM mask (every query sees the first
+    ``prefix_len`` keys, causal after: the VLM's patches); ``causal=False``
+    masks nothing (the encoder)."""
     b, sq, h, hd = q.shape
     sk, n_kv = k.shape[1], k.shape[2]
     qg = _group_q(q, n_kv).to(torch.float32)
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(torch.float32)) * scale
-    qpos = torch.arange(sq, device=q.device) + q_offset
-    kpos = torch.arange(sk, device=q.device)
-    mask = kpos[None, :] <= qpos[:, None]
-    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    if causal:
+        qpos = torch.arange(sq, device=q.device) + q_offset
+        kpos = torch.arange(sk, device=q.device)
+        mask = kpos[None, :] <= qpos[:, None]
+        if prefix_len:
+            mask = mask | (kpos[None, :] < prefix_len)
+        scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(torch.float32), v.to(torch.float32))
     return out.to(v.dtype).reshape(b, sq, h, v.shape[-1])
 
 
-def chunked_causal_attention(q, k, v, *, scale: float, q_chunk: int = 512) -> torch.Tensor:
-    """Causal attention one query chunk at a time (exact; peak memory
-    O(q_chunk * seq)).  Short sequences take one chunk."""
+def chunked_causal_attention(q, k, v, *, scale: float, q_chunk: int = 512,
+                             prefix_len: int = 0) -> torch.Tensor:
+    """Causal (or prefix-LM) attention one query chunk at a time (exact;
+    peak memory O(q_chunk * seq)).  Short sequences take one chunk."""
     b, s, h, hd = q.shape
     if s % q_chunk != 0:
         q_chunk = next((c for c in range(q_chunk - q_chunk % 128, 127, -128) if s % c == 0), 0)
     if not q_chunk or s <= q_chunk:
-        return full_causal_attention(q, k, v, scale=scale)
+        return full_causal_attention(q, k, v, scale=scale, prefix_len=prefix_len)
     outs = []
     for i in range(s // q_chunk):
         lo = i * q_chunk
         outs.append(
-            full_causal_attention(q[:, lo : lo + q_chunk], k, v, scale=scale, q_offset=lo)
+            full_causal_attention(q[:, lo : lo + q_chunk], k, v, scale=scale, q_offset=lo,
+                                  prefix_len=prefix_len)
         )
     return torch.cat(outs, dim=1)
 
@@ -171,9 +183,12 @@ def _project_qkv(p, x, n_heads, n_kv_heads, head_dim):
 
 def attention_forward(
     p: Params, x: torch.Tensor, *, n_heads: int, n_kv_heads: int, head_dim: int,
-    rope_theta: Optional[float] = 10000.0, q_chunk: int = 512, return_kv: bool = False,
+    rope_theta: Optional[float] = 10000.0, causal: bool = True, q_chunk: int = 512,
+    prefix_len: int = 0, return_kv: bool = False,
 ):
-    """Prefill self-attention over the full sequence.  ``return_kv`` also
+    """Self-attention over the full sequence: causal (with the prefix-LM
+    mask over the first ``prefix_len`` keys when it is set) or, with
+    ``causal=False``, bidirectional (the encoder).  ``return_kv`` also
     returns the (rope'd) k and v, which are exactly what
     :func:`attention_prefill_cache` would project again."""
     b, s, _ = x.shape
@@ -182,7 +197,12 @@ def attention_forward(
         positions = torch.arange(s, device=x.device)[None, :]
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
-    out = chunked_causal_attention(q, k, v, scale=1.0 / math.sqrt(head_dim), q_chunk=q_chunk)
+    scale = 1.0 / math.sqrt(head_dim)
+    if causal:
+        out = chunked_causal_attention(q, k, v, scale=scale, q_chunk=q_chunk,
+                                       prefix_len=prefix_len)
+    else:
+        out = full_causal_attention(q, k, v, scale=scale, causal=False)
     y = dense(p["wo"], out.reshape(b, s, n_heads * head_dim))
     return (y, k, v) if return_kv else y
 
@@ -346,3 +366,28 @@ def attention_prefill_chunk(
     out = out.reshape(b, c, n_heads, head_dim).to(q.dtype)
     y = dense(p["wo"], out.reshape(b, c, n_heads * head_dim))
     return y, cache
+
+
+def cross_attention_forward(p: Params, x: torch.Tensor, enc_kv: dict, *, n_heads: int,
+                            head_dim: int) -> torch.Tensor:
+    """Decoder states ``x (b, s, d)`` attending to the encoder's keys and
+    values ``enc_kv`` (:func:`cross_kv`: ``(b, s_enc, n_heads, hd)``, every
+    position, no mask).  Scores in f32, probabilities in v's dtype."""
+    b, s, _ = x.shape
+    q = dense(p["wq"], x).reshape(b, s, n_heads, head_dim)
+    scale = 1.0 / math.sqrt(head_dim)
+    kf, vf = enc_kv["k"], enc_kv["v"]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32), kf.to(torch.float32)) * scale
+    probs = torch.softmax(scores, dim=-1).to(vf.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(torch.float32), vf.to(torch.float32))
+    out = out.to(vf.dtype)
+    return dense(p["wo"], out.reshape(b, s, n_heads * head_dim))
+
+
+def cross_kv(p: Params, enc_out: torch.Tensor, *, n_heads: int, head_dim: int) -> dict:
+    """The cross-attention cache: the encoder output's keys and values,
+    written once at prefill and read in full every step (always dense)."""
+    b, s, _ = enc_out.shape
+    k = dense(p["wk"], enc_out).reshape(b, s, n_heads, head_dim)
+    v = dense(p["wv"], enc_out).reshape(b, s, n_heads, head_dim)
+    return KVCache(k=k, v=v)

@@ -1,4 +1,5 @@
-"""Basic layers: norms, dense, FFN, embeddings (port of ``repro.nn.layers``).
+"""Basic layers: norms, dense, FFN, embeddings and positions (port of
+``repro.nn.layers``).
 
 Parameters are plain dicts of tensors with the reference's names, so the
 quantization policy matches the same paths (``*/kernel`` packed,
@@ -8,6 +9,7 @@ quantization policy matches the same paths (``*/kernel`` packed,
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict
 
 import torch
@@ -43,13 +45,31 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (xf * torch.rsqrt(var + eps) * p["rms_scale"].to(torch.float32)).to(x.dtype)
 
 
+def init_layernorm(d: int, dtype, device) -> Params:
+    return {"ln_scale": torch.ones((d,), dtype=dtype, device=device),
+            "ln_bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """f32-internal LayerNorm (population variance); the output keeps x's dtype."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["ln_scale"].to(torch.float32) + p["ln_bias"].to(torch.float32)).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Dense
 # ---------------------------------------------------------------------------
 
 
-def init_dense(gen, d_in: int, d_out: int, *, dtype, device, scale: float = 1.0) -> Params:
-    return {"kernel": truncated_normal_init(gen, (d_in, d_out), scale, dtype, device)}
+def init_dense(gen, d_in: int, d_out: int, *, bias: bool = False, dtype, device,
+               scale: float = 1.0) -> Params:
+    p = {"kernel": truncated_normal_init(gen, (d_in, d_out), scale, dtype, device)}
+    if bias:
+        p["bias"] = torch.zeros((d_out,), dtype=dtype, device=device)
+    return p
 
 
 def dense(p: Params, x: torch.Tensor, *, act_quant=None) -> torch.Tensor:
@@ -95,14 +115,19 @@ def pvq_dense(p: Params, x: torch.Tensor, *, activation: str = "none", act_quant
 # ---------------------------------------------------------------------------
 
 
-def init_ffn(gen, d_model: int, d_ff: int, kind: str, *, dtype, device) -> Params:
-    if kind not in ("swiglu", "geglu"):
-        raise NotImplementedError(f"ffn kind {kind!r} is not ported yet")
-    return {
-        "wi_gate": init_dense(gen, d_model, d_ff, dtype=dtype, device=device),
-        "wi_up": init_dense(gen, d_model, d_ff, dtype=dtype, device=device),
-        "wo": init_dense(gen, d_ff, d_model, dtype=dtype, device=device),
-    }
+def init_ffn(gen, d_model: int, d_ff: int, kind: str, *, bias: bool = False, dtype,
+             device) -> Params:
+    """kind: 'swiglu' | 'geglu' (gated: ``wi_gate`` and ``wi_up``) or
+    'gelu' | 'relu' | 'relu2' (``wi_up`` alone); the kind is passed to
+    :func:`ffn` at apply time."""
+    if kind not in ("swiglu", "geglu", "gelu", "relu", "relu2"):
+        raise ValueError(kind)
+    p: Params = {}
+    if kind in ("swiglu", "geglu"):
+        p["wi_gate"] = init_dense(gen, d_model, d_ff, bias=bias, dtype=dtype, device=device)
+    p["wi_up"] = init_dense(gen, d_model, d_ff, bias=bias, dtype=dtype, device=device)
+    p["wo"] = init_dense(gen, d_ff, d_model, bias=bias, dtype=dtype, device=device)
+    return p
 
 
 def _act(kind: str, x: torch.Tensor) -> torch.Tensor:
@@ -177,6 +202,21 @@ def _packed_unembed(table, x: torch.Tensor, act_quant=None) -> torch.Tensor:
     if act_scale is not None:
         logits = logits * act_scale
     return logits
+
+
+def init_positional(gen, max_len: int, d: int, *, dtype, device) -> Params:
+    t = torch.randn((max_len, d), generator=gen, dtype=torch.float32, device=device)
+    return {"pos_embedding": (t * 0.02).to(dtype)}
+
+
+def sinusoidal_positions(length: int, d: int, dtype=torch.float32, device="cpu") -> torch.Tensor:
+    """``(length, d)``: sin of ``pos * 10000^(-2i/d)`` in the first half,
+    cos in the second (the whisper encoder's fixed positions)."""
+    pos = torch.arange(length, device=device).to(torch.float32)[:, None]
+    dim = torch.arange(d // 2, device=device).to(torch.float32)[None, :]
+    inv = torch.exp(-math.log(10000.0) * 2.0 * dim / d)
+    ang = pos * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 
 
 def embed(p: Params, tokens: torch.Tensor, dtype=None) -> torch.Tensor:

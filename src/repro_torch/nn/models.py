@@ -1,4 +1,4 @@
-"""Model API for the ported families, dense and MoE (port of
+"""Model API for the ported families: dense, MoE, VLM and enc-dec (port of
 ``repro.nn.models``).
 
     model = Model(cfg)
@@ -6,6 +6,12 @@
     loss, metrics = model.loss(params, {"tokens": ..., "targets": ...}, rng)  # train
     logits, cache = model.prefill(params, {"tokens": tokens}, cache_len)
     logits, cache = model.decode_step(params, cache, token, pos)
+
+Batch keys: ``tokens``/``targets`` (b, s) always; ``frames`` (b, s_enc, d)
+for enc-dec (whisper's audio frontend is a stub: frame embeddings come in
+precomputed); ``patches`` (b, p, d) for a VLM (the vision frontend is a
+stub too).  A VLM's decode positions count the patch prefix: the token
+after a prompt of ``s`` tokens sits at ``prefix_len + s``.
 
 ``pos`` is a host integer on the eager lockstep path (the port's decode
 branches on it in Python where the reference traces ``lax.cond``), or a
@@ -17,6 +23,7 @@ engine's step over its paged cache (``init_paged_cache``,
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional
 
 import torch
@@ -30,14 +37,15 @@ from .layers import Params
 
 class Model:
     def __init__(self, cfg: ModelConfig):
-        if cfg.learned_positions or cfg.family not in ("dense", "moe"):
-            raise NotImplementedError(f"{cfg.name}: only the dense and moe families are ported")
         self.cfg = cfg
         self.plan = T.segment_plan(cfg, "decoder")
+        self.enc_plan = T.segment_plan(cfg, "encoder") if cfg.encoder_layers else None
 
-    def init(self, seed: int = 0, device="cuda") -> Params:
+    def init(self, seed: int = 0, device="cuda", max_seq: int = 0) -> Params:
         """Random init from ``seed`` (a ``torch.Generator`` on ``device``);
-        same shapes, names and distributions as the reference, other numbers."""
+        same shapes, names and distributions as the reference, other numbers.
+        Learned positions get ``max_position`` rows (else ``max_seq``, else
+        4096), as the reference's."""
         cfg = self.cfg
         dtype = getattr(torch, cfg.param_dtype)
         gen = torch.Generator(device=device)
@@ -45,6 +53,9 @@ class Model:
         params: Params = {
             "embed": L.init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype=dtype, device=device)
         }
+        if cfg.learned_positions:
+            params["pos"] = L.init_positional(gen, cfg.max_position or max_seq or 4096,
+                                              cfg.d_model, dtype=dtype, device=device)
         params["segments"] = {
             f"seg{i}": T.init_segment(gen, cfg, seg, device) for i, seg in enumerate(self.plan)
         }
@@ -52,10 +63,55 @@ class Model:
         if not cfg.tie_embeddings:
             params["lm_head"] = L.init_dense(gen, cfg.d_model, cfg.vocab_size, dtype=dtype,
                                              device=device)
+        if self.enc_plan:
+            params["encoder"] = {
+                "segments": {f"seg{i}": T.init_segment(gen, cfg, seg, device)
+                             for i, seg in enumerate(self.enc_plan)},
+                "final_norm": T._init_norm(cfg, dtype, device),
+            }
         return params
 
     def _embed_tokens(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-        return L.embed(params["embed"], tokens, dtype=getattr(torch, self.cfg.compute_dtype))
+        """Token rows in the compute dtype; times sqrt(d) (rounded to that
+        dtype, as the reference's) for a VLM and gemma; plus the learned
+        positions ``0 ..`` where the config has them (:meth:`_at_positions`
+        moves them)."""
+        cfg = self.cfg
+        x = L.embed(params["embed"], tokens, dtype=getattr(torch, cfg.compute_dtype))
+        if cfg.family == "vlm" or cfg.name.startswith("gemma"):
+            # the factor rounded to x's dtype on the host (no copy to the
+            # device: the step is captured)
+            x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype))
+        if cfg.learned_positions:
+            x = x + params["pos"]["pos_embedding"][: tokens.shape[1]].to(x.dtype)
+        return x
+
+    def _at_positions(self, params: Params, x: torch.Tensor, positions) -> torch.Tensor:
+        """``x`` (embedded at offset 0) moved to the learned positions
+        ``positions``: a host int (the position of ``x``'s first row) or a
+        device tensor of positions that broadcasts against ``x``'s ``(b,
+        s)``.  The offset-0 rows are taken off and the true ones added, as
+        the reference's ``decode_step`` and ``prefill_chunk`` do."""
+        if not self.cfg.learned_positions:
+            return x
+        tab = params["pos"]["pos_embedding"]
+        s = x.shape[1]
+        if isinstance(positions, torch.Tensor):
+            pe_t = tab[positions.to(torch.int64)]
+        else:
+            pe_t = tab[int(positions) : int(positions) + s]
+        return x - tab[:s].to(x.dtype) + pe_t.to(x.dtype)
+
+    def _encode(self, params: Params, frames: torch.Tensor) -> torch.Tensor:
+        """The whisper-style encoder over precomputed frame embeddings: the
+        sinusoidal positions, the bidirectional blocks, the final norm."""
+        cfg = self.cfg
+        x = frames.to(getattr(torch, cfg.compute_dtype))
+        x = x + L.sinusoidal_positions(x.shape[1], cfg.d_model, x.dtype, x.device)[None]
+        for i, seg in enumerate(self.enc_plan):
+            x, _, _ = T.run_segment(cfg, seg, params["encoder"]["segments"][f"seg{i}"], x,
+                                    mode="train")
+        return T._norm(cfg, params["encoder"]["final_norm"], x)
 
     def _head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         """Logits in f32: the tied unembed, or the untied ``lm_head`` dense
@@ -75,16 +131,26 @@ class Model:
         ``aux_loss`` is None and the caches come back."""
         cfg = self.cfg
         x = self._embed_tokens(params, batch["tokens"].to(torch.int64))
+        prefix_len, enc_out = 0, None
+        if cfg.family == "vlm":
+            patches = batch["patches"].to(x.dtype)
+            x = torch.cat([patches, x], dim=1)
+            prefix_len = patches.shape[1]
+        if self.enc_plan:
+            enc_out = self._encode(params, batch["frames"])
         aux = torch.zeros((), dtype=torch.float32, device=x.device) if mode == "train" else None
         caches = {}
         for i, seg in enumerate(self.plan):
             x, aux_i, c = T.run_segment(cfg, seg, params["segments"][f"seg{i}"], x, mode=mode,
+                                        enc_out=enc_out, prefix_len=prefix_len,
                                         rng=T.fold_in(rng, i))
             if aux is not None:
                 aux = aux + aux_i
             if c is not None:
                 caches[f"seg{i}"] = c
         x = T._norm(cfg, params["final_norm"], x)
+        if prefix_len:
+            x = x[:, prefix_len:, :]
         return self._head(params, x), aux, (caches if mode == "prefill" else None)
 
     def loss(self, params: Params, batch: Dict[str, torch.Tensor],
@@ -113,11 +179,16 @@ class Model:
         by ``cache_len - s``, which can leave up to a block more rows that
         no step writes or reads.  So a cache's shapes follow from its batch
         and ``cache_len``, and one captured step serves every prompt length
-        of a bucket.  The tail ring keeps its block length."""
+        of a bucket.  The tail ring keeps its block length.  A VLM's cache
+        also holds its patch prefix: ``prefix_len`` rows more.  A cross
+        block's encoder KV is never padded (zero keys would join its
+        softmax)."""
         logits, _, caches = self.forward(params, batch, mode="prefill")
         s = batch["tokens"].shape[1]
         pad = cache_len - s if cache_len and cache_len > s else 0
         if pad:
+            if self.cfg.family == "vlm":
+                cache_len += batch["patches"].shape[1]
             for seg_cache in caches.values():
                 for layer in seg_cache:
                     for entry in layer.values():
@@ -148,11 +219,14 @@ class Model:
         ``fill`` is the host's block-fill choice: for ``PackedKV`` whether
         this step completes a block (required), for ``PagedKV`` None (the
         eager engine step: the host's ``write_page``), False or True (see
-        ``PagedKV.append``).  Both forms of ``pos`` give the same logits."""
+        ``PagedKV.append``).  Both forms of ``pos`` give the same logits.  A
+        VLM's ``pos`` counts its patch prefix (the module docstring)."""
         cfg = self.cfg
         if not isinstance(pos, torch.Tensor) or pos.ndim == 0:
             pos = int(pos)
         x = self._embed_tokens(params, token)
+        x = self._at_positions(params, x, pos.reshape(-1, 1) if isinstance(pos, torch.Tensor)
+                               else pos)
         new_cache = {}
         for i, seg in enumerate(self.plan):
             x, new_cache[f"seg{i}"] = T.decode_segment(
@@ -161,8 +235,11 @@ class Model:
         x = T._norm(cfg, params["final_norm"], x)
         return self._head(params, x), new_cache
 
-    def init_cache(self, batch: int, cache_len: int, device="cuda") -> Any:
-        return T.init_plan_cache(self.cfg, self.plan, batch, cache_len, device)
+    def init_cache(self, batch: int, cache_len: int, device="cuda", enc_len: int = 0) -> Any:
+        """Zero decode cache; a cross block's encoder KV covers ``enc_len``
+        positions (default ``cache_len``)."""
+        return T.init_plan_cache(self.cfg, self.plan, batch, cache_len, device,
+                                 enc_len=enc_len or cache_len)
 
     def init_paged_cache(self, n_slots: int, n_pages: int, max_pages: int, device="cuda") -> Any:
         """Slot-pool decode cache of the continuous-batching engine: every
@@ -196,6 +273,11 @@ class Model:
         chunk: the row is clamped and gathered on the device)."""
         cfg = self.cfg
         x = self._embed_tokens(params, tokens)
+        if isinstance(start, torch.Tensor):
+            x = self._at_positions(params, x, start.reshape(1, 1).to(torch.int64)
+                                   + torch.arange(tokens.shape[1], device=x.device)[None])
+        else:
+            x = self._at_positions(params, x, start)
         new_cache = {}
         for i, seg in enumerate(self.plan):
             x, new_cache[f"seg{i}"] = T.chunk_segment(

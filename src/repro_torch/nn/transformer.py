@@ -1,10 +1,12 @@
-"""Block assembly for the dense and MoE families (port of
+"""Block assembly for the dense, MoE, VLM and enc-dec families (port of
 ``repro.nn.transformer``).
 
 A model is a list of segments ``(repeats, pattern)``:
 
-    dense          -> [(L, (attn+ffn,))]
+    dense / vlm    -> [(L, (attn+ffn,))]
     moe (DeepSeek) -> [(first_dense, (mla+dense0,)), (L-k, (mla+moe,))]
+    encdec         -> encoder [(Le, (attn_nc+ffn,))] + decoder
+                      [(Ld, (attn+cross+ffn,))]
 
 Per-segment parameters are stacked along a leading ``repeats`` axis, as in
 the reference; where the reference runs ``lax.scan`` over that axis, the
@@ -47,8 +49,10 @@ Segment = Tuple[int, Tuple[BlockSpec, ...]]
 
 
 def segment_plan(cfg: ModelConfig, role: str = "decoder") -> List[Segment]:
-    if cfg.family not in ("dense", "moe") or role != "decoder" or cfg.hybrid_period:
-        raise NotImplementedError(f"{cfg.family}/{role} stacks are not ported yet")
+    if cfg.hybrid_period or cfg.family in ("hybrid", "ssm"):
+        raise NotImplementedError(f"{cfg.name}: {cfg.family} stacks are not ported yet")
+    if role == "encoder":
+        return [(cfg.encoder_layers, (BlockSpec("attn", "dense", causal=False),))]
     mixer = "mla" if cfg.mla is not None else "attn"
     if cfg.moe is not None:
         segs: List[Segment] = []
@@ -56,17 +60,18 @@ def segment_plan(cfg: ModelConfig, role: str = "decoder") -> List[Segment]:
             segs.append((cfg.first_dense, (BlockSpec(mixer, "dense0"),)))
         segs.append((cfg.n_layers - cfg.first_dense, (BlockSpec(mixer, "moe"),)))
         return segs
-    return [(cfg.n_layers, (BlockSpec(mixer, "dense"),))]
+    cross = cfg.encoder_layers > 0
+    return [(cfg.n_layers, (BlockSpec(mixer, "dense", cross=cross),))]
 
 
 def _init_norm(cfg: ModelConfig, dtype, device) -> Params:
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm!r} is not ported yet")
+    if cfg.norm == "layernorm":
+        return L.init_layernorm(cfg.d_model, dtype, device)
     return L.init_rmsnorm(cfg.d_model, dtype, device)
 
 
 def _norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    return L.rmsnorm(p, x)
+    return L.layernorm(p, x) if cfg.norm == "layernorm" else L.rmsnorm(p, x)
 
 
 def init_block(gen, cfg: ModelConfig, spec: BlockSpec, device) -> Params:
@@ -75,15 +80,23 @@ def init_block(gen, cfg: ModelConfig, spec: BlockSpec, device) -> Params:
     p: Params = {"ln_mix": _init_norm(cfg, dtype, device)}
     if spec.mixer == "attn":
         p["mixer"] = attn_lib.init_attention(
-            gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, dtype=dtype, device=device
+            gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, bias=cfg.attn_bias,
+            dtype=dtype, device=device,
         )
     elif spec.mixer == "mla":
         p["mixer"] = mla_lib.init_mla(gen, d, cfg.n_heads, cfg.mla, dtype=dtype, device=device)
     else:
         raise ValueError(spec.mixer)
+    if spec.cross:
+        p["ln_cross"] = _init_norm(cfg, dtype, device)
+        p["cross"] = attn_lib.init_attention(
+            gen, d, cfg.n_heads, cfg.n_heads, cfg.resolved_head_dim, bias=cfg.attn_bias,
+            dtype=dtype, device=device,
+        )
     p["ln_ffn"] = _init_norm(cfg, dtype, device)
     if spec.ffn == "dense":
-        p["ffn"] = L.init_ffn(gen, d, cfg.d_ff, cfg.ffn_activation, dtype=dtype, device=device)
+        p["ffn"] = L.init_ffn(gen, d, cfg.d_ff, cfg.ffn_activation, bias=cfg.attn_bias,
+                              dtype=dtype, device=device)
     elif spec.ffn == "dense0":
         p["ffn"] = L.init_ffn(gen, d, cfg.d_ff_dense or cfg.d_ff, cfg.ffn_activation,
                               dtype=dtype, device=device)
@@ -156,17 +169,21 @@ def _ffn(cfg, spec: BlockSpec, p: Params, h: torch.Tensor, *, train: bool = Fals
 
 
 def block_forward(cfg, spec: BlockSpec, p: Params, x: torch.Tensor, *, mode: str,
+                  enc_out: Optional[torch.Tensor] = None, prefix_len: int = 0,
                   rng: Optional[torch.Generator] = None):
     """Returns ``(x, aux_loss or None, cache_entry_or_None)``; mode is
     'train' or 'prefill'.  The aux loss is the MoE FFN's (None for a dense
-    FFN).  ``rng`` (train only) feeds the MoE router jitter; None keeps
-    every layer deterministic."""
+    FFN).  ``enc_out`` is the encoder's output (a cross block attends to
+    it and, in prefill, caches its keys and values); ``prefix_len`` the
+    VLM's patch prefix (the prefix-LM mask).  ``rng`` (train only) feeds
+    the MoE router jitter; None keeps every layer deterministic."""
     cache: Dict[str, Any] = {}
     h = _norm(cfg, p["ln_mix"], x)
     if spec.mixer == "attn":
         y, k, v = attn_lib.attention_forward(
             p["mixer"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-            head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta, return_kv=True,
+            head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta, causal=spec.causal,
+            prefix_len=prefix_len, return_kv=True,
         )
         if mode == "prefill":
             cache["kv"] = attn_lib.kv_cache_from_prefill(k, v)
@@ -178,6 +195,14 @@ def block_forward(cfg, spec: BlockSpec, p: Params, x: torch.Tensor, *, mode: str
     else:
         raise ValueError(spec.mixer)
     x = x + y
+    if spec.cross:
+        h = _norm(cfg, p["ln_cross"], x)
+        enc_kv = attn_lib.cross_kv(p["cross"], enc_out, n_heads=cfg.n_heads,
+                                   head_dim=cfg.resolved_head_dim)
+        x = x + attn_lib.cross_attention_forward(p["cross"], h, enc_kv, n_heads=cfg.n_heads,
+                                                 head_dim=cfg.resolved_head_dim)
+        if mode == "prefill":
+            cache["cross"] = enc_kv
     h = _norm(cfg, p["ln_ffn"], x)
     y, aux = _ffn(cfg, spec, p["ffn"], h, train=(mode == "train"), rng=rng)
     x = x + y
@@ -202,15 +227,22 @@ def block_decode(cfg, spec: BlockSpec, p: Params, x: torch.Tensor, cache: Dict[s
     else:
         raise ValueError(spec.mixer)
     x = x + y
+    if spec.cross:
+        h = _norm(cfg, p["ln_cross"], x)
+        x = x + attn_lib.cross_attention_forward(p["cross"], h, cache["cross"],
+                                                 n_heads=cfg.n_heads,
+                                                 head_dim=cfg.resolved_head_dim)
     h = _norm(cfg, p["ln_ffn"], x)
     x = x + _ffn(cfg, spec, p["ffn"], h)[0]
     return x, new_cache
 
 
 def init_block_cache(cfg, spec: BlockSpec, batch: int, cache_len: int, device, *,
-                     paged: Optional[Tuple[int, int]] = None) -> Dict[str, Any]:
+                     enc_len: int = 0, paged: Optional[Tuple[int, int]] = None) -> Dict[str, Any]:
     """Zero decode cache of one block: the attention KV cache (dense or
-    packed, by the process ``KVQuant``) or the dense MLA latent cache.
+    packed, by the process ``KVQuant``) or the dense MLA latent cache, and
+    a cross block's encoder KV over ``enc_len`` positions (always dense:
+    written once, read in full every step, never appended).
     ``paged=(n_pages, max_pages)`` builds the engine's slot-pool cache
     instead (``batch`` is the slot count): a ``PagedKV`` page pool, which
     needs an active ``KVQuant`` (pages are PVQ blocks) and plain attention
@@ -239,14 +271,19 @@ def init_block_cache(cfg, spec: BlockSpec, batch: int, cache_len: int, device, *
             c_kv=torch.zeros((batch, cache_len, cfg.mla.kv_lora_rank), dtype=dtype, device=device),
             k_rope=torch.zeros((batch, cache_len, cfg.mla.rope_head_dim), dtype=dtype, device=device),
         )}
-    return {
+    c = {
         "kv": attn_lib.init_kv_cache(
             batch, cache_len, cfg.n_kv_heads, cfg.resolved_head_dim, dtype, device=device
         )
     }
+    if spec.cross:
+        c["cross"] = attn_lib.init_kv_cache(batch, enc_len, cfg.n_heads, cfg.resolved_head_dim,
+                                            dtype, quantized=False, device=device)
+    return c
 
 
 def run_segment(cfg, seg: Segment, seg_params: Params, x: torch.Tensor, *, mode: str,
+                enc_out: Optional[torch.Tensor] = None, prefix_len: int = 0,
                 rng: Optional[torch.Generator] = None):
     """Returns ``(x, aux, caches or None)``: in train mode ``aux`` is the
     layers' aux losses summed (an f32 scalar, 0 without MoE), in prefill
@@ -260,8 +297,8 @@ def run_segment(cfg, seg: Segment, seg_params: Params, x: torch.Tensor, *, mode:
         rng_r = fold_in(rng, r)
         layer_cache = {}
         for i, spec in enumerate(pattern):
-            x, aux_i, c = block_forward(cfg, spec, p_r[f"b{i}"], x, mode=mode,
-                                        rng=fold_in(rng_r, i))
+            x, aux_i, c = block_forward(cfg, spec, p_r[f"b{i}"], x, mode=mode, enc_out=enc_out,
+                                        prefix_len=prefix_len, rng=fold_in(rng_r, i))
             if train and aux_i is not None:
                 aux = aux + aux_i
             if c is not None:
@@ -322,10 +359,11 @@ def chunk_segment(cfg, seg: Segment, seg_params: Params, seg_cache: List[Dict[st
 
 
 def init_plan_cache(cfg, plan: List[Segment], batch: int, cache_len: int, device="cuda", *,
-                    paged: Optional[Tuple[int, int]] = None):
+                    enc_len: int = 0, paged: Optional[Tuple[int, int]] = None):
     return {
         f"seg{si}": [
-            {f"b{i}": init_block_cache(cfg, spec, batch, cache_len, device, paged=paged)
+            {f"b{i}": init_block_cache(cfg, spec, batch, cache_len, device, enc_len=enc_len,
+                                       paged=paged)
              for i, spec in enumerate(pattern)}
             for _ in range(repeats)
         ]

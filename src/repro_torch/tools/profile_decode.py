@@ -11,8 +11,12 @@
     python -m repro_torch.tools.profile_decode --engine --prefill --compare --prompt-len 256 \
         --batch 2
     python -m repro_torch.tools.profile_decode --compare --steps 4
+    python -m repro_torch.tools.profile_decode --arch gemma-2b --steps 4
+    python -m repro_torch.tools.profile_decode --arch whisper-small --prefill
 
-Packs the model (as ``serve --pvq``), prefills with ``--act-int8 --kv-pvq``
+``--arch`` takes every ported configuration (``configs.ARCHS``): an
+enc-dec model gets ``serve``'s frames, a VLM its patches; ``--engine``
+refuses both, as ``serve --engine`` does.  Packs the model (as ``serve --pvq``), prefills with ``--act-int8 --kv-pvq``
 in effect (an MLA model's latent cache stays dense), runs two warm-up
 decode steps, then traces ``--steps`` decode steps with ``torch.profiler``
 (CPU + CUDA activity).  The decode steps are the captured step that
@@ -67,6 +71,7 @@ from ..configs import get_config
 from ..core.packed import quantize_params
 from ..core.quantize import ActQuant, KVQuant, act_quant_scope, kv_quant_scope
 from ..launch import serve
+from ..launch.engine import check_engine_model
 from ..launch.serve import bucket_len, serving_policy
 from ..nn.models import build_model
 
@@ -108,10 +113,14 @@ def main(argv=None) -> int:
     params = quantize_params(model.init(args.seed, device="cuda"), serving_policy(cfg))
     gen = torch.Generator().manual_seed(args.seed + 1)
     tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len), generator=gen).cuda()
+    # an enc-dec model's frames, a VLM's patches (serve's, from the same seed)
+    extra = serve.stub_inputs(cfg, args.batch, args.prompt_len, args.seed + 1, "cuda")
+    batch = {"tokens": tokens, **extra}
     kv_block = 32
     kvq = None if args.f32 else KVQuant(block=kv_block, group=32)
     kinds = ("eager", "captured") if args.compare else ("eager" if args.eager else "captured",)
     if args.engine:
+        check_engine_model(cfg)
         with act_quant_scope(ActQuant()), kv_quant_scope(kvq):
             for kind in kinds:
                 _profile_engine(args, cfg, model, params, tokens, profile, ProfilerActivity, kind)
@@ -119,12 +128,12 @@ def main(argv=None) -> int:
     with act_quant_scope(None if args.f32 else ActQuant()), kv_quant_scope(kvq):
         cache_len = bucket_len(args.prompt_len + WARM + args.steps, kv_block)
         if args.prefill:
-            logits, cache = model.prefill(params, {"tokens": tokens}, cache_len=cache_len)
+            logits, cache = model.prefill(params, batch, cache_len=cache_len)
             del logits, cache
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
-                logits, cache = model.prefill(params, {"tokens": tokens}, cache_len=cache_len)
+                logits, cache = model.prefill(params, batch, cache_len=cache_len)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
             print(json.dumps(_report(prof, wall, 1, args, cfg, "prefill")))
@@ -132,8 +141,8 @@ def main(argv=None) -> int:
         for kind in kinds:
             eager = kind == "eager"
             if not eager:  # capture every graph the traced positions need
-                _decode_pass(model, params, tokens, cache_len, WARM + args.steps, eager)
-            step = _decode_pass(model, params, tokens, cache_len, WARM, eager)
+                _decode_pass(model, params, batch, cache_len, WARM + args.steps, eager)
+            step = _decode_pass(model, params, batch, cache_len, WARM, eager)
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
@@ -149,13 +158,16 @@ def main(argv=None) -> int:
 WARM = 2
 
 
-def _decode_pass(model, params, tokens, cache_len: int, steps: int, eager: bool):
-    """Prefill, then ``steps`` decode steps from ``serve``'s lockstep step
-    (captured, or the host-int step with ``eager``); returns a function that
-    runs the next step each call."""
-    logits, cache = model.prefill(params, {"tokens": tokens}, cache_len=cache_len)
+def _decode_pass(model, params, batch, cache_len: int, steps: int, eager: bool):
+    """Prefill ``batch``, then ``steps`` decode steps from ``serve``'s
+    lockstep step (captured, or the host-int step with ``eager``; a VLM's
+    positions after its patch prefix); returns a function that runs the
+    next step each call."""
+    tokens = batch["tokens"]
+    logits, cache = model.prefill(params, batch, cache_len=cache_len)
     step = serve._lockstep(model, params, cache, tokens, eager=eager)
-    state = {"tok": torch.argmax(logits[:, -1], -1)[:, None], "pos": tokens.shape[1]}
+    state = {"tok": torch.argmax(logits[:, -1], -1)[:, None],
+             "pos": serve._prefix_len(batch) + tokens.shape[1]}
     del logits, cache
 
     def one():

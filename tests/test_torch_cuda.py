@@ -234,6 +234,74 @@ def test_cuda_attention_matches_plain(s, m, hd, group, n_kv):
 
 
 @needs_cuda
+@pytest.mark.parametrize("s", [160, 416, 2048])
+def test_cuda_attention_at_head_dim_256_matches_plain(s):
+    """Kernel v4 at gemma-2b's and paligemma-3b's decode shape (batch 4,
+    one KV head, 8 query rows a KV head, hd 256, group 32; S 416 is
+    paligemma's 256-patch prefix, prompt 128 and 32 tokens): the rule's
+    plan is km 8, w 2, near the shared-memory limit; bit for bit."""
+    args = _attn_case(4, 1, 8, s, 256, 32, seed=s + 256)
+    km, w, _ = port_mm._v4_plan(8, s, 256, 32)
+    assert (km, w) == (8, 2)
+    assert port_mm._v4_smem_bytes(km, w, 256, 32) <= port_mm.V4_SMEM_MAX
+    got = port_mm.pvq_attn_q_cuda(*args, group=32, sm_scale=1 / 16)
+    _attn_equal(got, port_mm.pvq_attn_q_plain(*args, group=32, sm_scale=1 / 16), s)
+
+
+@needs_cuda
+@pytest.mark.parametrize("s,b", [(160, 4), (416, 4), (2048, 1)])
+def test_cuda_packed_decode_at_head_dim_256_against_the_exact_oracle(s, b):
+    """``decode_attention_packed`` on the card (kernel v4 at hd 256) against
+    ``exact=True``: relative L2 error within 0.03, the gate of the CPU
+    check (``tests/test_torch_layers_ext.py``, 0.0136-0.0147 measured)."""
+    from repro_torch.core.packed import PackedKV
+    from repro_torch.nn import attention as port_attn
+
+    gen = torch.Generator().manual_seed(s)
+    k, v = (torch.randn((b, s, 1, 256), generator=gen).cuda() for _ in range(2))
+    q = torch.randn((b, 1, 8, 256), generator=gen).cuda()
+    kv = PackedKV.from_dense(k, v, kvq=port_q.KVQuant(block=32, group=32))
+    length = torch.full((b,), s - 5, device="cuda")
+    before = LAUNCHES["pvq_attn_q"]
+    got = port_attn.decode_attention_packed(q, kv, scale=1 / 16, length=length, filled=s)
+    assert LAUNCHES["pvq_attn_q"] == before + 1
+    want = port_attn.decode_attention_packed(q, kv, scale=1 / 16, length=length, filled=s,
+                                             exact=True)
+    assert float((got - want).norm() / want.norm()) <= 0.03
+
+
+# the bias epilogue on the served paths' shapes: whisper-small's d 768
+# projections (q/k/v/o, cross, FFN) at decode and prefill, starcoder2-15b's
+# FFN down (24,576 -> 6,144) and gemma-2b's (16,384 -> 2,048) at decode,
+# each body forced
+BIAS_CASES = [(4, 768, 768, "splitk"), (4, 768, 768, "direct"), (512, 768, 3072, "mma"),
+              (512, 3072, 768, "direct"), (4, 24576, 6144, "splitk"), (4, 16384, 2048, "splitk"),
+              (512, 16384, 2048, "mma")]
+
+
+@needs_cuda
+@pytest.mark.parametrize("m,k,n,body", BIAS_CASES)
+def test_cuda_bias_epilogue_every_body_matches_plain(m, k, n, body):
+    """v3 with a bias: identical to the plain version on every body; v2
+    with a bias within ``rtol 1e-5`` (the module's tolerances)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(m + k + n)
+    pulses, scales, bias, x = _v3_cases(m, k, n, 256, gen, dev)
+    xq, a = ops._quantize_x(x, port_q.ActQuant(), 256)
+    before, before_v2 = dict(V3_BODY_LAUNCHES), dict(V2_BODY_LAUNCHES)
+    for act in ("none", "relu"):
+        got = port_mm.pvq_matmul_q_cuda(xq, pulses, scales, a, bias, group=256, activation=act,
+                                        _body=body)
+        want = port_mm.pvq_matmul_q_plain(xq, pulses, scales, a, bias, group=256, activation=act)
+        assert torch.equal(got, want), (body, act)
+        got = port_mm.pvq_matmul_cuda(x, pulses, scales, bias, group=256, activation=act,
+                                      _body=body)
+        _close(got, port_mm.pvq_matmul_plain(x, pulses, scales, bias, group=256, activation=act))
+    assert _body_launches_since(before)[body] == 2
+    assert _v2_launches_since(before_v2)[body] == 2
+
+
+@needs_cuda
 @pytest.mark.parametrize("s,kv_len", [(288, 0), (288, 128), (416, 256), (2048, 1920)])
 def test_cuda_attention_at_the_chunk_caller_matches_plain(s, kv_len):
     """Kernel v4 as ``attention_prefill_chunk`` calls it at smollm's full
