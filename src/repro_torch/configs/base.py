@@ -1,21 +1,23 @@
 """Model configuration schema (PyTorch port of ``repro.configs.base``).
 
 The reference module imports the MLA/MoE/SSM/RWKV config types from its
-JAX layer modules; the port keeps its own copies of ``MoEConfig`` and
-``MLAConfig`` (in ``repro_torch.nn.moe`` / ``repro_torch.nn.mla``).  The
-SSM and RWKV families are not ported yet: their fields exist (so
-``dataclasses.asdict`` matches the reference field for field) but only
-``None`` is accepted.  The dense, MoE, VLM (``prefix_len``) and enc-dec
-(``encoder_layers``, ``learned_positions``, ``max_position``) families are.
+JAX layer modules; the port keeps its own copies (``repro_torch.nn.mla``,
+``.moe``, ``.mamba``, ``.rwkv``), so ``dataclasses.asdict`` matches the
+reference field for field.  Every family of the reference is ported: dense,
+MoE, VLM (``prefix_len``), enc-dec (``encoder_layers``,
+``learned_positions``, ``max_position``), hybrid (``hybrid_period``,
+``ssm``) and ssm (``rwkv``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Optional
 
+from ..nn.mamba import SSMConfig
 from ..nn.mla import MLAConfig
 from ..nn.moe import MoEConfig
+from ..nn.rwkv import RWKVConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,7 +35,7 @@ class PVQConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # 'dense' | 'moe' | 'vlm' | 'encdec' are ported
+    family: str  # 'dense' | 'moe' | 'hybrid' | 'ssm' | 'encdec' | 'vlm'
     n_layers: int
     d_model: int
     n_heads: int
@@ -55,10 +57,10 @@ class ModelConfig:
     d_ff_dense: int = 0  # hidden dim of those dense FFNs (0 -> d_ff)
     # --- MLA ---
     mla: Optional[MLAConfig] = None
-    # --- hybrid / ssm (not ported: None only) ---
-    hybrid_period: int = 0
-    ssm: Optional[Any] = None
-    rwkv: Optional[Any] = None
+    # --- hybrid / ssm ---
+    hybrid_period: int = 0  # jamba: super-block length (attn at p // 2, mamba else)
+    ssm: Optional[SSMConfig] = None
+    rwkv: Optional[RWKVConfig] = None
     # --- enc-dec (whisper) ---
     encoder_layers: int = 0
     # --- vlm ---
@@ -75,13 +77,6 @@ class ModelConfig:
     # --- loss ---
     moe_aux_coef: float = 0.01
     z_loss_coef: float = 0.0
-
-    def __post_init__(self) -> None:
-        for field in ("ssm", "rwkv"):
-            if getattr(self, field) is not None:
-                raise NotImplementedError(
-                    f"{self.name}: {field} configs are not ported yet"
-                )
 
     @property
     def resolved_head_dim(self) -> int:
@@ -122,6 +117,8 @@ class ModelConfig:
             vocab_size=128,
             moe=small_moe,
             mla=small_mla,
+            ssm=SSMConfig(d_state=4, d_conv=4, expand=2) if self.ssm else None,
+            rwkv=RWKVConfig(head_size=16, decay_lora=8, mix_lora=4) if self.rwkv else None,
             encoder_layers=2 if self.encoder_layers else 0,
             prefix_len=4 if self.prefix_len else 0,
             first_dense=min(self.first_dense, 1),

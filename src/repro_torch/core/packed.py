@@ -880,7 +880,8 @@ def _pack_leaf(pstr: str, leaf: torch.Tensor, n_over_k: float, group: Optional[i
     return None
 
 
-def quantize_params(params: Any, policy: QuantPolicy, *, min_size: int = 64) -> Any:
+def quantize_params(params: Any, policy: QuantPolicy, *, min_size: int = 64,
+                    prefix: str = "") -> Any:
     """Encode a parameter tree once into ``PackedPVQ`` leaves (dense kernels,
     embeddings, expert banks) and untouched leaves (norms and anything
     without a packed consumer).
@@ -889,6 +890,8 @@ def quantize_params(params: Any, policy: QuantPolicy, *, min_size: int = 64) -> 
     as soon as it is encoded, so a dense leaf's memory is released before
     the next one is packed (a model that fills most of the card).  Returns
     ``params``; a caller that needs the dense tree afterwards packs a copy.
+    ``prefix`` is the path of ``params`` in its model's tree (a part of a
+    model packed on its own, :func:`quantize_layer`).
     """
 
     def visit(pstr, leaf):
@@ -915,7 +918,32 @@ def quantize_params(params: Any, policy: QuantPolicy, *, min_size: int = 64) -> 
                 tree[key] = visit(pstr, tree[key])
         return tree
 
-    return pack_dict(params, "")
+    return pack_dict(params, prefix)
+
+
+def _map_in_place(fn, tree: dict) -> dict:
+    for key in list(tree):
+        if isinstance(tree[key], dict):
+            _map_in_place(fn, tree[key])
+        else:
+            tree[key] = fn(tree[key])
+    return tree
+
+
+def quantize_layer(layer: dict, policy: QuantPolicy, *, prefix: str, repeats: int,
+                   min_size: int = 64) -> dict:
+    """Pack one layer of a stack of ``repeats`` layers at ``prefix`` in
+    place, leaf by leaf as :func:`quantize_params` packs the stacked tree:
+    each leaf is handed over with the stack's leading axis (of length 1)
+    and the stack's size counts against ``min_size``.  Each code is one
+    matrix's, so the layer's pulses and scales are those of its slice of
+    the packed stack, byte for byte.  Returns ``layer`` unstacked again
+    (tensors and ``PackedPVQ.stack_item(0)``)."""
+    _map_in_place(lambda t: t[None] if isinstance(t, torch.Tensor) else t, layer)
+    quantize_params(layer, policy, min_size=-(-min_size // repeats), prefix=prefix)
+    return _map_in_place(
+        lambda t: t.stack_item(0) if is_packed(t) else (t[0] if isinstance(t, torch.Tensor) else t),
+        layer)
 
 
 def _probe_weight_pack(leaf: torch.Tensor, packed: PackedPVQ) -> None:

@@ -354,10 +354,12 @@ def _argmax_last(logits: torch.Tensor) -> np.ndarray:
 def check_engine_model(cfg) -> None:
     """Raises ``NotImplementedError`` for a configuration the engine cannot
     serve: an enc-dec model (the paged slot pool holds plain attention
-    blocks only, no cross-attention cache) or a VLM (a request carries
-    tokens, no patch prefix).  The reference's engine fails on both too,
-    later: ``NotImplementedError`` from its paged cache, ``KeyError:
-    'patches'`` in its prefill."""
+    blocks only, no cross-attention cache), a VLM (a request carries
+    tokens, no patch prefix), or a model with a mixer the page pool has no
+    form for (RWKV's and Mamba's recurrent state, MLA's latent cache).  The
+    reference's engine fails on all of them too, later:
+    ``NotImplementedError`` from its paged cache (``init_block_cache``),
+    ``KeyError: 'patches'`` in its prefill."""
     if cfg.encoder_layers or cfg.family == "encdec":
         raise NotImplementedError(
             f"PVQEngine: {cfg.name} is enc-dec: the paged slot-pool cache supports plain "
@@ -366,6 +368,12 @@ def check_engine_model(cfg) -> None:
         raise NotImplementedError(
             f"PVQEngine: {cfg.name} is a VLM: the engine's requests carry tokens only, "
             "no patch prefix")
+    mixer = ("rwkv" if cfg.rwkv is not None else "mamba" if cfg.hybrid_period
+             else "mla" if cfg.mla is not None else None)
+    if mixer is not None:
+        raise NotImplementedError(
+            f"PVQEngine: {cfg.name} has {mixer} blocks: the paged slot-pool cache supports "
+            "plain attention blocks only")
 
 
 class PVQEngine:

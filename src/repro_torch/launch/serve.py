@@ -38,6 +38,10 @@ the encode: the entropy-coded file is decoded leaf by leaf on the host
 straight into ``PackedPVQ`` on the device, identical pulses and scales, no
 re-encode, and served through the same packed path, so the logits equal
 those of the in-memory ``--pvq`` parameters it was exported from.
+``--pvq`` packs each part of the model as soon as it is built
+(``Model.init(pack=...)``, the same bytes as packing the whole dense init),
+so the dense model never exists whole on the card: jamba-1.5-large-398b's
+super-block is ~88 GB in bf16 and ~46 GB packed.
 ``--pvq-sim`` encodes and expands every matching leaf back to dense
 (``quantize_tree``: the paper tables' numerics, none of the memory win).
 
@@ -77,7 +81,6 @@ from ..core.packed import (
     is_packed_kv,
     matmul_plan,
     packed_stats,
-    quantize_params,
 )
 from ..core.quantize import (
     ActQuant,
@@ -182,11 +185,23 @@ def _fill_block(cache) -> Optional[int]:
     return None
 
 
+def _write_back(static, new) -> None:
+    """Copy the tensors of a step's new cache that are not the static
+    cache's own into the static cache's (the recurrent states: Mamba's
+    ``conv`` and ``ssm``, RWKV's ``rwkv_*``, which a decode step returns as
+    new tensors where the attention caches are written in place)."""
+    for (_, dst), (_, src) in zip(_leaves(static), _leaves(new)):
+        if isinstance(dst, torch.Tensor) and src is not dst:
+            dst.copy_(src)
+
+
 class _StaticStep:
     """One shape of the lockstep decode step: static token and position
     buffers and the cache they decode over (the first prefill's of this
     key, kept; a later prefill is copied into it), and on a card up to two
-    captured graphs, without and with a KV block fill (``fill``)."""
+    captured graphs, without and with a KV block fill (``fill``).  The
+    step writes every new state into the static cache, inside the captured
+    body, so each replay reads the last one's."""
 
     def __init__(self, params, cache, batch: int, device):
         self.params, self.cache = params, cache
@@ -200,7 +215,9 @@ class _StaticStep:
                 dst.copy_(src)
 
     def _body(self, model, fill: bool):
-        logits, _ = model.decode_step(self.params, self.cache, self.tok, self.pos, fill=fill)
+        logits, new_cache = model.decode_step(self.params, self.cache, self.tok, self.pos,
+                                              fill=fill)
+        _write_back(self.cache, new_cache)
         return logits, torch.argmax(logits[:, -1, :], dim=-1)[:, None]
 
     def run(self, model, tok: torch.Tensor, pos: int, fill: bool):
@@ -659,38 +676,43 @@ def _serve(args):
     model = build_model(cfg)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    params = model.init(args.seed, device=device)
+    reset_launches()
+    # --pvq packs each block as soon as it is built (Model.init's pack): the
+    # dense model never exists whole on the card
+    pack = (serving_policy(cfg, args.n_over_k)
+            if args.pvq and not (args.pvq_sim or args.artifact) else None)
+    t_init = time.time()
+    with obs.span("serve/pack" if pack is not None else "serve/init"):
+        params = model.init(args.seed, device=device, pack=pack)
+        _sync(device)
+    init_s = time.time() - t_init
     report = {"device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"}
     if args.metrics_out:
         report["metrics_out"] = args.metrics_out
-    reset_launches()
     if args.tune:
         report.update(tune_config(cfg, args, device))
 
     if args.artifact:
         params = _load_artifact(args.artifact, params, device, report)
-    elif args.pvq or args.pvq_sim:
+    elif args.pvq_sim:
         t0 = time.time()
-        if args.pvq_sim:
-            params, codes, _ = quantize_tree(params, serving_policy(cfg, args.n_over_k))
-            _sync(device)
-            report["pvq_mode"] = "dequant-sim"
-            report["pvq_tensors"] = len(codes)
-            report.update({k: round(v, 3) for k, v in total_bits(codes).items()
-                           if "ratio" in k or "bits_per" in k})
-        else:
-            with obs.span("serve/pack"):
-                # each dense leaf is released as soon as it is packed
-                params = quantize_params(params, serving_policy(cfg, args.n_over_k))
-                _sync(device)
-            # entropy=False: pricing every pulse stream is the export's work
-            st = packed_stats(params, entropy=False)
-            report["pvq_mode"] = "packed"
-            report["pvq_tensors"] = st["packed_tensors"]
-            report["packed_bytes"] = st["packed_bytes"]
-            report["weight_compression_ratio"] = round(st["weight_compression_ratio"], 3)
-            report.update(_expert_report(params))
+        params, codes, _ = quantize_tree(params, serving_policy(cfg, args.n_over_k))
+        _sync(device)
+        report["pvq_mode"] = "dequant-sim"
+        report["pvq_tensors"] = len(codes)
+        report.update({k: round(v, 3) for k, v in total_bits(codes).items()
+                       if "ratio" in k or "bits_per" in k})
         report["pvq_encode_s"] = round(time.time() - t0, 2)
+    elif args.pvq:
+        # entropy=False: pricing every pulse stream is the export's work
+        st = packed_stats(params, entropy=False)
+        report["pvq_mode"] = "packed"
+        report["pvq_tensors"] = st["packed_tensors"]
+        report["packed_bytes"] = st["packed_bytes"]
+        report["weight_compression_ratio"] = round(st["weight_compression_ratio"], 3)
+        report.update(_expert_report(params))
+        # the init's wall: its random draws and the packing interleave
+        report["pvq_encode_s"] = round(init_s, 2)
 
     if args.act_int8:
         set_default_act_quant(ActQuant(mode="per_row"))

@@ -1,8 +1,9 @@
-"""Model API for the ported families: dense, MoE, VLM and enc-dec (port of
-``repro.nn.models``).
+"""Model API for every family of the reference: dense, MoE, VLM, enc-dec,
+the Mamba/attention hybrid and RWKV (port of ``repro.nn.models``).
 
     model = Model(cfg)
     params = model.init(seed, device=...)
+    params = model.init(seed, device=..., pack=policy)  # packed as it is built
     loss, metrics = model.loss(params, {"tokens": ..., "targets": ...}, rng)  # train
     logits, cache = model.prefill(params, {"tokens": tokens}, cache_len)
     logits, cache = model.decode_step(params, cache, token, pos)
@@ -29,7 +30,8 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..configs.base import ModelConfig
-from ..core.packed import is_packed_kv
+from ..core.packed import is_packed_kv, quantize_layer, quantize_params
+from ..core.quantize import QuantPolicy
 from . import layers as L
 from . import transformer as T
 from .layers import Params
@@ -41,32 +43,52 @@ class Model:
         self.plan = T.segment_plan(cfg, "decoder")
         self.enc_plan = T.segment_plan(cfg, "encoder") if cfg.encoder_layers else None
 
-    def init(self, seed: int = 0, device="cuda", max_seq: int = 0) -> Params:
+    def init(self, seed: int = 0, device="cuda", max_seq: int = 0,
+             pack: Optional[QuantPolicy] = None) -> Params:
         """Random init from ``seed`` (a ``torch.Generator`` on ``device``);
         same shapes, names and distributions as the reference, other numbers.
         Learned positions get ``max_position`` rows (else ``max_seq``, else
-        4096), as the reference's."""
+        4096), as the reference's.
+
+        ``pack`` (``serve --pvq``'s policy) packs each part as soon as it
+        is built: the embedding, each block of each layer, the head; the
+        dense model never exists whole.  The result is
+        ``quantize_params(init(...), pack)`` byte for byte: the generator
+        draws the same numbers in the same order (packing draws none), and
+        a layer's codes are its slice of the packed stack's."""
         cfg = self.cfg
         dtype = getattr(torch, cfg.param_dtype)
         gen = torch.Generator(device=device)
         gen.manual_seed(int(seed))
-        params: Params = {
+
+        def packed(tree: Params) -> Params:
+            return tree if pack is None else quantize_params(tree, pack)
+
+        def layer_packer(at: str, repeats: int):
+            if pack is None:
+                return None
+            return lambda name, block: quantize_layer(block, pack, prefix=f"{at}/{name}",
+                                                      repeats=repeats)
+
+        def segments(plan, prefix: str) -> Params:
+            return {f"seg{i}": T.init_segment(gen, cfg, seg, device,
+                                              pack=layer_packer(f"{prefix}segments/seg{i}", seg[0]))
+                    for i, seg in enumerate(plan)}
+
+        params: Params = packed({
             "embed": L.init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype=dtype, device=device)
-        }
+        })
         if cfg.learned_positions:
             params["pos"] = L.init_positional(gen, cfg.max_position or max_seq or 4096,
                                               cfg.d_model, dtype=dtype, device=device)
-        params["segments"] = {
-            f"seg{i}": T.init_segment(gen, cfg, seg, device) for i, seg in enumerate(self.plan)
-        }
+        params["segments"] = segments(self.plan, "")
         params["final_norm"] = T._init_norm(cfg, dtype, device)
         if not cfg.tie_embeddings:
-            params["lm_head"] = L.init_dense(gen, cfg.d_model, cfg.vocab_size, dtype=dtype,
-                                             device=device)
+            params["lm_head"] = packed({"lm_head": L.init_dense(
+                gen, cfg.d_model, cfg.vocab_size, dtype=dtype, device=device)})["lm_head"]
         if self.enc_plan:
             params["encoder"] = {
-                "segments": {f"seg{i}": T.init_segment(gen, cfg, seg, device)
-                             for i, seg in enumerate(self.enc_plan)},
+                "segments": segments(self.enc_plan, "encoder/"),
                 "final_norm": T._init_norm(cfg, dtype, device),
             }
         return params
@@ -182,7 +204,8 @@ class Model:
         of a bucket.  The tail ring keeps its block length.  A VLM's cache
         also holds its patch prefix: ``prefix_len`` rows more.  A cross
         block's encoder KV is never padded (zero keys would join its
-        softmax)."""
+        softmax), nor is a recurrent mixer's state (``mamba``, ``rwkv_*``:
+        not sequence-indexed; Mamba's 3-D ``conv`` window is a state too)."""
         logits, _, caches = self.forward(params, batch, mode="prefill")
         s = batch["tokens"].shape[1]
         pad = cache_len - s if cache_len and cache_len > s else 0
@@ -197,6 +220,7 @@ class Model:
                                 n: torch.nn.functional.pad(t, (0, 0, 0, pad))
                                 for n, t in entry["mla"].items()
                             }
+                        if "kv" not in entry:
                             continue
                         kv = entry["kv"]
                         if is_packed_kv(kv):

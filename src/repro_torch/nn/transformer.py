@@ -1,17 +1,24 @@
-"""Block assembly for the dense, MoE, VLM and enc-dec families (port of
+"""Block assembly for every family of the reference (port of
 ``repro.nn.transformer``).
 
 A model is a list of segments ``(repeats, pattern)``:
 
     dense / vlm    -> [(L, (attn+ffn,))]
     moe (DeepSeek) -> [(first_dense, (mla+dense0,)), (L-k, (mla+moe,))]
+    hybrid (Jamba) -> [(L/p, (p-long super-block: attn at p/2, mamba else,
+                       MoE on odd slots))]
+    ssm (RWKV6)    -> [(L, (rwkv+cmix,))]
     encdec         -> encoder [(Le, (attn_nc+ffn,))] + decoder
                       [(Ld, (attn+cross+ffn,))]
 
 Per-segment parameters are stacked along a leading ``repeats`` axis, as in
 the reference; where the reference runs ``lax.scan`` over that axis, the
 port runs a Python loop over the stacked layer params.  Decode caches are a
-list with one entry per layer.
+list with one entry per layer.  The recurrent mixers' decode entries
+(``mamba``: ``conv`` and ``ssm``; ``rwkv_state``, ``rwkv_shift_att`` and
+``rwkv_shift_ffn``) come back from a step as new tensors, where the
+attention caches are written in place; the captured step copies them into
+its static cache (``launch.serve``).
 
 Train mode carries the MoE aux loss up the stack and a generator per layer
 (:func:`fold_in`, the counterpart of ``jax.random.fold_in``): segment ``i``
@@ -32,15 +39,17 @@ from ..configs.base import ModelConfig
 from ..core.packed import is_packed
 from . import attention as attn_lib
 from . import layers as L
+from . import mamba as mamba_lib
 from . import mla as mla_lib
 from . import moe as moe_lib
+from . import rwkv as rwkv_lib
 from .layers import Params
 
 
 @dataclasses.dataclass(frozen=True)
 class BlockSpec:
-    mixer: str  # 'attn' | 'mla'
-    ffn: str  # 'dense' | 'dense0' | 'moe'
+    mixer: str  # 'attn' | 'mla' | 'mamba' | 'rwkv'
+    ffn: str  # 'dense' | 'dense0' | 'moe' | 'cmix'
     causal: bool = True
     cross: bool = False
 
@@ -49,10 +58,24 @@ Segment = Tuple[int, Tuple[BlockSpec, ...]]
 
 
 def segment_plan(cfg: ModelConfig, role: str = "decoder") -> List[Segment]:
-    if cfg.hybrid_period or cfg.family in ("hybrid", "ssm"):
-        raise NotImplementedError(f"{cfg.name}: {cfg.family} stacks are not ported yet")
     if role == "encoder":
         return [(cfg.encoder_layers, (BlockSpec("attn", "dense", causal=False),))]
+    if cfg.rwkv is not None:
+        return [(cfg.n_layers, (BlockSpec("rwkv", "cmix"),))]
+    if cfg.hybrid_period:
+        p = cfg.hybrid_period
+        pat = tuple(
+            BlockSpec(
+                "attn" if i == p // 2 else "mamba",
+                "moe" if (cfg.moe is not None and i % cfg.moe_period == cfg.moe_period - 1)
+                else "dense",
+            )
+            for i in range(p)
+        )
+        if cfg.n_layers % p:
+            raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not divide into "
+                             f"super-blocks of {p}")
+        return [(cfg.n_layers // p, pat)]
     mixer = "mla" if cfg.mla is not None else "attn"
     if cfg.moe is not None:
         segs: List[Segment] = []
@@ -85,6 +108,10 @@ def init_block(gen, cfg: ModelConfig, spec: BlockSpec, device) -> Params:
         )
     elif spec.mixer == "mla":
         p["mixer"] = mla_lib.init_mla(gen, d, cfg.n_heads, cfg.mla, dtype=dtype, device=device)
+    elif spec.mixer == "mamba":
+        p["mixer"] = mamba_lib.init_mamba(gen, d, cfg.ssm, dtype=dtype, device=device)
+    elif spec.mixer == "rwkv":
+        p["mixer"] = rwkv_lib.init_rwkv_time_mix(gen, d, cfg.rwkv, dtype=dtype, device=device)
     else:
         raise ValueError(spec.mixer)
     if spec.cross:
@@ -102,33 +129,54 @@ def init_block(gen, cfg: ModelConfig, spec: BlockSpec, device) -> Params:
                               dtype=dtype, device=device)
     elif spec.ffn == "moe":
         p["ffn"] = moe_lib.init_moe(gen, d, cfg.moe, dtype=dtype, device=device)
+    elif spec.ffn == "cmix":
+        p["ffn"] = rwkv_lib.init_rwkv_channel_mix(gen, d, cfg.d_ff, dtype=dtype, device=device)
     else:
         raise ValueError(spec.ffn)
     return p
 
 
 def _stack_into(stacked: Any, r: int, tree: Any, repeats: int) -> Any:
-    """Write layer ``r``'s params into the stacked tree (allocated on the
-    first layer), so a stack never needs a second copy of itself."""
+    """Write layer ``r``'s params (tensors or ``PackedPVQ``) into the
+    stacked tree (allocated on the first layer), so a stack never needs a
+    second copy of itself; a stack of one is a view of its layer."""
     if isinstance(tree, dict):
         if stacked is None:
             stacked = {}
         for k, v in tree.items():
             stacked[k] = _stack_into(stacked.get(k), r, v, repeats)
         return stacked
+    if is_packed(tree):
+        if repeats == 1:
+            return dataclasses.replace(tree, pulses=tree.pulses[None], scales=tree.scales[None])
+        if stacked is None:
+            stacked = dataclasses.replace(
+                tree, pulses=tree.pulses.new_empty((repeats,) + tuple(tree.pulses.shape)),
+                scales=tree.scales.new_empty((repeats,) + tuple(tree.scales.shape)))
+        stacked.pulses[r] = tree.pulses
+        stacked.scales[r] = tree.scales
+        return stacked
+    if repeats == 1:
+        return tree[None]
     if stacked is None:
         stacked = torch.empty((repeats,) + tuple(tree.shape), dtype=tree.dtype, device=tree.device)
     stacked[r] = tree
     return stacked
 
 
-def init_segment(gen, cfg: ModelConfig, seg: Segment, device) -> Params:
+def init_segment(gen, cfg: ModelConfig, seg: Segment, device, pack=None) -> Params:
     """Layer params stacked along a leading ``repeats`` axis, initialized one
-    layer at a time in order."""
+    layer at a time in order.  ``pack(name, block)`` (``Model.init``'s
+    packing at init) turns each block's leaves into what they are packed to
+    in the stack, as soon as the block is built, so that no more than one
+    block is ever dense."""
     repeats, pattern = seg
     stacked = None
     for r in range(repeats):
-        layer = {f"b{i}": init_block(gen, cfg, spec, device) for i, spec in enumerate(pattern)}
+        layer = {}
+        for i, spec in enumerate(pattern):
+            block = init_block(gen, cfg, spec, device)
+            layer[f"b{i}"] = block if pack is None else pack(f"b{i}", block)
         stacked = _stack_into(stacked, r, layer, repeats)
     return stacked
 
@@ -159,13 +207,22 @@ def fold_in(gen: Optional[torch.Generator], *data: int) -> Optional[torch.Genera
 
 
 def _ffn(cfg, spec: BlockSpec, p: Params, h: torch.Tensor, *, train: bool = False,
-         rng: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """``(y, aux_loss or None)``: the MoE FFN returns its Switch aux loss."""
+         rng: Optional[torch.Generator] = None,
+         x_prev: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``(y, aux_loss or None)``: the MoE FFN returns its Switch aux loss;
+    ``x_prev`` is the channel mix's last token before ``h`` (decode)."""
     if spec.ffn in ("dense", "dense0"):
         return L.ffn(p, h, cfg.ffn_activation), None
     if spec.ffn == "moe":
         return moe_lib.moe_forward(p, h, cfg.moe, train=train, rng=rng)
+    if spec.ffn == "cmix":
+        return rwkv_lib.rwkv_channel_mix(p, h, x_prev=x_prev), None
     raise ValueError(spec.ffn)
+
+
+def _last_token(h: torch.Tensor) -> torch.Tensor:
+    """The token shift's carry: the last row of ``h``, a tensor of its own."""
+    return h[:, -1, :].clone()
 
 
 def block_forward(cfg, spec: BlockSpec, p: Params, x: torch.Tensor, *, mode: str,
@@ -192,6 +249,18 @@ def block_forward(cfg, spec: BlockSpec, p: Params, x: torch.Tensor, *, mode: str
                                     return_cache=True)
         if mode == "prefill":
             cache["mla"] = mc
+    elif spec.mixer == "mamba":
+        if mode == "prefill":
+            y, cache["mamba"] = mamba_lib.mamba_forward(p["mixer"], h, cfg.ssm, return_state=True)
+        else:
+            y = mamba_lib.mamba_forward(p["mixer"], h, cfg.ssm)
+    elif spec.mixer == "rwkv":
+        if mode == "prefill":
+            y, cache["rwkv_state"] = rwkv_lib.rwkv_time_mix(p["mixer"], h, cfg.rwkv,
+                                                            return_state=True)
+            cache["rwkv_shift_att"] = _last_token(h)
+        else:
+            y = rwkv_lib.rwkv_time_mix(p["mixer"], h, cfg.rwkv)
     else:
         raise ValueError(spec.mixer)
     x = x + y
@@ -205,6 +274,8 @@ def block_forward(cfg, spec: BlockSpec, p: Params, x: torch.Tensor, *, mode: str
             cache["cross"] = enc_kv
     h = _norm(cfg, p["ln_ffn"], x)
     y, aux = _ffn(cfg, spec, p["ffn"], h, train=(mode == "train"), rng=rng)
+    if spec.ffn == "cmix" and mode == "prefill":
+        cache["rwkv_shift_ffn"] = _last_token(h)
     x = x + y
     return x, aux, (cache if mode == "prefill" else None)
 
@@ -224,6 +295,13 @@ def block_decode(cfg, spec: BlockSpec, p: Params, x: torch.Tensor, cache: Dict[s
     elif spec.mixer == "mla":
         y, new_cache["mla"] = mla_lib.mla_decode(p["mixer"], h, cache["mla"], pos,
                                                  n_heads=cfg.n_heads, cfg=cfg.mla)
+    elif spec.mixer == "mamba":
+        y, new_cache["mamba"] = mamba_lib.mamba_decode(p["mixer"], h, cache["mamba"], cfg.ssm)
+    elif spec.mixer == "rwkv":
+        y, new_cache["rwkv_state"] = rwkv_lib.rwkv_time_mix(
+            p["mixer"], h, cfg.rwkv, x_prev=cache["rwkv_shift_att"], state=cache["rwkv_state"],
+            return_state=True)
+        new_cache["rwkv_shift_att"] = _last_token(h)
     else:
         raise ValueError(spec.mixer)
     x = x + y
@@ -233,16 +311,20 @@ def block_decode(cfg, spec: BlockSpec, p: Params, x: torch.Tensor, cache: Dict[s
                                                  n_heads=cfg.n_heads,
                                                  head_dim=cfg.resolved_head_dim)
     h = _norm(cfg, p["ln_ffn"], x)
-    x = x + _ffn(cfg, spec, p["ffn"], h)[0]
+    x = x + _ffn(cfg, spec, p["ffn"], h, x_prev=cache.get("rwkv_shift_ffn"))[0]
+    if spec.ffn == "cmix":
+        new_cache["rwkv_shift_ffn"] = _last_token(h)
     return x, new_cache
 
 
 def init_block_cache(cfg, spec: BlockSpec, batch: int, cache_len: int, device, *,
                      enc_len: int = 0, paged: Optional[Tuple[int, int]] = None) -> Dict[str, Any]:
     """Zero decode cache of one block: the attention KV cache (dense or
-    packed, by the process ``KVQuant``) or the dense MLA latent cache, and
-    a cross block's encoder KV over ``enc_len`` positions (always dense:
-    written once, read in full every step, never appended).
+    packed, by the process ``KVQuant``), the dense MLA latent cache or a
+    recurrent mixer's state (Mamba's ``conv`` window and f32 ``ssm`` state;
+    RWKV's f32 ``rwkv_state`` and its token shifts), and a cross block's
+    encoder KV over ``enc_len`` positions (always dense: written once, read
+    in full every step, never appended).
     ``paged=(n_pages, max_pages)`` builds the engine's slot-pool cache
     instead (``batch`` is the slot count): a ``PagedKV`` page pool, which
     needs an active ``KVQuant`` (pages are PVQ blocks) and plain attention
@@ -266,19 +348,27 @@ def init_block_cache(cfg, spec: BlockSpec, batch: int, cache_len: int, device, *
         n_pages, max_pages = paged
         return {"kv": PagedKV.init(batch, n_pages, max_pages, cfg.n_kv_heads,
                                    cfg.resolved_head_dim, kvq=kvq, dtype=dtype, device=device)}
+    c: Dict[str, Any] = {}
     if spec.mixer == "mla":
-        return {"mla": mla_lib.MLACache(
+        c["mla"] = mla_lib.MLACache(
             c_kv=torch.zeros((batch, cache_len, cfg.mla.kv_lora_rank), dtype=dtype, device=device),
             k_rope=torch.zeros((batch, cache_len, cfg.mla.rope_head_dim), dtype=dtype, device=device),
-        )}
-    c = {
-        "kv": attn_lib.init_kv_cache(
-            batch, cache_len, cfg.n_kv_heads, cfg.resolved_head_dim, dtype, device=device
         )
-    }
+    elif spec.mixer == "mamba":
+        c["mamba"] = mamba_lib.init_mamba_cache(batch, cfg.d_model, cfg.ssm, dtype, device)
+    elif spec.mixer == "rwkv":
+        m = cfg.rwkv.head_size
+        c["rwkv_state"] = torch.zeros((batch, cfg.d_model // m, m, m), dtype=torch.float32,
+                                      device=device)
+        c["rwkv_shift_att"] = torch.zeros((batch, cfg.d_model), dtype=dtype, device=device)
+    else:
+        c["kv"] = attn_lib.init_kv_cache(batch, cache_len, cfg.n_kv_heads,
+                                         cfg.resolved_head_dim, dtype, device=device)
     if spec.cross:
         c["cross"] = attn_lib.init_kv_cache(batch, enc_len, cfg.n_heads, cfg.resolved_head_dim,
                                             dtype, quantized=False, device=device)
+    if spec.ffn == "cmix":
+        c["rwkv_shift_ffn"] = torch.zeros((batch, cfg.d_model), dtype=dtype, device=device)
     return c
 
 

@@ -68,7 +68,6 @@ from typing import Optional
 import torch
 
 from ..configs import get_config
-from ..core.packed import quantize_params
 from ..core.quantize import ActQuant, KVQuant, act_quant_scope, kv_quant_scope
 from ..launch import serve
 from ..launch.engine import check_engine_model
@@ -110,7 +109,8 @@ def main(argv=None) -> int:
     if args.reduced:
         cfg = cfg.reduced()
     model = build_model(cfg)
-    params = quantize_params(model.init(args.seed, device="cuda"), serving_policy(cfg))
+    # serve --pvq's packing at init: no dense copy of the model on the card
+    params = model.init(args.seed, device="cuda", pack=serving_policy(cfg))
     gen = torch.Generator().manual_seed(args.seed + 1)
     tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len), generator=gen).cuda()
     # an enc-dec model's frames, a VLM's patches (serve's, from the same seed)

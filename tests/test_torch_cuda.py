@@ -301,6 +301,77 @@ def test_cuda_bias_epilogue_every_body_matches_plain(m, k, n, body):
     assert _v2_launches_since(before_v2)[body] == 2
 
 
+# the recurrent slice's new 2-D shapes at decode and prefill (512 rows:
+# batch 4 x prompt 128): jamba's x_proj (n 544, so the splitk body's last
+# 64-column block is half full), its dt_proj (k 512) with its bias, and
+# rwkv6-1.6b's channel mix (2048 -> 7168 -> 2048)
+RECURRENT_CASES = [(4, 16384, 544, False), (512, 16384, 544, False), (4, 512, 16384, True),
+                   (512, 512, 16384, True), (4, 2048, 7168, False), (4, 7168, 2048, False)]
+
+
+@needs_cuda
+@pytest.mark.parametrize("m,k,n,with_bias", RECURRENT_CASES)
+def test_cuda_recurrent_shapes_match_plain_on_the_rules_body_and_direct(m, k, n, with_bias):
+    """v3 identical and v2 within ``rtol 1e-5`` of the plain versions on
+    the rule's body (splitk at m 4, mma at m 512) and on the direct body."""
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(m + k + n)
+    pulses, scales, bias, x = _v3_cases(m, k, n, 256, gen, dev)
+    bias = bias if with_bias else None
+    xq, a = ops._quantize_x(x, port_q.ActQuant(), 256)
+    rule = "splitk" if m <= 8 else "mma"
+    want_q = port_mm.pvq_matmul_q_plain(xq, pulses, scales, a, bias, group=256)
+    want_f = port_mm.pvq_matmul_plain(x, pulses, scales, bias, group=256)
+    before, before_v2 = dict(V3_BODY_LAUNCHES), dict(V2_BODY_LAUNCHES)
+    for body in (None, "direct"):
+        got = port_mm.pvq_matmul_q_cuda(xq, pulses, scales, a, bias, group=256, _body=body)
+        assert torch.equal(got, want_q), body
+        _close(port_mm.pvq_matmul_cuda(x, pulses, scales, bias, group=256, _body=body), want_f)
+    assert _body_launches_since(before) == {b: int(b in (rule, "direct")) for b in V3_BODY_LAUNCHES}
+    assert _v2_launches_since(before_v2) == {b: int(b in (rule, "direct"))
+                                             for b in V2_BODY_LAUNCHES}
+
+
+@needs_cuda
+@pytest.mark.parametrize("s", [160, 2048])
+def test_cuda_attention_at_head_dim_128_with_eight_kv_heads_matches_plain(s):
+    """Kernel v4 at jamba-1.5-large-398b's attention layer (batch 4 x 8 KV
+    heads, 8 query rows a KV head, hd 128, group 32): bit for bit on the
+    rule's plan."""
+    args = _attn_case(4, 8, 8, s, 128, 32, seed=s + 128)
+    km, w, _ = port_mm._v4_plan(8, s, 128, 32)
+    assert km == 8 and port_mm._v4_smem_bytes(km, w, 128, 32) <= port_mm.V4_SMEM_MAX
+    got = port_mm.pvq_attn_q_cuda(*args, group=32, sm_scale=128 ** -0.5)
+    _attn_equal(got, port_mm.pvq_attn_q_plain(*args, group=32, sm_scale=128 ** -0.5), s)
+
+
+@needs_cuda
+@pytest.mark.parametrize("e,m,k,n", [
+    (16, 1, 8192, 24576),   # jamba's up/gate bank at decode (batch 4, top-2: capacity 1)
+    (16, 80, 8192, 24576),  # at prefill (512 tokens: capacity 80)
+    (16, 1, 24576, 8192),   # its wo bank at decode
+    (160, 1, 5120, 1536),   # deepseek-v2-236b's up/gate bank at decode
+    (160, 24, 1536, 5120),  # its wo bank at prefill (512 tokens, top-6: capacity 24)
+])
+def test_cuda_batched_kernels_at_the_recurrent_banks_match_plain(e, m, k, n):
+    """The batched kernels over the new expert banks (16 experts of 8192 x
+    24576, 160 of 5120 x 1536): v3 identical, v2 within ``rtol 1e-5``, on
+    the rule's body (splitk at m 1, mma above 8 rows)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(e + m + k)
+    pulses, scales = _bank(gen, e, k, n, 256, dev)
+    x = torch.randn(e, m, k, generator=gen, device=dev)
+    x_q, a = port_q.quantize_activations(x)
+    body = "splitk" if m <= 8 else "mma"
+    before, before_v2 = dict(V3_BODY_LAUNCHES), dict(V2_BODY_LAUNCHES)
+    got = port_mm.pvq_matmul_q_batched_cuda(x_q, pulses, scales, a, group=256)
+    assert torch.equal(got, port_mm.pvq_matmul_q_batched_plain(x_q, pulses, scales, a, group=256))
+    _close(port_mm.pvq_matmul_batched_cuda(x, pulses, scales, group=256),
+           port_mm.pvq_matmul_batched_plain(x, pulses, scales, group=256))
+    assert _body_launches_since(before) == {b: int(b == body) for b in V3_BODY_LAUNCHES}
+    assert _v2_launches_since(before_v2) == {b: int(b == body) for b in V2_BODY_LAUNCHES}
+
+
 @needs_cuda
 @pytest.mark.parametrize("s,kv_len", [(288, 0), (288, 128), (416, 256), (2048, 1920)])
 def test_cuda_attention_at_the_chunk_caller_matches_plain(s, kv_len):
@@ -1007,10 +1078,14 @@ def test_cuda_captured_decode_matches_eager_across_block_fills():
 
 
 @needs_cuda
-@pytest.mark.parametrize("arch,kv", [("smollm-360m", True), ("deepseek-v2-lite-16b", False)])
+@pytest.mark.parametrize("arch,kv", [("smollm-360m", True), ("deepseek-v2-lite-16b", False),
+                                     ("rwkv6-1.6b", True), ("jamba-1.5-large-398b", True),
+                                     ("deepseek-v2-236b", False)])
 def test_cuda_captured_serve_legs_match_eager_and_a_second_generate_captures_nothing(arch, kv):
     """``generate`` and both legs' ``teacher_forced_logits`` captured against
-    eager on the same parameters and prompts: identical tokens and logits;
+    eager on the same parameters and prompts: identical tokens and logits
+    (the recurrent models' graphs write each new state into the static
+    cache, so every replay reads the last one's);
     a second ``generate`` of the same shape (another prompt, another prompt
     length in the bucket) adds no capture; the kernel launch counts of the
     captured calls (replays accounted) equal the eager calls'."""
