@@ -8,6 +8,7 @@
     python3 chip_smoke.py --train          # the build and phase 11 only (no result line)
     python3 chip_smoke.py --families       # the build and phase 12 only (no result line)
     python3 chip_smoke.py --recurrent      # the build and phase 13 only (no result line)
+    python3 chip_smoke.py --parallel       # the build and phase 14 only (no result line)
 
 Needs one CUDA card and the repository checkout around this file; exits
 non-zero (printing no result) without either.  ``--tree DIR`` (with
@@ -118,7 +119,7 @@ order, it:
    first made lookups); prints, for every key, the rule's choice and its
    median time beside the tuned choice and its time;
 9. the artifact phase (``.pvqz``): exports smollm-360m at published
-   widths with its whole embedding and 4 of its 32 layers (the cut is
+   widths with its whole embedding and 2 of its 32 layers (the cut is
    printed; the harness's ``depth_cut``, not a flag of the package) at N/K
    2.0 from seed 0 (``launch.export``'s ``run`` in-process, which calls
    ``write_pvqz``; the encoder kernel packs every leaf, the host
@@ -177,11 +178,12 @@ order, it:
    (one restore, step 15 run twice, the loss falling); prints host wall
    ms a step, ``save_s``, ``restore_s``, the checkpoint's bytes and the
    peak device memory beside the card's name and power limit;
-12. the families phase: serves gemma-2b (18 layers), paligemma-3b (18
-   layers, a 256-patch prefix) and whisper-small (12 encoder and 12
-   decoder layers, frames as long as the prompt) at published width and
-   depth, and starcoder2-15b and granite-8b at published width with 4
-   decoder layers (the cut printed), each with the first phase's flags
+12. the families phase: serves whisper-small (12 encoder and 12 decoder
+   layers, frames as long as the prompt) at published width and depth,
+   gemma-2b and paligemma-3b (a 256-patch prefix) at published width with
+   6 of their 18 layers, and starcoder2-15b and granite-8b at published
+   width with 4 decoder layers (the cuts printed), each with the first
+   phase's flags
    (batch 4, prompt 128, 32 tokens), the launch counts set to 0 just
    before and read just after: finite logits of the expected shape, the
    encoder, v3, v4 and v2 launched, the step captured; a second
@@ -219,7 +221,20 @@ order, it:
    the batched v3 and v2 over jamba's 16-expert 8192 x 24576 bank and
    deepseek-v2-236b's 160-expert 5120 x 1536 bank at m 1, each identical
    (v2 within rtol 1e-5) to its plain version;
-14. prints the ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
+14. the parallel phase (``parallel_phase``): the multi-device slice on a
+   world-size-1 NCCL group and ``make_debug_mesh(1, 1)`` (NCCL refuses two
+   ranks on one GPU; the tests run several ranks over gloo on the CPU):
+   full-width smollm-360m through ``steps.make_train_step`` at batch 2 x
+   512 identical to ``launch.train``'s step over 2 steps, one step under
+   each remat policy with its peak memory, batch 4 x 2048 under ``full``
+   remat (2 steps, peak under 80 GB, host wall, device ms and idle share
+   a step), the mesh's prefill and serve steps identical to the unmeshed
+   model (batch 4, prompt 128, 32 greedy tokens, dense bf16), and the
+   reference's two dry-run cells (``smollm-360m train_4k`` on 256 GPUs,
+   ``gemma-2b decode_32k --opt-level 1`` on 512) run on the host's CPU
+   meanwhile, their roofline terms printed as datasheet estimates; it
+   launches no kernel (the launch counts are read to show it);
+15. prints the ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
 
 Except in the tune phase the autotuner's cache is a path that does not
 exist, so every other phase runs the rules' choices, as without the tuner.
@@ -234,6 +249,7 @@ int8 activations and the packed KV cache flip.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -1742,8 +1758,9 @@ def tune_phase(torch, serve, kernels_mod, untuned, untuned_engine, smi, cache):
 # artifact smoke (ci.yml:34-77) and its deepseek expert gate (ci.yml:155-164)
 ARTIFACT_N_OVER_K = "2.0"
 # the artifact phase's smollm-360m: published widths, the whole embedding,
-# 4 of its 32 layers (the host's entropy coding of all 32 took 250-350 s)
-ARTIFACT_LAYERS = 4
+# 2 of its 32 layers (the host's entropy coding of all 32 took 250-350 s;
+# 4 layers until the parallel phase came)
+ARTIFACT_LAYERS = 2
 ARTIFACT_EXPORT = ["--arch", "smollm-360m", "--n-over-k", ARTIFACT_N_OVER_K, "--seed", "0"]
 ARTIFACT_FLAGS = [f for f in FULL_SERVE if f != "--pvq"]
 IN_MEMORY_SERVE = FULL_SERVE + ["--n-over-k", ARTIFACT_N_OVER_K]
@@ -2486,7 +2503,9 @@ def train_phase(torch, kernels_mod, mm, enc, smi, scratch):
 # width and depth; starcoder2-15b and granite-8b at published width, depth
 # cut to FAMILY_CUT_LAYERS): served with the first phase's flags; (arch,
 # layers or None for all)
-FAMILY_FULL = [("gemma-2b", None), ("paligemma-3b", None), ("whisper-small", None),
+# gemma-2b and paligemma-3b at 6 of their 18 layers since the parallel
+# phase came (the whole script's time)
+FAMILY_FULL = [("gemma-2b", 6), ("paligemma-3b", 6), ("whisper-small", None),
                ("starcoder2-15b", 4), ("granite-8b", 4)]
 FAMILY_SERVE = ["--batch", str(BATCH), "--prompt-len", str(PROMPT), "--gen", str(GEN), "--pvq",
                 "--act-int8", "--kv-pvq", "--kv-block", str(KV_BLOCK), "--kv-group",
@@ -2950,6 +2969,353 @@ def recurrent_phase(torch, serve, kernels_mod, mm, enc, quant, smi, kernel_rows=
     return counts, bodies, v2_bodies, entries
 
 
+PARALLEL_ARCH = "smollm-360m"
+#: (a) the identity runs, (b) the batch that ran out of memory without remat
+PARALLEL_TRAIN, PARALLEL_BIG = (2, 512), (4, 2048)
+PARALLEL_STEPS = 2
+#: (c) the serving identity: batch, prompt, greedy tokens
+PARALLEL_SERVE = (4, 128, 32)
+PARALLEL_PEAK_GB = 80.0
+#: (d) the reference's two dry-run cells, with the CPU test's gates
+DRYRUN_CELLS = (
+    ("smollm-360m", "train_4k", "single", 0, 256),
+    ("gemma-2b", "decode_32k", "multi", 1, 512),
+)
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def _max_rel_tree(got, want) -> float:
+    """Largest |a - b| / max|b| over the leaves of two param trees."""
+    from repro_torch.optim.adamw import tree_leaves
+
+    worst = 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        d = float((a.float() - b.float()).abs().max())
+        worst = max(worst, d / max(float(b.float().abs().max()), 1e-30))
+    return worst
+
+
+def _clone(tree):
+    """A copy of a train state ``(params, AdamWState)``."""
+    from repro_torch.optim.adamw import AdamWState, tree_map
+
+    if isinstance(tree, AdamWState):
+        return AdamWState(step=tree.step, mu=_clone(tree.mu), nu=_clone(tree.nu))
+    if isinstance(tree, tuple):
+        return tuple(_clone(t) for t in tree)
+    return tree_map(lambda t: t.detach().clone(), tree)
+
+
+def start_dryruns(scratch):
+    """The dry-run cells, one ``python -m repro_torch.launch.dryrun`` each,
+    started together in the background (host CPU only), each tracing one
+    and two layers and extrapolating (``--extrapolate-depth``: exact on
+    these dense stacks, ``tests/test_torch_dryrun.py``; the CPU tests
+    trace every layer)."""
+    procs = []
+    for arch, shape, mesh, opt, _ in DRYRUN_CELLS:
+        out = scratch / "dryrun"
+        log = open(scratch / f"dryrun_{arch}_{shape}.log", "w")
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+               "--mesh", mesh, "--opt-level", str(opt), "--out", str(out), "--extrapolate-depth"]
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+        procs.append((arch, shape, mesh, subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                                          env=env), log))
+    return procs
+
+
+def finish_dryruns(procs, scratch, t0) -> list:
+    """Wait for the dry-run cells and hold each record to the CPU test's
+    gates; returns the records' roofline terms."""
+    out = []
+    for (arch, shape, mesh, proc, log), (_, _, _, _, chips) in zip(procs, DRYRUN_CELLS):
+        try:
+            rc = proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+            log.close()
+        if rc != 0:
+            fail(f"dry-run {arch} {shape} {mesh}: exit {rc}: "
+                 f"{(scratch / f'dryrun_{arch}_{shape}.log').read_text()[-1500:]}")
+        rec = json.loads((scratch / "dryrun" / f"{arch}__{shape}__{mesh}.json").read_text())
+        roof = rec.get("roofline", {})
+        if rec["status"] != "ok" or rec["chips"] != chips:
+            fail(f"dry-run {arch} {shape} {mesh}: {rec['status']}, {rec.get('chips')} GPUs")
+        if roof["bottleneck"] not in ("compute", "memory", "collective"):
+            fail(f"dry-run {arch} {shape}: bottleneck {roof['bottleneck']}")
+        if shape == "train_4k" and not 0 < roof["useful_ratio"] < 1.5:
+            fail(f"dry-run {arch} {shape}: useful_ratio {roof['useful_ratio']}")
+        if shape == "decode_32k" and not rec["analytic_decode"]["pvq_weight_speedup"] > 1.0:
+            fail(f"dry-run {arch} {shape}: pvq_weight_speedup "
+                 f"{rec['analytic_decode']['pvq_weight_speedup']}")
+        out.append({
+            "cell": f"{arch}__{shape}__{mesh}", "chips": rec["chips"], "trace_s": rec["trace_s"],
+            "estimate": "from H100 SXM5 datasheet constants, not a time measured on the card",
+            "flops_per_gpu": roof["flops"], "hbm_bytes_per_gpu": roof["hbm_bytes"],
+            "collective_bytes_per_gpu": roof["coll_bytes"],
+            "collective_bytes_per_axis": roof["collectives"]["per_axis_bytes"],
+            "compute_s": roof["compute_s"], "memory_s": roof["memory_s"],
+            "collective_s": roof["collective_s"], "bottleneck": roof["bottleneck"],
+            "useful_ratio": roof["useful_ratio"],
+            "memory_analysis": rec["memory_analysis"],
+            "analytic_decode": rec.get("analytic_decode"),
+            "wall_s_since_phase_start": round(time.time() - t0, 2),
+        })
+    return out
+
+
+def parallel_phase(torch, smi, scratch, *, cfg=None, device="cuda", train_shape=PARALLEL_TRAIN,
+                   big_shape=PARALLEL_BIG, serve_shape=PARALLEL_SERVE, dryruns=True):
+    """The multi-device slice on the card (``parallel.sharding``,
+    ``launch.steps``, ``launch.mesh``, ``launch.dryrun``), on a world-size-1
+    NCCL group and ``make_debug_mesh(1, 1)``: parameters, optimizer
+    moments, batch and cache are DTensors, and the model's code runs on
+    them.  Multi-rank execution is not run on the card: NCCL refuses two
+    ranks on one GPU; the port's tests run it over gloo on the CPU.
+
+    (a) full-width smollm-360m through ``steps.make_train_step``, batch 2 x
+        512, 2 steps: loss, grad norm and params identical to
+        ``launch.train.make_state_and_step`` on the same seed (a relative
+        difference under 1e-6 is accepted, and printed, should cuBLAS vary
+        between the runs); then one step under each remat policy, its peak
+        device memory printed;
+    (b) batch 4 x 2048 under ``full`` remat (out of memory without remat):
+        2 steps, finite losses, peak under 80 GB; host wall ms, device ms
+        and idle share a step as ``tools/profile_train.py`` reports them;
+    (c) ``make_prefill_step`` and ``make_serve_step`` on dense bf16
+        smollm-360m, batch 4, prompt 128, 32 greedy tokens: tokens and
+        logits identical to ``Model.prefill``/``decode_step`` without a
+        mesh;
+    (d) the reference's two dry-run cells (started in the background at the
+        phase's start, on the host's CPU), with the CPU test's gates; their
+        roofline terms are estimates from datasheet constants, not card
+        times.
+
+    The phase launches no kernel of the port (the dense bf16 model has no
+    packed weights).  ``cfg``, ``device`` and the shapes let a test run the
+    same code on the CPU over gloo at a reduced size.  Returns the phase's
+    summary."""
+    t_phase = time.time()
+    on_card = device == "cuda"
+    procs = start_dryruns(scratch) if dryruns else []
+    try:
+        return _parallel_phase(torch, smi, scratch, procs, t_phase, cfg=cfg, device=device,
+                               train_shape=train_shape, big_shape=big_shape,
+                               serve_shape=serve_shape)
+    finally:
+        for *_, proc, log in procs:  # none outlives the phase
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+
+
+def _parallel_phase(torch, smi, scratch, procs, t_phase, *, cfg, device, train_shape, big_shape,
+                    serve_shape):
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import quantize as quant
+    from repro_torch.data import TokenLoader, TokenTask
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step, make_train_step
+    from repro_torch.nn.models import build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.parallel.sharding import ShardingPolicy, distribute, full_tree
+
+    on_card = device == "cuda"
+    summary = {"smi": smi}
+    old_aq, old_kvq = quant.set_default_act_quant(None), quant.set_default_kv_quant(None)
+    own_group = not dist.is_initialized()
+    if own_group:
+        dist.init_process_group("nccl" if on_card else "gloo",
+                                init_method=f"file://{scratch / 'pg_store'}", rank=0, world_size=1)
+    try:
+        mesh = make_debug_mesh(1, 1, device_type=device)
+        cfg = cfg or get_config(PARALLEL_ARCH)
+        model = build_model(cfg)
+        optimizer = AdamW(lr=3e-3)
+        sync = torch.cuda.synchronize if on_card else (lambda: None)
+
+        def peak_gb():
+            return torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
+
+        def reset_peak():
+            gc.collect()
+            if on_card:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+
+        def batch_of(b, s, step=0):
+            task = TokenTask(cfg.vocab_size, seed=0)
+            return TokenLoader(task, b, s, seed=0, device=device).device_batch(step)
+
+        # (a) identity with launch.train's step
+        b, s = train_shape
+        state0, plain_step = train.make_state_and_step(model, optimizer, seed=0, device=device)
+        plain_state = _clone(state0)
+        shape = ShapeConfig("parallel", "train", s, b)
+        bundle = make_train_step(model, optimizer, mesh, shape, ShardingPolicy(), seed=0)
+        params, opt, _ = bundle.distribute(state0[0], state0[1], batch_of(b, s))
+        worst, rows = 0.0, []
+        for step in range(PARALLEL_STEPS):
+            batch = batch_of(b, s, step)
+            plain_state, want = plain_step(plain_state, batch)
+            params, opt, got = bundle.run(params, opt, _lay_batch(bundle, batch))
+            row = {"step": step}
+            for k in ("loss", "grad_norm"):
+                g = float(full_tree(got[k]))
+                w = float(want[k])
+                row[k], row[f"{k}_rel_diff"] = g, _rel(g, w)
+                worst = max(worst, row[f"{k}_rel_diff"])
+            rows.append(row)
+        param_rel = _max_rel_tree(full_tree(params), plain_state[0])
+        worst = max(worst, param_rel)
+        summary["train_identity"] = {"shape": f"{b}x{s}", "steps": rows,
+                                     "params_max_rel_diff": param_rel,
+                                     "identical": worst == 0.0}
+        print(json.dumps({"parallel_train_identity": summary["train_identity"]}), flush=True)
+        if worst >= 1e-6:
+            fail(f"parallel (a): the mesh step parts from launch.train's by {worst} (relative)")
+        del params, opt, plain_state
+        peaks = {}
+        for policy in ("full", "dots", "collectives", "none"):
+            reset_peak()
+            run = dataclasses.replace(bundle, policy=ShardingPolicy(remat=policy))
+            args = run.distribute(state0[0], state0[1], batch_of(b, s))
+            _, _, met = run.run(*args)
+            sync()
+            peaks[policy] = {"peak_gb": peak_gb(), "loss": float(full_tree(met["loss"]))}
+            del args, run, met
+        del bundle
+        summary["part_s"] = {"a": round(time.time() - t_phase, 2)}
+        summary["remat_peak_gb"] = peaks
+        print(json.dumps({"parallel_remat_peaks": {"shape": f"{b}x{s}", "by_policy": peaks,
+                                                   "smi": smi}}), flush=True)
+
+        # (b) the batch that ran out of memory without remat
+        b, s = big_shape
+        reset_peak()
+        bundle = make_train_step(model, optimizer, mesh, ShapeConfig("big", "train", s, b),
+                                 ShardingPolicy(remat="full"))
+        params, opt, _ = bundle.distribute(state0[0], state0[1], batch_of(b, s))
+        losses, walls = [], []
+        for step in range(PARALLEL_STEPS):
+            t0 = time.perf_counter()
+            params, opt, met = bundle.run(params, opt, _lay_batch(bundle, batch_of(b, s, step)))
+            losses.append(float(full_tree(met["loss"])))
+            sync()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        big = {"shape": f"{b}x{s}", "remat": "full", "losses": losses, "peak_gb": peak_gb()}
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"parallel (b): losses {losses}")
+        if on_card:
+            if big["peak_gb"] >= PARALLEL_PEAK_GB:
+                fail(f"parallel (b): peak {big['peak_gb']:.2f} GB at {b}x{s}")
+            big.update(_profile_step(torch, lambda: bundle.run(
+                params, opt, _lay_batch(bundle, batch_of(b, s))), walls[1:]))
+            big["tokens_per_s"] = 1e3 * b * s / big["host_wall_ms"]
+        summary["big_batch"] = big
+        summary["part_s"]["b"] = round(time.time() - t_phase, 2)
+        print(json.dumps({"parallel_big_batch": big, "smi": smi}), flush=True)
+        del params, opt, bundle, state0
+        reset_peak()
+
+        # (c) the serving identity, dense bf16
+        b, prompt, gen = serve_shape
+        params = model.init(0, device=device)
+        tokens = batch_of(b, prompt)["tokens"]
+        pre = make_prefill_step(model, mesh, ShapeConfig("p", "prefill", prompt, b),
+                                cache_len=prompt + gen)
+        dec = make_serve_step(model, mesh, ShapeConfig("d", "decode", prompt + gen, b))
+        dparams, dbatch = pre.distribute(params, {"tokens": tokens})
+        t0 = time.time()
+        with torch.no_grad():
+            logits_m, cache_m = pre.run(dparams, dbatch)
+            logits_p, cache_p = model.prefill(params, {"tokens": tokens}, prompt + gen)
+            same = bool(torch.equal(full_tree(logits_m), logits_p))
+            toks_m, toks_p = [], []
+            tok_m = tok_p = torch.argmax(logits_p[:, -1], -1)[:, None]
+            for i in range(gen):
+                pos = prompt + i
+                lm, cache_m = dec.run(dparams, cache_m, distribute(tok_m, dec.in_shardings[2]),
+                                      pos)
+                lp, cache_p = model.decode_step(params, cache_p, tok_p, pos)
+                lm = full_tree(lm)
+                same = same and bool(torch.equal(lm, lp))
+                tok_m = torch.argmax(lm[:, -1], -1)[:, None]
+                tok_p = torch.argmax(lp[:, -1], -1)[:, None]
+                toks_m.append(tok_m)
+                toks_p.append(tok_p)
+        sync()
+        tokens_same = bool(torch.equal(torch.cat(toks_m, 1), torch.cat(toks_p, 1)))
+        serve_row = {"batch": b, "prompt": prompt, "gen": gen, "logits_identical": same,
+                     "tokens_identical": tokens_same, "wall_s": round(time.time() - t0, 2),
+                     "finite": bool(torch.isfinite(lp).all())}
+        summary["serve_identity"] = serve_row
+        summary["part_s"]["c"] = round(time.time() - t_phase, 2)
+        print(json.dumps({"parallel_serve_identity": serve_row}), flush=True)
+        if not (same and tokens_same and serve_row["finite"]):
+            fail(f"parallel (c): the mesh serve parts from Model.prefill/decode_step: {serve_row}")
+        del params, dparams, cache_m, cache_p
+    finally:
+        quant.set_default_act_quant(old_aq)
+        quant.set_default_kv_quant(old_kvq)
+        if own_group:
+            dist.destroy_process_group()
+    if procs:
+        summary["dryrun"] = finish_dryruns(procs, scratch, t_phase)
+        summary["part_s"]["d"] = round(time.time() - t_phase, 2)
+        for rec in summary["dryrun"]:
+            print(json.dumps({"parallel_dryrun": rec}), flush=True)
+    summary["phase_wall_s"] = round(time.time() - t_phase, 2)
+    print(json.dumps({"parallel_phase": {"phase_wall_s": summary["phase_wall_s"],
+                                         "cumulative_s_after": summary["part_s"], "smi": smi}}),
+          flush=True)
+    return summary
+
+
+def _profile_step(torch, step, walls, top=6) -> dict:
+    """A step's host wall (``walls``: the warm steps already timed, the card
+    synchronized after each; the median), then one ``torch.profiler`` trace
+    of the CUDA activity alone: device ms (every kernel), the idle share (1
+    - device ms / host wall) and the top kernels, as
+    ``tools/profile_train.py`` reports them (its trace also records the
+    host's ops, too many to sort in time for a DTensor step)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    kernels = {}
+    for evt in prof.events():
+        if getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            entry = kernels.setdefault(evt.name, [0.0, 0])
+            entry[0] += float(evt.device_time_total)
+            entry[1] += 1
+    device_ms = sum(v[0] for v in kernels.values()) / 1e3
+    wall = statistics.median(walls)
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"host_wall_ms_per_step": walls, "host_wall_ms": wall, "device_ms_per_step": device_ms,
+            "idle_share": max(1.0 - device_ms / wall, 0.0),
+            "kernels_per_step": sum(v[1] for v in kernels.values()),
+            "top_kernels": [{"name": n[:80], "ms": us / 1e3, "calls": c}
+                            for n, (us, c) in ranked]}
+
+
+def _lay_batch(bundle, batch):
+    """A train batch laid out by the bundle's batch sharding."""
+    from repro_torch.parallel.sharding import distribute
+
+    return {k: distribute(v, bundle.in_shardings[2][k]) for k, v in batch.items()}
+
+
 def start_ptxas_report(build, source="pvq_matmul"):
     """Starts ``nvcc -Xptxas -v`` on ``csrc/<source>.cu`` (a cubin under the
     build directory), beside the library builds."""
@@ -3009,6 +3375,7 @@ def main() -> int:
     train_only = "--train" in args
     families_only = "--families" in args
     recurrent_only = "--recurrent" in args
+    parallel_only = "--parallel" in args
     tree = ROOT
     if "--tree" in args:
         if not kernels_only or args.index("--tree") + 1 >= len(args):
@@ -3032,13 +3399,14 @@ def main() -> int:
     os.environ[TUNE_CACHE_ENV] = str(Path(scratch) / "untuned.json")
     try:
         return run_phases(torch, tree, kernels_only, smi, Path(scratch), paper_only, train_only,
-                          families_only, recurrent_only)
+                          families_only, recurrent_only, parallel_only)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
 
 def run_phases(torch, tree, kernels_only, smi, scratch, paper_only=False,
-               train_only=False, families_only=False, recurrent_only=False) -> int:
+               train_only=False, families_only=False, recurrent_only=False,
+               parallel_only=False) -> int:
     import repro_torch.kernels as kernels_mod
     from repro_torch.core import quantize as quant
     from repro_torch.core.quantize import quantize_activations
@@ -3076,6 +3444,9 @@ def run_phases(torch, tree, kernels_only, smi, scratch, paper_only=False,
         return 0
     if recurrent_only:
         recurrent_phase(torch, serve, kernels_mod, mm, enc, quant, smi)
+        return 0
+    if parallel_only:
+        parallel_phase(torch, smi, scratch)
         return 0
 
     timer = Timer(torch)
@@ -3167,6 +3538,13 @@ def run_phases(torch, tree, kernels_only, smi, scratch, paper_only=False,
     counts.update(rec_counts)
     bodies.update(rec_bodies)
     v2_bodies.update(rec_v2_bodies)
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels_mod.reset_launches()
+    parallel_phase(torch, smi, scratch)
+    parallel_launches = _launch_counts(kernels_mod)[0]
+    if any(parallel_launches.values()):
+        fail(f"parallel phase: the dense model launched a kernel: {parallel_launches}")
     run_b = engine["smollm-360m engine (b)"]
     # the timed runs' (replays counted, the warm-up's taken off)
     entries["pvq_attn_q"]["launches_from_chunk_caller"] = {

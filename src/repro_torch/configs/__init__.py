@@ -14,7 +14,7 @@ from . import (
     starcoder2_15b,
     whisper_small,
 )
-from .base import ModelConfig, PVQConfig
+from .base import SHAPES, ModelConfig, PVQConfig, ShapeConfig, cell_applicable, shape_by_name
 
 ARCHS: Dict[str, ModelConfig] = {
     c.CONFIG.name: c.CONFIG
@@ -29,4 +29,5 @@ def get_config(arch: str) -> ModelConfig:
     return ARCHS[arch]
 
 
-__all__ = ["ModelConfig", "PVQConfig", "ARCHS", "get_config"]
+__all__ = ["ModelConfig", "PVQConfig", "ShapeConfig", "SHAPES", "ARCHS", "get_config",
+           "shape_by_name", "cell_applicable"]

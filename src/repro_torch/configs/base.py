@@ -12,7 +12,7 @@ MoE, VLM (``prefix_len``), enc-dec (``encoder_layers``,
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 from ..nn.mamba import SSMConfig
 from ..nn.mla import MLAConfig
@@ -126,3 +126,37 @@ class ModelConfig:
             compute_dtype="float32",
             max_position=256,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell."""
+
+    name: str  # train_4k | prefill_32k | decode_32k | long_500k
+    kind: str  # 'train' | 'prefill' | 'decode'
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", "train", 4_096, 256),
+    ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    ShapeConfig("decode_32k", "decode", 32_768, 128),
+    ShapeConfig("long_500k", "decode", 524_288, 1),
+)
+
+
+def shape_by_name(name: str) -> ShapeConfig:
+    for s in SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(name)
+
+
+def cell_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether (arch, shape) is a runnable cell; reason if not."""
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, "full-attention arch: 500k decode needs sub-quadratic attention (DESIGN.md §4)"
+    if shape.kind == "decode" and not cfg.supports_decode:
+        return False, "encoder-only arch has no decode step"
+    return True, ""

@@ -12,6 +12,7 @@ from typing import Any, Optional, Tuple
 import torch
 
 from ..core.packed import PackedKV, PagedKV, is_packed_kv, is_paged_kv
+from ..parallel.sharding import merge_last, split_last
 from .layers import Params, dense, init_dense
 
 NEG_INF = -1e30
@@ -65,9 +66,33 @@ def init_kv_cache(batch, max_len, n_kv, head_dim, dtype=None, *, quantized=None,
     return KVCache(k=z, v=z.clone())
 
 
+def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(b, s, n_kv, hd) -> (b, s, n_heads, hd) by repeating each kv head."""
+    n_kv = k.shape[-2]
+    if n_kv == n_heads:
+        return k
+    return torch.repeat_interleave(k, n_heads // n_kv, dim=-2)
+
+
 def _group_q(q: torch.Tensor, n_kv: int) -> torch.Tensor:
     b, s, h, hd = q.shape
     return q.reshape(b, s, n_kv, h // n_kv, hd)
+
+
+def _prefer_grouped(h: int, n_kv: int) -> bool:
+    """Grouped-q einsums avoid n_heads/n_kv x KV traffic, BUT splitting the
+    head axis (h -> n_kv x g) makes an h-divisible model sharding
+    inexpressible, forcing a reshard of the full q tensor.  Prefer the
+    expanded-KV path exactly when h shards cleanly and n_kv does not."""
+    from ..parallel.sharding import active_mesh, mesh_shape
+
+    mesh = active_mesh()
+    if mesh is None:
+        return True
+    tp = mesh_shape(mesh).get("model", 1)
+    if h % tp == 0 and n_kv % tp != 0:
+        return False
+    return True
 
 
 def full_causal_attention(q, k, v, *, scale: float, q_offset: int = 0, prefix_len: int = 0,
@@ -79,6 +104,9 @@ def full_causal_attention(q, k, v, *, scale: float, q_offset: int = 0, prefix_le
     masks nothing (the encoder)."""
     b, sq, h, hd = q.shape
     sk, n_kv = k.shape[1], k.shape[2]
+    if causal and not _prefer_grouped(h, n_kv):
+        k, v = _expand_kv(k, h), _expand_kv(v, h)
+        n_kv = h
     qg = _group_q(q, n_kv).to(torch.float32)
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(torch.float32)) * scale
     if causal:
@@ -102,6 +130,8 @@ def chunked_causal_attention(q, k, v, *, scale: float, q_chunk: int = 512,
         q_chunk = next((c for c in range(q_chunk - q_chunk % 128, 127, -128) if s % c == 0), 0)
     if not q_chunk or s <= q_chunk:
         return full_causal_attention(q, k, v, scale=scale, prefix_len=prefix_len)
+    if not _prefer_grouped(h, k.shape[2]):
+        k, v = _expand_kv(k, h), _expand_kv(v, h)
     outs = []
     for i in range(s // q_chunk):
         lo = i * q_chunk
@@ -113,11 +143,24 @@ def chunked_causal_attention(q, k, v, *, scale: float, q_chunk: int = 512,
 
 
 def decode_attention(q, cache_k, cache_v, *, scale: float, length: Optional[torch.Tensor] = None):
-    """One-token attention against a dense cache of S entries."""
+    """One-token attention against a dense cache of S entries.
+
+    When the cache sequence axis is sharded (cp over data / cache_seq_tp
+    over model), q and the scores are explicitly constrained so the S-axis
+    sharding wins over head-sharded queries (otherwise the propagation
+    gathers the whole cache every token); the softmax's max and sum over
+    the sharded S axis then reduce across its shards."""
+    from ..parallel.sharding import constrain, current_policy
+
     b, sq, h, hd = q.shape
     n_kv = cache_k.shape[2]
     qg = _group_q(q, n_kv).to(torch.float32)
+    seq_sharded = current_policy().cache_seq_tp or current_policy().context_parallel
+    if seq_sharded:
+        qg = constrain(qg, "dp", None, None, None, None)  # replicate q over model
     scores = torch.einsum("bqhgd,bkhd->bqhgk", qg, cache_k.to(torch.float32)) * scale
+    if seq_sharded:
+        scores = constrain(scores, "dp", None, None, None, "seq")
     if length is not None:
         valid = torch.arange(cache_k.shape[1], device=q.device)[None, :] < length[:, None]
         scores = torch.where(valid[:, None, None, None, :], scores, torch.full_like(scores, NEG_INF))
@@ -125,6 +168,8 @@ def decode_attention(q, cache_k, cache_v, *, scale: float, length: Optional[torc
     e = torch.exp(scores - m)
     probs = (e / e.sum(dim=-1, keepdim=True)).to(cache_v.dtype)
     out = torch.einsum("bqhgk,bkhd->bqhgd", probs.to(torch.float32), cache_v.to(torch.float32))
+    if seq_sharded:
+        out = constrain(out, "dp", None, None, None, None)
     return out.to(cache_v.dtype).reshape(b, sq, h, cache_v.shape[-1])
 
 
@@ -175,35 +220,38 @@ def decode_attention_packed(
 
 def _project_qkv(p, x, n_heads, n_kv_heads, head_dim):
     b, s, _ = x.shape
-    q = dense(p["wq"], x).reshape(b, s, n_heads, head_dim)
-    k = dense(p["wk"], x).reshape(b, s, n_kv_heads, head_dim)
-    v = dense(p["wv"], x).reshape(b, s, n_kv_heads, head_dim)
+    q = split_last(dense(p["wq"], x), n_heads, head_dim)
+    k = split_last(dense(p["wk"], x), n_kv_heads, head_dim)
+    v = split_last(dense(p["wv"], x), n_kv_heads, head_dim)
     return q, k, v
 
 
 def attention_forward(
     p: Params, x: torch.Tensor, *, n_heads: int, n_kv_heads: int, head_dim: int,
     rope_theta: Optional[float] = 10000.0, causal: bool = True, q_chunk: int = 512,
-    prefix_len: int = 0, return_kv: bool = False,
+    prefix_len: int = 0, return_kv: bool = False, head_constraint=None,
 ):
     """Self-attention over the full sequence: causal (with the prefix-LM
     mask over the first ``prefix_len`` keys when it is set) or, with
     ``causal=False``, bidirectional (the encoder).  ``return_kv`` also
     returns the (rope'd) k and v, which are exactly what
-    :func:`attention_prefill_cache` would project again."""
+    :func:`attention_prefill_cache` would project again.
+    ``head_constraint`` lays out q, k and v (heads on the model axis)."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim)
     if rope_theta is not None:
         positions = torch.arange(s, device=x.device)[None, :]
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
+    if head_constraint is not None:
+        q, k, v = head_constraint(q), head_constraint(k), head_constraint(v)
     scale = 1.0 / math.sqrt(head_dim)
     if causal:
         out = chunked_causal_attention(q, k, v, scale=scale, q_chunk=q_chunk,
                                        prefix_len=prefix_len)
     else:
         out = full_causal_attention(q, k, v, scale=scale, causal=False)
-    y = dense(p["wo"], out.reshape(b, s, n_heads * head_dim))
+    y = dense(p["wo"], merge_last(out, n_heads * head_dim))
     return (y, k, v) if return_kv else y
 
 
@@ -259,11 +307,41 @@ def attention_decode(
         cache.append(k, v, pos)
         out = decode_attention_packed(q, cache, scale=scale, length=length, filled=pos + 1)
     else:
-        cache["k"][:, pos : pos + 1] = k.to(cache["k"].dtype)
-        cache["v"][:, pos : pos + 1] = v.to(cache["v"].dtype)
+        write_row(cache["k"], k, pos)
+        write_row(cache["v"], v, pos)
         out = decode_attention(q, cache["k"], cache["v"], scale=scale, length=length)
-    y = dense(p["wo"], out.reshape(b, 1, n_heads * head_dim))
+    y = dense(p["wo"], merge_last(out, n_heads * head_dim))
     return y, cache
+
+
+def write_row(t: torch.Tensor, rows: torch.Tensor, pos: int) -> None:
+    """``t[:, pos] = rows[:, 0]`` for a ``(b, S, ...)`` cache tensor, in place,
+    at a host position.  On a DTensor cache each rank writes its own shard:
+    ``rows`` is laid out like ``t`` with the sequence dim whole, and the
+    rank whose sequence shard holds ``pos`` writes the row there (DTensor
+    has no in-place strategy for a slice of a sharded dim)."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(t, DTensor):
+        t[:, pos : pos + 1] = rows.to(t.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    mesh = t.device_mesh
+    seq_sharded = [isinstance(p, Shard) and p.dim == 1 for p in t.placements]
+    like = [Replicate() if s else p for p, s in zip(t.placements, seq_sharded)]
+    if isinstance(rows, DTensor):
+        local_rows = rows.redistribute(mesh, like).to_local()
+    else:
+        local_rows = distribute_tensor(rows, mesh, like, src_data_rank=None).to_local()
+    lo, n = 0, t.shape[1]
+    coord = mesh.get_coordinate()
+    for m, s in enumerate(seq_sharded):
+        if s:  # DTensor splits a dim over its mesh dims in order, major first
+            n //= mesh.size(m)
+            lo += coord[m] * n
+    if lo <= pos < lo + n:
+        t.to_local()[:, pos - lo : pos - lo + 1] = local_rows.to(t.dtype)
 
 
 def put_rows(t: torch.Tensor, rows: torch.Tensor, pos: torch.Tensor) -> None:
@@ -296,7 +374,7 @@ def _attention_decode_at(p, x, cache, pos, *, n_heads, n_kv_heads, head_dim, rop
         put_rows(cache["k"], k, posb[:, 0])
         put_rows(cache["v"], v, posb[:, 0])
         out = decode_attention(q, cache["k"], cache["v"], scale=scale, length=length)
-    y = dense(p["wo"], out.reshape(b, 1, n_heads * head_dim))
+    y = dense(p["wo"], merge_last(out, n_heads * head_dim))
     return y, cache
 
 
@@ -374,20 +452,20 @@ def cross_attention_forward(p: Params, x: torch.Tensor, enc_kv: dict, *, n_heads
     values ``enc_kv`` (:func:`cross_kv`: ``(b, s_enc, n_heads, hd)``, every
     position, no mask).  Scores in f32, probabilities in v's dtype."""
     b, s, _ = x.shape
-    q = dense(p["wq"], x).reshape(b, s, n_heads, head_dim)
+    q = split_last(dense(p["wq"], x), n_heads, head_dim)
     scale = 1.0 / math.sqrt(head_dim)
     kf, vf = enc_kv["k"], enc_kv["v"]
     scores = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32), kf.to(torch.float32)) * scale
     probs = torch.softmax(scores, dim=-1).to(vf.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(torch.float32), vf.to(torch.float32))
     out = out.to(vf.dtype)
-    return dense(p["wo"], out.reshape(b, s, n_heads * head_dim))
+    return dense(p["wo"], merge_last(out, n_heads * head_dim))
 
 
 def cross_kv(p: Params, enc_out: torch.Tensor, *, n_heads: int, head_dim: int) -> dict:
     """The cross-attention cache: the encoder output's keys and values,
     written once at prefill and read in full every step (always dense)."""
     b, s, _ = enc_out.shape
-    k = dense(p["wk"], enc_out).reshape(b, s, n_heads, head_dim)
-    v = dense(p["wv"], enc_out).reshape(b, s, n_heads, head_dim)
+    k = split_last(dense(p["wk"], enc_out), n_heads, head_dim)
+    v = split_last(dense(p["wv"], enc_out), n_heads, head_dim)
     return KVCache(k=k, v=v)

@@ -22,9 +22,15 @@ Params = Dict[str, Any]
 
 
 def truncated_normal_init(gen: torch.Generator, shape, scale: float, dtype, device) -> torch.Tensor:
-    """Normal truncated to [-2, 2], scaled by ``scale / sqrt(fan_in)``."""
+    """Normal truncated to [-2, 2], scaled by ``scale / sqrt(fan_in)``.
+    Under a ``FakeTensorMode`` (a shape-only dry-run) there are no values
+    to draw: the tensor is only allocated."""
+    from torch._subclasses.fake_tensor import is_fake
+
     fan_in = shape[0] if len(shape) >= 2 else 1
     t = torch.empty(shape, dtype=torch.float32, device=device)
+    if is_fake(t):
+        return t.to(dtype)
     torch.nn.init.trunc_normal_(t, mean=0.0, std=1.0, a=-2.0, b=2.0, generator=gen)
     return (t * (scale / fan_in**0.5)).to(dtype)
 
@@ -76,7 +82,10 @@ def dense(p: Params, x: torch.Tensor, *, act_quant=None) -> torch.Tensor:
     """Dense layer on a float ``kernel`` or a packed PVQ one."""
     if is_packed(p["kernel"]):
         return pvq_dense(p, x, act_quant=act_quant)
-    y = x @ p["kernel"].to(x.dtype)
+    kernel = p["kernel"].to(x.dtype)
+    # the leading dims folded into one matmul's rows, as ``matmul`` folds a
+    # plain tensor; a DTensor's ``matmul`` may take a batched path instead
+    y = (x.reshape(-1, x.shape[-1]) @ kernel).reshape(*x.shape[:-1], kernel.shape[-1])
     if "bias" in p:
         y = y + p["bias"].to(y.dtype)
     return y
@@ -143,11 +152,13 @@ def _act(kind: str, x: torch.Tensor) -> torch.Tensor:
     raise ValueError(kind)
 
 
-def ffn(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
+def ffn(p: Params, x: torch.Tensor, kind: str, *, hidden_constraint=None) -> torch.Tensor:
     if kind in ("swiglu", "geglu"):
         h = _act(kind, dense(p["wi_gate"], x)) * dense(p["wi_up"], x)
     else:
         h = _act(kind, dense(p["wi_up"], x))
+    if hidden_constraint is not None:
+        h = hidden_constraint(h)
     return dense(p["wo"], h)
 
 
@@ -220,8 +231,19 @@ def sinusoidal_positions(length: int, d: int, dtype=torch.float32, device="cpu")
 
 
 def embed(p: Params, tokens: torch.Tensor, dtype=None) -> torch.Tensor:
+    """Token rows of the table.  On a mesh (a DTensor table) the table is
+    gathered whole first (as FSDP gathers a parameter for its use) and each
+    rank looks up its own tokens; the propagation would otherwise gather
+    the tokens and replicate the whole batch's activations."""
+    from torch.distributed.tensor import DTensor, Replicate
+
     table = p["embedding"]
-    out = _packed_embed_rows(table, tokens) if is_packed(table) else table[tokens]
+    if is_packed(table):
+        out = _packed_embed_rows(table, tokens)
+    else:
+        if isinstance(table, DTensor):
+            table = table.redistribute(table.device_mesh, [Replicate()] * table.device_mesh.ndim)
+        out = torch.nn.functional.embedding(tokens, table)
     return out.to(dtype) if dtype is not None else out
 
 

@@ -20,7 +20,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..core.packed import materialize
-from .attention import NEG_INF, apply_rope, chunked_causal_attention, put_rows
+from ..parallel.sharding import merge_last, split_last
+from .attention import NEG_INF, apply_rope, chunked_causal_attention, put_rows, write_row
 from .layers import Params, dense, init_dense, init_rmsnorm, rmsnorm
 
 
@@ -65,7 +66,7 @@ def _queries(p: Params, x: torch.Tensor, n_heads: int, cfg: MLAConfig, positions
         q = dense(p["wq_b"], rmsnorm(p["q_norm"], dense(p["wq_a"], x)))
     else:
         q = dense(p["wq"], x)
-    q = q.reshape(b, s, n_heads, qk_head)
+    q = split_last(q, n_heads, qk_head)
     q_nope, q_rope = q[..., : cfg.nope_head_dim], q[..., cfg.nope_head_dim :]
     return q_nope, apply_rope(q_rope, positions)
 
@@ -86,14 +87,14 @@ def mla_forward(p: Params, x: torch.Tensor, *, n_heads: int, cfg: MLAConfig, q_c
     positions = torch.arange(s, device=x.device)[None, :]
     q_nope, q_rope = _queries(p, x, n_heads, cfg, positions)
     c_kv, k_rope = _latents(p, x, cfg, positions)
-    k_nope = dense(p["wk_b"], c_kv).reshape(b, s, n_heads, cfg.nope_head_dim)
-    v = dense(p["wv_b"], c_kv).reshape(b, s, n_heads, cfg.v_head_dim)
+    k_nope = split_last(dense(p["wk_b"], c_kv), n_heads, cfg.nope_head_dim)
+    v = split_last(dense(p["wv_b"], c_kv), n_heads, cfg.v_head_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k_rope_h = k_rope[:, :, None, :].expand(b, s, n_heads, cfg.rope_head_dim)
     k = torch.cat([k_nope, k_rope_h.to(k_nope.dtype)], dim=-1)
     scale = 1.0 / math.sqrt(cfg.nope_head_dim + cfg.rope_head_dim)
     out = chunked_causal_attention(q, k, v, scale=scale, q_chunk=q_chunk)
-    y = dense(p["wo"], out.reshape(b, s, n_heads * cfg.v_head_dim))
+    y = dense(p["wo"], merge_last(out, n_heads * cfg.v_head_dim))
     return (y, MLACache(c_kv=c_kv, k_rope=k_rope)) if return_cache else y
 
 
@@ -124,25 +125,36 @@ def mla_decode(p: Params, x: torch.Tensor, cache: dict, pos, *, n_heads: int,
         put_rows(cache["c_kv"], c_new, posb[:, 0])
         put_rows(cache["k_rope"], kr_new, posb[:, 0])
     else:
-        cache["c_kv"][:, pos : pos + 1] = c_new.to(cache["c_kv"].dtype)
-        cache["k_rope"][:, pos : pos + 1] = kr_new.to(cache["k_rope"].dtype)
+        write_row(cache["c_kv"], c_new, pos)
+        write_row(cache["k_rope"], kr_new, pos)
+
+    from ..parallel.sharding import constrain, current_policy
 
     r = cfg.kv_lora_rank
+    seq_sharded = current_policy().cache_seq_tp or current_policy().context_parallel
     wk_b = materialize(p["wk_b"]["kernel"]).reshape(r, n_heads, cfg.nope_head_dim)
     q_abs = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], wk_b.to(q_nope.dtype))
+    if seq_sharded:
+        # the S axis sharding must win over head-sharded queries (see
+        # attention.decode_attention — same conflict, same fix)
+        q_abs = constrain(q_abs, "dp", None, None)
     f32 = torch.float32
     scores_nope = torch.einsum("bhr,bsr->bhs", q_abs.to(f32), cache["c_kv"].to(q_abs.dtype).to(f32))
     scores_rope = torch.einsum("bhd,bsd->bhs", q_rope[:, 0].to(f32),
                                cache["k_rope"].to(q_rope.dtype).to(f32))
     scale = 1.0 / math.sqrt(cfg.nope_head_dim + cfg.rope_head_dim)
     scores = (scores_nope + scores_rope) * scale
+    if seq_sharded:
+        scores = constrain(scores, "dp", None, "seq")
     valid = torch.arange(cache["c_kv"].shape[1], device=x.device)[None, :] < posb + 1
     scores = torch.where(valid[:, None, :], scores, torch.full_like(scores, NEG_INF))
     m = scores.amax(dim=-1, keepdim=True)
     e = torch.exp(scores - m)
     probs = (e / e.sum(dim=-1, keepdim=True)).to(cache["c_kv"].dtype)
     out_lat = torch.einsum("bhs,bsr->bhr", probs, cache["c_kv"])  # (b, h, r)
+    if seq_sharded:
+        out_lat = constrain(out_lat, "dp", None, None)
     wv_b = materialize(p["wv_b"]["kernel"]).reshape(r, n_heads, cfg.v_head_dim)
     out = torch.einsum("bhr,rhd->bhd", out_lat.to(x.dtype), wv_b.to(x.dtype))
-    y = dense(p["wo"], out.reshape(b, 1, n_heads * cfg.v_head_dim))
+    y = dense(p["wo"], merge_last(out[:, None], n_heads * cfg.v_head_dim))
     return y, cache

@@ -32,6 +32,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..core.packed import is_packed_kv, quantize_layer, quantize_params
 from ..core.quantize import QuantPolicy
+from ..parallel.sharding import constrain, pad_dim
 from . import layers as L
 from . import transformer as T
 from .layers import Params
@@ -124,23 +125,26 @@ class Model:
             pe_t = tab[int(positions) : int(positions) + s]
         return x - tab[:s].to(x.dtype) + pe_t.to(x.dtype)
 
-    def _encode(self, params: Params, frames: torch.Tensor) -> torch.Tensor:
+    def _encode(self, params: Params, frames: torch.Tensor, mode: str = "prefill") -> torch.Tensor:
         """The whisper-style encoder over precomputed frame embeddings: the
-        sinusoidal positions, the bidirectional blocks, the final norm."""
+        sinusoidal positions, the bidirectional blocks, the final norm
+        (rematerialised in train mode)."""
         cfg = self.cfg
         x = frames.to(getattr(torch, cfg.compute_dtype))
         x = x + L.sinusoidal_positions(x.shape[1], cfg.d_model, x.dtype, x.device)[None]
         for i, seg in enumerate(self.enc_plan):
             x, _, _ = T.run_segment(cfg, seg, params["encoder"]["segments"][f"seg{i}"], x,
-                                    mode="train")
+                                    mode="train", remat=(mode == "train"))
         return T._norm(cfg, params["encoder"]["final_norm"], x)
 
     def _head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         """Logits in f32: the tied unembed, or the untied ``lm_head`` dense
-        layer run on the f32 stream."""
+        layer run on the f32 stream; vocab on the model axis."""
         if self.cfg.tie_embeddings:
-            return L.unembed(params["embed"], x)
-        return L.dense(params["lm_head"], x.to(torch.float32))
+            logits = L.unembed(params["embed"], x)
+        else:
+            logits = L.dense(params["lm_head"], x.to(torch.float32))
+        return constrain(logits, "dp", None, "tp")
 
     def forward(self, params: Params, batch: Dict[str, torch.Tensor], *, mode: str = "train",
                 rng: Optional[torch.Generator] = None):
@@ -159,13 +163,14 @@ class Model:
             x = torch.cat([patches, x], dim=1)
             prefix_len = patches.shape[1]
         if self.enc_plan:
-            enc_out = self._encode(params, batch["frames"])
+            enc_out = self._encode(params, batch["frames"], mode)
+        x = constrain(x, "dp", "sp", None)
         aux = torch.zeros((), dtype=torch.float32, device=x.device) if mode == "train" else None
         caches = {}
         for i, seg in enumerate(self.plan):
             x, aux_i, c = T.run_segment(cfg, seg, params["segments"][f"seg{i}"], x, mode=mode,
                                         enc_out=enc_out, prefix_len=prefix_len,
-                                        rng=T.fold_in(rng, i))
+                                        remat=(mode == "train"), rng=T.fold_in(rng, i))
             if aux is not None:
                 aux = aux + aux_i
             if c is not None:
@@ -183,13 +188,13 @@ class Model:
         cfg = self.cfg
         logits, aux, _ = self.forward(params, batch, mode="train", rng=rng)
         targets = batch["targets"].to(device=logits.device, dtype=torch.int64)
-        logz = torch.logsumexp(logits, dim=-1)
-        tgt_logit = torch.gather(logits, -1, targets[..., None])[..., 0]
+        logz = _logsumexp_last(logits)
+        tgt_logit = _target_logit(logits, targets)
         ce = torch.mean(logz - tgt_logit)
         total = ce + cfg.moe_aux_coef * aux
         if cfg.z_loss_coef:
             total = total + cfg.z_loss_coef * torch.mean(logz * logz)
-        acc = torch.mean((torch.argmax(logits, dim=-1) == targets).to(torch.float32))
+        acc = torch.mean((_argmax_last(logits) == targets).to(torch.float32))
         return total, {"ce": ce, "aux": aux, "accuracy": acc}
 
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor], cache_len: int = 0):
@@ -216,10 +221,8 @@ class Model:
                 for layer in seg_cache:
                     for entry in layer.values():
                         if "mla" in entry:  # (b, s, X) latents
-                            entry["mla"] = {
-                                n: torch.nn.functional.pad(t, (0, 0, 0, pad))
-                                for n, t in entry["mla"].items()
-                            }
+                            entry["mla"] = {n: pad_dim(t, 1, pad)
+                                            for n, t in entry["mla"].items()}
                         if "kv" not in entry:
                             continue
                         kv = entry["kv"]
@@ -227,10 +230,7 @@ class Model:
                             rows = -(-cache_len // kv.block) * kv.block
                             entry["kv"] = kv.pad_seq(rows - kv.max_len)
                         else:
-                            entry["kv"] = {
-                                n: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
-                                for n, t in kv.items()
-                            }
+                            entry["kv"] = {n: pad_dim(t, 1, pad) for n, t in kv.items()}
         return logits[:, -1:, :], caches
 
     def decode_step(self, params: Params, cache: Any, token: torch.Tensor, pos,
@@ -315,6 +315,53 @@ class Model:
             return logits.index_select(1, idx), new_cache
         idx = min(max(int(real_len) - 1 - int(start), 0), tokens.shape[1] - 1)
         return logits[:, idx : idx + 1], new_cache
+
+
+def _last_dim_sharded(x: torch.Tensor) -> bool:
+    """Whether ``x`` is a DTensor whose last dim (the vocab) is sharded: the
+    loss's reductions over it are then written as sharded reductions; on
+    any other tensor they are the plain ops."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    return isinstance(x, DTensor) and any(
+        isinstance(p, Shard) and p.dim in (x.ndim - 1, -1) for p in x.placements)
+
+
+def _logsumexp_last(x: torch.Tensor) -> torch.Tensor:
+    """``logsumexp(x, -1)``; over a sharded vocab written out as a max and a
+    sum of exponentials, two reductions that stay local to each vocab shard
+    and then reduce across them (DTensor gathers the whole vocab for
+    ``logsumexp``)."""
+    if not _last_dim_sharded(x):
+        return torch.logsumexp(x, dim=-1)
+    m = x.amax(dim=-1, keepdim=True).detach()
+    return (m + torch.log(torch.exp(x - m).sum(dim=-1, keepdim=True)))[..., 0]
+
+
+def _target_logit(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """``logits[..., targets]``.  Over a sharded vocab it is a masked sum
+    over the vocab, which stays local to each shard and whose backward is
+    elementwise (a gather's backward would build the gradient at the full
+    batch's size on every rank); one term is the logit, the rest exact
+    zeros, so the value is the gather's."""
+    if not _last_dim_sharded(logits):
+        return torch.gather(logits, -1, targets[..., None])[..., 0]
+    hit = targets[..., None] == torch.arange(logits.shape[-1], device=logits.device)
+    hit = hit.redistribute(logits.device_mesh, logits.placements)  # a local slice
+    return torch.where(hit, logits, 0.0).sum(dim=-1)
+
+
+def _argmax_last(x: torch.Tensor) -> torch.Tensor:
+    """``argmax(x, -1)`` (the first of tied maxima).  Over a sharded last
+    dim it is written as two max-reductions, which reduce across the shards
+    with no read of the shard offsets on the host (a shape-only dry-run
+    has no values to read)."""
+    if not _last_dim_sharded(x):
+        return torch.argmax(x, dim=-1)
+    n = x.shape[-1]
+    rev = torch.arange(n - 1, -1, -1, device=x.device)
+    hit = torch.where(x == x.amax(dim=-1, keepdim=True), rev, -1)
+    return (n - 1) - hit.amax(dim=-1)
 
 
 def build_model(cfg: ModelConfig) -> Model:

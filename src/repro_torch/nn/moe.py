@@ -7,9 +7,12 @@ tokens).  Capacity per group:
 Tokens over capacity are dropped (GShard semantics); the residual path
 carries them unchanged.
 
-The reference reads ``ShardingPolicy.moe_light_combine`` (default False);
-the port runs that default, the full f32 combine tensor (the light combine
-is a sharding option and comes with the multi-device code).  In train mode
+``ShardingPolicy.moe_light_combine`` (``parallel.sharding``; on from
+``launch.steps.policy_for(..., opt_level=1)``) folds the gate values into
+per-slot scalars instead of the f32 (g, s, E, C) combine tensor.  One-hot
+rows are built by comparison with an ``arange`` (the same values as
+``one_hot``, which reads its input's range on the host: no such read on a
+shape-only dry-run tensor).  In train mode
 a ``torch.Generator`` drives the router jitter: no torch generator gives
 ``jax.random``'s draws, so the noise is the reference's in law, not in
 value.
@@ -22,6 +25,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..parallel.sharding import constrain
 from .layers import Params, _act, ffn, init_ffn
 
 
@@ -79,6 +83,42 @@ def dispatch_gemm_rows(cfg: MoEConfig, t: int) -> int:
     return (-(-t // gs)) * routing_capacity(cfg, gs)
 
 
+def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(eq, a, b)`` for the MoE's three buffer contractions.
+    On DTensors each is written as copied, contiguous operands into one
+    ``bmm``: ``einsum`` reshapes permuted views, and DTensor can describe a
+    local shard as contiguous when it is not, so a view of it fails (a
+    copy, not ``contiguous()``, which trusts that description)."""
+    from torch.distributed.tensor import DTensor
+
+    if not (isinstance(a, DTensor) or isinstance(b, DTensor)):
+        return torch.einsum(eq, a, b)
+
+    def packed(t):
+        return t.clone(memory_format=torch.contiguous_format)
+
+    if eq == "gsd,gsec->gecd":  # dispatch: per group, (E C, s) @ (s, d)
+        g, s, d = a.shape
+        e, c = b.shape[2:]
+        disp = packed(packed(b).reshape(g, s, e * c).transpose(1, 2))
+        return torch.bmm(disp, packed(a)).reshape(g, e, c, d)
+    if eq == "gecd,gsec->gsd":  # combine: per group, (s, E C) @ (E C, d)
+        g, e, c, d = a.shape
+        s = b.shape[1]
+        return torch.bmm(packed(b).reshape(g, s, e * c), packed(a).reshape(g, e * c, d))
+    if eq == "gecd,edf->gecf":  # expert FFN: per expert, (g C, d) @ (d, f)
+        g, e, c, d = a.shape
+        y = torch.bmm(packed(a.permute(1, 0, 2, 3)).reshape(e, g * c, d), packed(b))
+        return packed(y.reshape(e, g, c, -1).permute(1, 0, 2, 3))
+    raise ValueError(eq)
+
+
+def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
+    """``one_hot(idx, n)`` in ``dtype``; an index outside ``[0, n)`` gives a
+    zero row."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
 def _topk_argmax(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """top-k via k argmax+mask rounds (ties go to the first maximal index,
     as ``jnp.argmax``)."""
@@ -86,18 +126,27 @@ def _topk_argmax(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tenso
     p = probs
     for _ in range(k):
         i = torch.argmax(p, dim=-1)
-        oh = torch.nn.functional.one_hot(i, probs.shape[-1]).to(probs.dtype)
+        oh = _one_hot(i, probs.shape[-1], probs.dtype)
         vals.append(torch.sum(p * oh, dim=-1))
         idxs.append(i)
         p = p * (1.0 - oh)
     return torch.stack(vals, dim=-1), torch.stack(idxs, dim=-1)
 
 
+def _acc(total: Optional[torch.Tensor], term: torch.Tensor) -> torch.Tensor:
+    return term if total is None else total + term
+
+
 def _routing(
-    logits: torch.Tensor, cfg: MoEConfig, *, token_mask: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    logits: torch.Tensor, cfg: MoEConfig, *, light: bool = False,
+    token_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor], torch.Tensor]:
     """logits: (g, s, E).  Returns ``(dispatch (g,s,E,C) bf16, combine
-    (g,s,E,C) f32, aux_loss)``.
+    (g,s,E,C) f32 | None, slot_gate (g,E,C) f32 | None, aux_loss)``.
+
+    ``light=True``: instead of the f32 (g,s,E,C) combine tensor, fold the
+    gate values into per-slot scalars (g,E,C) — each slot holds exactly one
+    token, so combine == dispatch * slot_gate broadcast.
 
     ``token_mask`` (g, s) bool marks the real tokens: padding never claims a
     capacity slot and stays out of the aux statistics.  A token whose slot
@@ -110,7 +159,7 @@ def _routing(
     gate_vals, gate_idx = _topk_argmax(probs, cfg.top_k)  # (g, s, k)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
 
-    onehot_top1 = torch.nn.functional.one_hot(gate_idx[..., 0], e).to(torch.float32)
+    onehot_top1 = _one_hot(gate_idx[..., 0], e, torch.float32)
     if token_mask is None:
         me = probs.mean(dim=(0, 1))
         ce = onehot_top1.mean(dim=(0, 1))
@@ -122,12 +171,15 @@ def _routing(
     aux = e * torch.sum(me * ce)
 
     dev = logits.device
-    dispatch = torch.zeros((g, s, e, c), dtype=torch.bfloat16, device=dev)
-    combine = torch.zeros((g, s, e, c), dtype=torch.float32, device=dev)
+    # the (g, s, E, C) sums start from the first choice's terms, not from
+    # zeros: the same values (every term is >= 0), laid out like the
+    # logits on a mesh, where a fresh zeros tensor would be a whole
+    # replicated copy on every rank
+    dispatch = combine = slot_gate = None
     fill = torch.zeros((g, e), dtype=torch.int64, device=dev)
     slots = torch.arange(c, device=dev)
     for j in range(cfg.top_k):
-        oh = torch.nn.functional.one_hot(gate_idx[..., j], e)  # (g, s, E) int64
+        oh = _one_hot(gate_idx[..., j], e, torch.int64)  # (g, s, E)
         if token_mask is not None:
             oh = oh * token_mask[..., None].to(oh.dtype)
         pos = torch.cumsum(oh, dim=1) - 1 + fill[:, None, :]  # (g, s, E)
@@ -136,10 +188,13 @@ def _routing(
         # one_hot(pos_tok, c) * keep: out-of-range positions give zero rows
         slot_oh = ((pos_tok[..., None] == slots) & keep[..., None]).to(torch.float32)
         contrib = oh[..., None].to(torch.float32) * slot_oh[:, :, None, :]  # (g,s,E,C)
-        dispatch = dispatch + contrib.to(torch.bfloat16)
-        combine = combine + contrib * gate_vals[..., j][..., None, None]
+        dispatch = _acc(dispatch, contrib.to(torch.bfloat16))
+        if light:
+            slot_gate = _acc(slot_gate, torch.einsum("gsec,gs->gec", contrib, gate_vals[..., j]))
+        else:
+            combine = _acc(combine, contrib * gate_vals[..., j][..., None, None])
         fill = fill + torch.sum(oh * keep[..., None].to(oh.dtype), dim=1)
-    return dispatch, combine, aux
+    return dispatch, combine, slot_gate, aux
 
 
 #: MoE activation -> fused matmul-epilogue name (kernels.pvq_matmul.ACTIVATIONS)
@@ -171,7 +226,7 @@ def _expert_matmul(buf: torch.Tensor, w, *, activation: str = "none", act_quant=
     from ..core.packed import is_packed
 
     if not is_packed(w):
-        y = torch.einsum("gecd,edf->gecf", buf, w.to(buf.dtype))
+        y = _einsum("gecd,edf->gecf", buf, w.to(buf.dtype))
         return _act(activation, y) if activation != "none" else y
     from ..kernels import ops
 
@@ -186,10 +241,15 @@ def _expert_matmul(buf: torch.Tensor, w, *, activation: str = "none", act_quant=
     return y.reshape(e, g, c, f).permute(1, 0, 2, 3).to(buf.dtype)
 
 
-def moe_forward(p: Params, x: torch.Tensor, cfg: MoEConfig, *, train: bool = False,
-                rng: Optional[torch.Generator] = None,
+def moe_forward(p: Params, x: torch.Tensor, cfg: MoEConfig, *, expert_constraint=None,
+                train: bool = False, rng: Optional[torch.Generator] = None,
                 act_quant=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns ``(out (b, s, d), aux_loss)``.
+
+    ``expert_constraint`` lays out the (g, E, C, d) dispatch buffer
+    (experts on the model axis: the token-to-expert all-to-all) and the
+    expert output buffer before the combine (on a mesh, DTensor's
+    propagation does not infer a layout there that its reshapes can take).
 
     ``train=True`` with a generator ``rng`` (on x's device) multiplies the
     router logits by uniform noise in ``1 +- cfg.router_jitter``; without
@@ -211,7 +271,9 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: MoEConfig, *, train: bool = Fal
     if pad:
         tokens = torch.cat([tokens, tokens.new_zeros((pad, d))])
     g = tokens.shape[0] // gs
-    xg = tokens.reshape(g, gs, d)
+    # groups over the data axes, tokens of a group whole: DTensor cannot
+    # flatten the gradient back to tokens when a group's tokens are sharded
+    xg = constrain(tokens.reshape(g, gs, d), "dp", None, None)
     token_mask = None
     if pad:
         token_mask = (torch.arange(g * gs, device=x.device) < t).reshape(g, gs)
@@ -222,10 +284,15 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: MoEConfig, *, train: bool = Fal
         noise = torch.empty_like(logits).uniform_(1.0 - cfg.router_jitter,
                                                   1.0 + cfg.router_jitter, generator=rng)
         logits = logits * noise
-    dispatch, combine, aux = _routing(logits, cfg, token_mask=token_mask)
+    from ..parallel.sharding import current_policy
+
+    light = current_policy().moe_light_combine
+    dispatch, combine, slot_gate, aux = _routing(logits, cfg, light=light, token_mask=token_mask)
 
     # dispatch: each slot holds at most one token, so this sum is exact
-    buf = torch.einsum("gsd,gsec->gecd", xg, dispatch.to(xg.dtype))
+    buf = _einsum("gsd,gsec->gecd", xg, dispatch.to(xg.dtype))
+    if expert_constraint is not None:
+        buf = expert_constraint(buf)
 
     if act_quant is None:
         act_quant = default_act_quant()
@@ -242,7 +309,14 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: MoEConfig, *, train: bool = Fal
                              act_quant=act_quant if is_packed(p["wo_experts"]) else None)
 
     # combine: the gate-weighted sum of a token's (up to top_k) slots
-    out = torch.einsum("gecd,gsec->gsd", out_buf, combine.to(out_buf.dtype))
+    if light:
+        out_buf = out_buf * slot_gate[..., None].to(out_buf.dtype)
+    if expert_constraint is not None:
+        out_buf = expert_constraint(out_buf)
+    if light:
+        out = _einsum("gecd,gsec->gsd", out_buf, dispatch.to(out_buf.dtype))
+    else:
+        out = _einsum("gecd,gsec->gsd", out_buf, combine.to(out_buf.dtype))
     out = out.reshape(-1, d)[:t].reshape(b, s, d)
     if cfg.n_shared:
         out = out + ffn(p["shared"], x, cfg.activation)

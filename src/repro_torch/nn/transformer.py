@@ -23,8 +23,20 @@ its static cache (``launch.serve``).
 Train mode carries the MoE aux loss up the stack and a generator per layer
 (:func:`fold_in`, the counterpart of ``jax.random.fold_in``): segment ``i``
 of a model's generator, then layer ``r`` and block ``b`` of the segment's.
-The reference's remat policy (``jax.checkpoint`` over the scan body) is a
-memory policy, not a numerical one; it comes with the multi-device code.
+
+Train mode rematerialises each layer (the reference's ``jax.checkpoint``
+over its scan body), by ``ShardingPolicy.remat`` (``parallel.sharding``):
+``full`` checkpoints the layer's body (``torch.utils.checkpoint``, the
+default), ``dots`` saves the outputs of its matmuls (``aten.mm``, ``bmm``,
+``addmm``, ``baddbmm``: ``dots_saveable``) and recomputes the rest,
+``collectives`` checkpoints the mixer and the FFN each on its own so that
+their outputs (the reference's ``mixer_out``/``ffn_out`` names) are what is
+kept, and ``none`` keeps every activation.  A layer's generators are made
+inside the checkpointed function (or replayed from their state), so the
+recompute draws the router jitter the forward drew; the gradients are the
+ones without remat, bit for bit.  Activation layouts go through
+``parallel.sharding.constrain`` at the reference's call sites (no-ops
+without an active mesh).
 """
 
 from __future__ import annotations
@@ -37,6 +49,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core.packed import is_packed
+from ..parallel.sharding import constrain, current_policy
 from . import attention as attn_lib
 from . import layers as L
 from . import mamba as mamba_lib
@@ -206,15 +219,74 @@ def fold_in(gen: Optional[torch.Generator], *data: int) -> Optional[torch.Genera
     return out
 
 
+def _head_constraint(t):
+    return constrain(t, "dp", None, "tp", None)
+
+
+def _ffn_hidden_constraint(t):
+    return constrain(t, "dp", None, "tp")
+
+
+def _expert_constraint(t):
+    return constrain(t, "dp", "tp", None, None)
+
+
+def _replay(gen: Optional[torch.Generator]):
+    """A function that returns a new generator in ``gen``'s present state
+    (None stays None): a checkpointed call that draws from it draws the
+    same numbers again when it is recomputed."""
+    if gen is None:
+        return lambda: None
+    state, device = gen.get_state(), gen.device
+
+    def fresh():
+        out = torch.Generator(device=device)
+        out.set_state(state)
+        return out
+
+    return fresh
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.baddbmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpoint(fn, *args, policy: str = "full"):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant; every
+    draw comes from an explicit generator, so no RNG state is stashed);
+    ``dots`` saves the matmul outputs."""
+    from functools import partial
+
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = partial(create_selective_checkpoint_contexts, _dots_policy)
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
+
+
 def _ffn(cfg, spec: BlockSpec, p: Params, h: torch.Tensor, *, train: bool = False,
-         rng: Optional[torch.Generator] = None,
-         x_prev: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+         rng: Optional[torch.Generator] = None, x_prev: Optional[torch.Tensor] = None,
+         constrained: bool = False,
+         expert_layout: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """``(y, aux_loss or None)``: the MoE FFN returns its Switch aux loss;
-    ``x_prev`` is the channel mix's last token before ``h`` (decode)."""
+    ``x_prev`` is the channel mix's last token before ``h`` (decode);
+    ``constrained`` lays out the hidden (dense) or the expert buffers (MoE)
+    on the model axis (the full-sequence forward); ``expert_layout`` the
+    expert buffers only (decode: on a mesh, the propagation needs it)."""
     if spec.ffn in ("dense", "dense0"):
-        return L.ffn(p, h, cfg.ffn_activation), None
+        return L.ffn(p, h, cfg.ffn_activation,
+                     hidden_constraint=_ffn_hidden_constraint if constrained else None), None
     if spec.ffn == "moe":
-        return moe_lib.moe_forward(p, h, cfg.moe, train=train, rng=rng)
+        return moe_lib.moe_forward(
+            p, h, cfg.moe, train=train, rng=rng,
+            expert_constraint=_expert_constraint if (constrained or expert_layout) else None)
     if spec.ffn == "cmix":
         return rwkv_lib.rwkv_channel_mix(p, h, x_prev=x_prev), None
     raise ValueError(spec.ffn)
@@ -227,43 +299,61 @@ def _last_token(h: torch.Tensor) -> torch.Tensor:
 
 def block_forward(cfg, spec: BlockSpec, p: Params, x: torch.Tensor, *, mode: str,
                   enc_out: Optional[torch.Tensor] = None, prefix_len: int = 0,
-                  rng: Optional[torch.Generator] = None):
+                  rng: Optional[torch.Generator] = None, remat_parts: bool = False):
     """Returns ``(x, aux_loss or None, cache_entry_or_None)``; mode is
     'train' or 'prefill'.  The aux loss is the MoE FFN's (None for a dense
     FFN).  ``enc_out`` is the encoder's output (a cross block attends to
     it and, in prefill, caches its keys and values); ``prefix_len`` the
     VLM's patch prefix (the prefix-LM mask).  ``rng`` (train only) feeds
-    the MoE router jitter; None keeps every layer deterministic."""
+    the MoE router jitter; None keeps every layer deterministic.
+    ``remat_parts`` (train, the ``collectives`` remat policy) checkpoints
+    the mixer (norm, mixer, output layout) and the FFN each on its own."""
     cache: Dict[str, Any] = {}
-    h = _norm(cfg, p["ln_mix"], x)
-    if spec.mixer == "attn":
-        y, k, v = attn_lib.attention_forward(
-            p["mixer"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-            head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta, causal=spec.causal,
-            prefix_len=prefix_len, return_kv=True,
-        )
-        if mode == "prefill":
-            cache["kv"] = attn_lib.kv_cache_from_prefill(k, v)
-    elif spec.mixer == "mla":
-        y, mc = mla_lib.mla_forward(p["mixer"], h, n_heads=cfg.n_heads, cfg=cfg.mla,
-                                    return_cache=True)
-        if mode == "prefill":
-            cache["mla"] = mc
-    elif spec.mixer == "mamba":
-        if mode == "prefill":
-            y, cache["mamba"] = mamba_lib.mamba_forward(p["mixer"], h, cfg.ssm, return_state=True)
-        else:
-            y = mamba_lib.mamba_forward(p["mixer"], h, cfg.ssm)
-    elif spec.mixer == "rwkv":
-        if mode == "prefill":
-            y, cache["rwkv_state"] = rwkv_lib.rwkv_time_mix(p["mixer"], h, cfg.rwkv,
+
+    def mixer_part(x):
+        h = _norm(cfg, p["ln_mix"], x)
+        if spec.mixer == "attn":
+            y, k, v = attn_lib.attention_forward(
+                p["mixer"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta, causal=spec.causal,
+                prefix_len=prefix_len, return_kv=True, head_constraint=_head_constraint,
+            )
+            if mode == "prefill":
+                cache["kv"] = attn_lib.kv_cache_from_prefill(k, v)
+        elif spec.mixer == "mla":
+            y, mc = mla_lib.mla_forward(p["mixer"], h, n_heads=cfg.n_heads, cfg=cfg.mla,
+                                        return_cache=True)
+            if mode == "prefill":
+                cache["mla"] = mc
+        elif spec.mixer == "mamba":
+            if mode == "prefill":
+                y, cache["mamba"] = mamba_lib.mamba_forward(p["mixer"], h, cfg.ssm,
                                                             return_state=True)
-            cache["rwkv_shift_att"] = _last_token(h)
+            else:
+                y = mamba_lib.mamba_forward(p["mixer"], h, cfg.ssm)
+        elif spec.mixer == "rwkv":
+            if mode == "prefill":
+                y, cache["rwkv_state"] = rwkv_lib.rwkv_time_mix(p["mixer"], h, cfg.rwkv,
+                                                                return_state=True)
+                cache["rwkv_shift_att"] = _last_token(h)
+            else:
+                y = rwkv_lib.rwkv_time_mix(p["mixer"], h, cfg.rwkv)
         else:
-            y = rwkv_lib.rwkv_time_mix(p["mixer"], h, cfg.rwkv)
-    else:
-        raise ValueError(spec.mixer)
-    x = x + y
+            raise ValueError(spec.mixer)
+        return constrain(y, "dp", "sp", None)
+
+    replay = _replay(rng)
+
+    def ffn_part(x):
+        h = _norm(cfg, p["ln_ffn"], x)
+        y, aux = _ffn(cfg, spec, p["ffn"], h, train=(mode == "train"), rng=replay(),
+                      constrained=True)
+        if spec.ffn == "cmix" and mode == "prefill":
+            cache["rwkv_shift_ffn"] = _last_token(h)
+        return constrain(y, "dp", "sp", None), aux
+
+    y = _checkpoint(mixer_part, x) if remat_parts else mixer_part(x)
+    x = constrain(x + y, "dp", "sp", None)
     if spec.cross:
         h = _norm(cfg, p["ln_cross"], x)
         enc_kv = attn_lib.cross_kv(p["cross"], enc_out, n_heads=cfg.n_heads,
@@ -272,11 +362,8 @@ def block_forward(cfg, spec: BlockSpec, p: Params, x: torch.Tensor, *, mode: str
                                                  head_dim=cfg.resolved_head_dim)
         if mode == "prefill":
             cache["cross"] = enc_kv
-    h = _norm(cfg, p["ln_ffn"], x)
-    y, aux = _ffn(cfg, spec, p["ffn"], h, train=(mode == "train"), rng=rng)
-    if spec.ffn == "cmix" and mode == "prefill":
-        cache["rwkv_shift_ffn"] = _last_token(h)
-    x = x + y
+    y, aux = _checkpoint(ffn_part, x) if remat_parts else ffn_part(x)
+    x = constrain(x + y, "dp", "sp", None)
     return x, aux, (cache if mode == "prefill" else None)
 
 
@@ -311,7 +398,8 @@ def block_decode(cfg, spec: BlockSpec, p: Params, x: torch.Tensor, cache: Dict[s
                                                  n_heads=cfg.n_heads,
                                                  head_dim=cfg.resolved_head_dim)
     h = _norm(cfg, p["ln_ffn"], x)
-    x = x + _ffn(cfg, spec, p["ffn"], h, x_prev=cache.get("rwkv_shift_ffn"))[0]
+    x = x + _ffn(cfg, spec, p["ffn"], h, x_prev=cache.get("rwkv_shift_ffn"),
+                 expert_layout=True)[0]
     if spec.ffn == "cmix":
         new_cache["rwkv_shift_ffn"] = _last_token(h)
     return x, new_cache
@@ -374,25 +462,40 @@ def init_block_cache(cfg, spec: BlockSpec, batch: int, cache_len: int, device, *
 
 def run_segment(cfg, seg: Segment, seg_params: Params, x: torch.Tensor, *, mode: str,
                 enc_out: Optional[torch.Tensor] = None, prefix_len: int = 0,
-                rng: Optional[torch.Generator] = None):
+                remat: bool = True, rng: Optional[torch.Generator] = None):
     """Returns ``(x, aux, caches or None)``: in train mode ``aux`` is the
     layers' aux losses summed (an f32 scalar, 0 without MoE), in prefill
     None (the serving callers drop it, and their steps stay as they were);
-    layer ``r``'s block ``i`` draws from ``fold_in(fold_in(rng, r), i)``."""
+    layer ``r``'s block ``i`` draws from ``fold_in(fold_in(rng, r), i)``.
+    In train mode with ``remat``, each layer is rematerialised by the
+    active ``ShardingPolicy.remat`` (the module docstring)."""
     repeats, pattern = seg
     train = mode == "train"
+    policy = current_policy().remat if (train and remat) else "none"
+    if policy not in ("full", "dots", "collectives", "none"):
+        raise ValueError(f"unknown remat policy {policy!r}")
     aux = torch.zeros((), dtype=torch.float32, device=x.device) if train else None
     caches: Optional[List[Dict[str, Any]]] = [] if mode == "prefill" else None
-    for r, p_r in enumerate(unstack_layers(seg_params, repeats)):
+
+    def layer(x, aux, p_r, r):
         rng_r = fold_in(rng, r)
         layer_cache = {}
         for i, spec in enumerate(pattern):
             x, aux_i, c = block_forward(cfg, spec, p_r[f"b{i}"], x, mode=mode, enc_out=enc_out,
-                                        prefix_len=prefix_len, rng=fold_in(rng_r, i))
+                                        prefix_len=prefix_len, rng=fold_in(rng_r, i),
+                                        remat_parts=policy == "collectives")
             if train and aux_i is not None:
                 aux = aux + aux_i
             if c is not None:
                 layer_cache[f"b{i}"] = c
+        return x, aux, layer_cache
+
+    for r, p_r in enumerate(unstack_layers(seg_params, repeats)):
+        if policy in ("full", "dots"):
+            x, aux = _checkpoint(lambda x, aux, p_r=p_r, r=r: layer(x, aux, p_r, r)[:2], x, aux,
+                                 policy=policy)
+            continue
+        x, aux, layer_cache = layer(x, aux, p_r, r)
         if caches is not None:
             caches.append(layer_cache)
     return x, aux, caches

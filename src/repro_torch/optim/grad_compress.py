@@ -10,12 +10,15 @@ error does not bias convergence.
 * ``compress_decompress(g, cfg)``: the quantization channel (pure);
 * ``make_ef_compressor(cfg)``: the error-feedback transform
   ``(grads, ef_state) -> (decoded grads, new ef_state)``;
+* ``cross_pod_mean(grads, cfg, axis='pod')``: the compressed all-reduce
+  over a mesh axis: encode the local gradient, all-gather the codes over
+  the axis's process group, decode and average (the identity when there is
+  no such axis);
 * ``wire_bytes(grads, cfg)``: compressed against f32 bytes a participant.
 
 The ``ls`` scale mode runs the encoder through ``kernels.ops`` (the encode
 kernel on a CUDA tensor, its plain version on the CPU); the other modes run
-the exact core encoder.  The reference's ``cross_pod_mean``, a compressed
-all-gather over a ``pod`` mesh axis, belongs to the multi-device code.
+the exact core encoder.
 """
 
 from __future__ import annotations
@@ -97,6 +100,49 @@ def make_ef_compressor(cfg: CompressionConfig):
         return tree_map(lambda t: t[0], out), tree_map(lambda t: t[1], out)
 
     return init, apply
+
+
+def cross_pod_mean(grads: Any, cfg: CompressionConfig, axis: str = "pod", *,
+                   mesh=None) -> Any:
+    """Compressed mean over the mesh axis ``axis`` (of ``mesh``, else the
+    active mesh), called on every rank of it with that rank's gradients.
+
+    Each participant encodes its local gradient; int8 pulses + f32 scales
+    are all-gathered over the axis's process group (~1.02 B a value on the
+    wire instead of 4); everyone decodes and averages.  Leaves below
+    ``cfg.min_size`` are averaged exactly (an all-reduce); ``PackedPVQ``
+    leaves (frozen, replicated) come back untouched.  Without a mesh, a
+    process group or such an axis this is the identity."""
+    import torch.distributed as dist
+
+    from ..parallel.sharding import active_mesh
+
+    mesh = mesh if mesh is not None else active_mesh()
+    if mesh is None or not dist.is_initialized() or axis not in (mesh.mesh_dim_names or ()):
+        return grads
+    dim = mesh.mesh_dim_names.index(axis)
+    group, n = mesh.get_group(dim), mesh.size(dim)
+
+    def one(g):
+        if is_packed(g):
+            return g  # frozen packed artifact: replicated, nothing to reduce
+        flat = g.reshape(-1).to(torch.float32)
+        if flat.numel() < cfg.min_size:
+            total = g.clone()
+            dist.all_reduce(total, group=group)
+            return total / n
+        pulses_i32, scales = _encode_grouped(flat, cfg)
+        pulses = kernel_ops.pulses_to_int8(pulses_i32)  # (G, group) wire format
+        scales = scales.to(torch.float32).contiguous()  # (G,)
+        all_pulses = [torch.empty_like(pulses) for _ in range(n)]
+        all_scales = [torch.empty_like(scales) for _ in range(n)]
+        dist.all_gather(all_pulses, pulses.contiguous(), group=group)
+        dist.all_gather(all_scales, scales, group=group)
+        deq = torch.stack(all_pulses).to(torch.float32) * torch.stack(all_scales)[..., None]
+        mean = torch.mean(deq, dim=0).reshape(-1)[: flat.numel()]
+        return mean.reshape(g.shape).to(g.dtype)
+
+    return tree_map(one, grads)
 
 
 def wire_bytes(grads: Any, cfg: CompressionConfig) -> Tuple[int, int]:

@@ -1552,3 +1552,46 @@ def test_cuda_checkpoint_round_trip_of_device_tensors(tmp_path):
     assert pk.pulses.device.type == "cuda"
     assert torch.equal(pk.pulses, params["pk"]["kernel"].pulses)
     assert torch.equal(pk.scales, params["pk"]["kernel"].scales)
+
+
+@needs_cuda
+def test_one_rank_nccl_mesh_train_step_is_launch_train_step(tmp_path):
+    """``launch.steps.make_train_step`` on a world-size-1 NCCL group and
+    ``make_debug_mesh(1, 1)`` (parameters, moments and batch as DTensors)
+    gives ``launch.train``'s step, reduced smollm-360m on the card: loss,
+    grad norm and params identical over two steps."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import TokenLoader, TokenTask
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.nn.models import build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.parallel.sharding import distribute, full_tree
+
+    cfg = get_config("smollm-360m").reduced()
+    model = build_model(cfg)
+    optimizer = AdamW(lr=3e-3)
+    state, step_fn = train.make_state_and_step(model, optimizer, seed=0, device="cuda")
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_debug_mesh(1, 1)
+        bundle = make_train_step(model, optimizer, mesh, ShapeConfig("t", "train", 16, 4), seed=0)
+        loader = TokenLoader(TokenTask(cfg.vocab_size, seed=0), 4, 16, seed=0, device="cuda")
+        params, opt, _ = bundle.distribute(state[0], state[1], loader.device_batch(0))
+        for step in range(2):
+            batch = loader.device_batch(step)
+            state, want = step_fn(state, batch)
+            laid = {k: distribute(v, bundle.in_shardings[2][k]) for k, v in batch.items()}
+            params, opt, got = bundle.run(params, opt, laid)
+            for k in ("loss", "grad_norm"):
+                assert float(full_tree(got[k])) == float(want[k]), (step, k)
+        for a, b in zip(tree_leaves(full_tree(params)), tree_leaves(state[0])):
+            assert torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()

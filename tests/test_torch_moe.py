@@ -140,7 +140,7 @@ def test_routing_matches_reference(n_experts, top_k, g, s, pad):
     disp_r, comb_r, _, aux_r = routing(
         jnp.asarray(logits), cfg_r, token_mask=None if mask is None else jnp.asarray(mask)
     )
-    disp_p, comb_p, aux_p = port_moe._routing(
+    disp_p, comb_p, _, aux_p = port_moe._routing(
         torch.from_numpy(logits), cfg_p, token_mask=None if mask is None else torch.from_numpy(mask)
     )
     np.testing.assert_array_equal(disp_p.float().numpy(), np.asarray(disp_r, np.float32))
