@@ -57,6 +57,19 @@ admission -> batcher -> page table -> prefill/decode steps
   captures: ``warmup`` captures the decode graphs, every bucket it visits
   and the chunk graph; a context re-admitted into a new bucket captures in
   the run, as the reference retraces.
+
+* **Spans** (``runtime.obs``: into the registry when it is enabled, into a
+  running ``torch.profiler``'s trace on its clock): a loop iteration of
+  :meth:`PVQEngine.run` is ``engine/admit`` (holding ``engine/prefill``
+  and ``engine/graft``), ``engine/prefill_chunk``, ``engine/decode_step``
+  (``engine/decode_prep``: evictions, pages, host arrays, tables and the
+  input copy; ``engine/decode_launch``: the replay; ``engine/decode_wait``:
+  the tokens' read; ``engine/decode_post``: tokens appended, retirements)
+  and ``engine/yield``, the await in which the feeder queues what fell due.
+  Every place the host blocks on the device is a span ending in ``_wait``
+  (``engine/prefill_wait``, ``engine/chunk_wait``, ``engine/graft_wait``).
+  The feeder stamps each request's ``due_t``; ``report()`` times latency
+  and TTFT from it.
 """
 
 from __future__ import annotations
@@ -230,6 +243,10 @@ class Request:
     eos_id: Optional[int] = None
     arrival: float = 0.0  # seconds offset within the trace
     generated: List[int] = dataclasses.field(default_factory=list)
+    # when the feeder was due to queue it (the run's start plus the scaled
+    # arrival), and when it was queued: the loop yields to the feeder only
+    # between iterations, so ``submit_t - due_t`` is the feeder's lateness
+    due_t: Optional[float] = None
     submit_t: Optional[float] = None
     first_token_t: Optional[float] = None
     finish_t: Optional[float] = None
@@ -241,12 +258,18 @@ class Request:
     evict_cost_s: float = 0.0
     evict_t: Optional[float] = None  # in-flight eviction timestamp
     # TTFT decomposition: queue_wait_s + prefill_compute_s + chunk_wait_s
-    # ~= first_token_t - submit_t
+    # ~= first_token_t - submit_t (and the feeder's lateness before it)
     admit_t: Optional[float] = None
     prefill_compute_s: float = 0.0
     chunk_wait_s: float = 0.0
     # pages mapped from the shared-prefix cache
     prefix_hit_pages: int = 0
+
+    @property
+    def origin_t(self) -> Optional[float]:
+        """Where its latency and TTFT count from: when it was due, for a
+        request the feeder released, else when it was queued."""
+        return self.due_t if self.due_t is not None else self.submit_t
 
     @property
     def done(self) -> bool:
@@ -341,9 +364,16 @@ def _paged_leaves(cache) -> List:
     return []
 
 
-def _argmax_last(logits: torch.Tensor) -> np.ndarray:
-    """Greedy token of each row's last position, on the host (syncs)."""
-    return torch.argmax(logits[:, -1, :], dim=-1).cpu().numpy()
+def _read(span: str, tokens: torch.Tensor) -> np.ndarray:
+    """A step's tokens on the host, under the ``*_wait`` span ``span``: the
+    read waits for the device to finish the step."""
+    with obs.span(span):
+        return tokens.cpu().numpy()
+
+
+def _argmax_last(logits: torch.Tensor) -> torch.Tensor:
+    """Greedy token of each row's last position, on the device."""
+    return torch.argmax(logits[:, -1, :], dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -544,16 +574,20 @@ class PVQEngine:
                 fill: Optional[bool] = None) -> np.ndarray:
         """One decode step over the slot pool; the next tokens on the host.
         ``fill`` (default: whether a slot writes a page) picks the graph."""
-        self._set_tables(write_page)
-        step_in = np.concatenate([tokens.reshape(-1), pos, write_page]).astype(np.int64)
-        self._step_in["all"].copy_(torch.from_numpy(step_in))
-        if self.eager:
-            logits, self.cache = self.model.decode_step(
-                self.params, self.cache, self._step_in["tok"], self._step_in["pos"])
-            return _argmax_last(logits)
-        if fill is None:
-            fill = bool((write_page != self.alloc.trash).any())
-        return self._replay("decode", (fill,), lambda: self._decode_body(fill)).cpu().numpy()
+        with obs.span("engine/decode_prep"):
+            self._set_tables(write_page)
+            step_in = np.concatenate([tokens.reshape(-1), pos, write_page]).astype(np.int64)
+            self._step_in["all"].copy_(torch.from_numpy(step_in))
+        with obs.span("engine/decode_launch"):
+            if self.eager:
+                logits, self.cache = self.model.decode_step(
+                    self.params, self.cache, self._step_in["tok"], self._step_in["pos"])
+                tok = _argmax_last(logits)
+            else:
+                if fill is None:
+                    fill = bool((write_page != self.alloc.trash).any())
+                tok = self._replay("decode", (fill,), lambda: self._decode_body(fill))
+        return _read("engine/decode_wait", tok)
 
     def _decode_body(self, fill: bool) -> torch.Tensor:
         """The step a graph captures: every input from the static buffers,
@@ -572,7 +606,7 @@ class PVQEngine:
             with kv_quant_scope(None):
                 logits, pre = self.model.prefill_bucketed(
                     self.params, {"tokens": self._tokens(tokens)}, self._tokens(real_len))
-            return _argmax_last(logits), pre
+            return _read("engine/prefill_wait", _argmax_last(logits)), pre
         lb = tokens.shape[1]
         if lb not in self._adm_in:
             b = self.prefill_batch
@@ -581,7 +615,7 @@ class PVQEngine:
         host = np.concatenate([tokens.reshape(-1), real_len, slots, page_ids.reshape(-1)])
         self._adm_in[lb]["all"].copy_(torch.from_numpy(host.astype(np.int64)))
         tok, pre = self._replay("prefill", (lb,), lambda: self._prefill_body(lb))
-        return tok.cpu().numpy(), pre
+        return _read("engine/prefill_wait", tok), pre
 
     def _prefill_body(self, lb: int):
         buf = self._adm_in[lb]
@@ -631,14 +665,14 @@ class PVQEngine:
             logits, self.cache = self.model.prefill_chunk(
                 self.params, self.cache, self._tokens(tokens), slot, start, page_ids, real_len
             )
-            return _argmax_last(logits)
+            return _read("engine/chunk_wait", _argmax_last(logits))
         if self._chunk_in is None:
             ctk = self.chunk_tokens
             self._chunk_in = self._inputs({"tokens": (1, ctk), "slot": (1,), "start": (1,),
                                            "real": (1,), "page_ids": (ctk // self.page,)})
         host = np.concatenate([tokens.reshape(-1), [slot, start, real_len], page_ids])
         self._chunk_in["all"].copy_(torch.from_numpy(host.astype(np.int64)))
-        return self._replay("chunk", (), self._chunk_body).cpu().numpy()
+        return _read("engine/chunk_wait", self._replay("chunk", (), self._chunk_body))
 
     def _chunk_body(self) -> torch.Tensor:
         buf = self._chunk_in
@@ -699,17 +733,20 @@ class PVQEngine:
         same-bucket prompts are batch-claimed up to ``prefill_batch``; long
         or prefix-hitting prompts enter the chunked state machine."""
         admitted = 0
-        while self.pending:
-            req = self.pending[0]
-            self.validate(req)
-            ctx = self._ctx_tokens(req)
-            if self._chunk_routed(ctx):
-                n = self._admit_chunked(req, ctx, t_now)
-            else:
-                n = self._admit_batch(t_now)
-            if not n:
-                break
-            admitted += n
+        if not self.pending:
+            return admitted
+        with obs.span("engine/admit"):
+            while self.pending:
+                req = self.pending[0]
+                self.validate(req)
+                ctx = self._ctx_tokens(req)
+                if self._chunk_routed(ctx):
+                    n = self._admit_chunked(req, ctx, t_now)
+                else:
+                    n = self._admit_batch(t_now)
+                if not n:
+                    break
+                admitted += n
         return admitted
 
     def _admit_chunked(self, req: Request, ctx: List[int], t_now) -> int:
@@ -814,15 +851,18 @@ class PVQEngine:
         for arr in (toks, real, slots, ids_arr):
             arr[n:] = arr[0]
         t0 = time.perf_counter()
-        with obs.span("engine/prefill", args={"bucket": lb, "rows": n, "batch": bsz}):
+        with obs.span("engine/prefill", args={"bucket": lb, "rows": n, "batch": bsz}
+                      if obs.tracing() else None):
             tok_host, pre = self._prefill(toks, real, slots, ids_arr)
         if obs.enabled() and self._kv_probe_budget > 0 and int(real[0]) >= page:
             self._kv_probe_budget -= 1
             self._probe_kv_quality(pre)
-        with obs.span("engine/graft", args={"rows": n, "pages": int((real[:n] // page).sum())}):
+        with obs.span("engine/graft", args={"rows": n, "pages": int((real[:n] // page).sum())}
+                      if obs.tracing() else None):
             self._graft(pre, slots, ids_arr, real)
             if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+                with obs.span("engine/graft_wait"):
+                    torch.cuda.synchronize(self.device)
         del pre
         dt = time.perf_counter() - t0
         self.stats["prefill_batches"] += 1
@@ -872,6 +912,17 @@ class PVQEngine:
         if not cand:
             return 0
         s, st = min(cand, key=lambda t: t[1].admit_order)
+        args = None
+        if obs.tracing():
+            plen = len(st.ctx)
+            args = {"rid": st.req.rid, "start": st.chunk_pos,
+                    "end": min(st.chunk_pos + self.chunk_tokens, plen), "ctx": plen}
+        with obs.span("engine/prefill_chunk", args=args):
+            return self._chunk_step(s, st)
+
+    def _chunk_step(self, s: int, st: "_Slot") -> int:
+        """Slot ``s``'s next chunk: its inputs, the step, the pages it
+        registers, and at the context's end the move to phase "decode"."""
         req, ctx = st.req, st.ctx
         plen = len(ctx)
         n_full = plen // self.page
@@ -886,10 +937,7 @@ class PVQEngine:
             if b0 + j < n_full:
                 page_ids[j] = st.pages[b0 + j]
         t0 = time.perf_counter()
-        with obs.span("engine/prefill_chunk", args={
-            "rid": req.rid, "start": start, "end": end, "ctx": plen,
-        }):
-            tok0 = self._chunk(toks, s, start, page_ids, plen)
+        tok0 = self._chunk(toks, s, start, page_ids, plen)
         req.prefill_compute_s += time.perf_counter() - t0
         self.stats["chunks"] += 1
         if self.prefix_cache and st.block_keys:
@@ -952,10 +1000,10 @@ class PVQEngine:
         self.finished.append(req)
         if obs.enabled():
             obs.counter("engine.requests_finished").inc()
-            if req.submit_t is not None:
-                obs.histogram("engine.request_latency_s").record(req.finish_t - req.submit_t)
+            if req.origin_t is not None:
+                obs.histogram("engine.request_latency_s").record(req.finish_t - req.origin_t)
                 if req.first_token_t is not None:
-                    obs.histogram("engine.ttft_s").record(req.first_token_t - req.submit_t)
+                    obs.histogram("engine.ttft_s").record(req.first_token_t - req.origin_t)
             obs.histogram("engine.queue_wait_s").record(req.queue_wait_s)
             obs.histogram("engine.prefill_compute_s").record(req.prefill_compute_s)
             obs.histogram("engine.chunk_wait_s").record(req.chunk_wait_s)
@@ -997,13 +1045,34 @@ class PVQEngine:
         the youngest active sequence is evicted until it can (a lone
         sequence never needs more than ``max_pages <= n_pages``).  Slots in
         phase "prefill" neither decode nor get evicted."""
+        if not any(st is not None and st.phase == "decode" for st in self.slots):
+            return 0
+        span = obs.span("engine/decode_step")
+        with span:
+            with obs.span("engine/decode_prep"):
+                inputs = self._decode_inputs()
+            if inputs is None:  # the evictions emptied the pool
+                return 0
+            active, tokens, pos, write_page = inputs
+            if obs.enabled():
+                span.args = {"active": len(active), "queue": len(self.pending),
+                             "free_pages": self.alloc.available}
+            tok_host = self._decode(tokens, pos, write_page)
+            with obs.span("engine/decode_post"):
+                self._decode_done(active, tok_host)
+        return len(active)
+
+    def _decode_inputs(self):
+        """Evict until the pool covers every completing slot, then the
+        step's host arrays: ``(active, tokens, pos, write_page)`` (None when
+        no slot is left decoding)."""
         while True:
             active = [
                 (s, st) for s, st in enumerate(self.slots)
                 if st is not None and st.phase == "decode"
             ]
             if not active:
-                return 0
+                return None
             needed = sum(1 for _, st in active if (st.length + 1) % self.page == 0)
             if needed <= self.alloc.available:
                 break
@@ -1021,15 +1090,10 @@ class PVQEngine:
                 st.pages.append(pid)
                 self._page_table[s, st.length // self.page] = pid
                 write_page[s] = pid
+        return active, tokens, pos, write_page
 
-        span = obs.NOOP
-        if obs.enabled():
-            span = obs.span("engine/decode_step", args={
-                "active": len(active), "queue": len(self.pending),
-                "free_pages": self.alloc.available,
-            })
-        with span:
-            tok_host = self._decode(tokens, pos, write_page)
+    def _decode_done(self, active, tok_host: np.ndarray) -> None:
+        """Each active slot takes its token; the finished retire."""
         self.stats["steps"] += 1
         self.stats["active_slot_steps"] += len(active)
         self.stats["decode_tokens"] += len(active)
@@ -1047,7 +1111,6 @@ class PVQEngine:
             st.req.generated.append(int(tok_host[s]))
             if st.req.done:
                 self._retire(s)
-        return len(active)
 
     # --------------------------------------------------------------- warmup
 
@@ -1082,20 +1145,24 @@ class PVQEngine:
     # ------------------------------------------------------------- run loop
 
     async def _feed(self, trace: List[Request], t0: float, time_scale: float):
-        loop = asyncio.get_running_loop()
+        """Queue each request at ``t0 + arrival * time_scale`` (``perf_counter``),
+        its ``due_t``; the loop lets the feeder run only between iterations,
+        so a request falling due inside one is queued late."""
         for req in sorted(trace, key=lambda r: r.arrival):
-            delay = (t0 + req.arrival * time_scale) - loop.time()
+            req.due_t = t0 + req.arrival * time_scale
+            delay = req.due_t - time.perf_counter()
             if delay > 0:
                 await asyncio.sleep(delay)
             req.submit_t = time.perf_counter()
             self.pending.append(req)
+            if obs.enabled():
+                obs.histogram("engine.feed_late_s").record(req.submit_t - req.due_t)
 
     async def _run_async(self, trace: List[Request], time_scale: float):
         for req in trace:
             self.validate(req)
         t_start = time.perf_counter()
-        loop = asyncio.get_running_loop()
-        feeder = asyncio.create_task(self._feed(trace, loop.time(), time_scale))
+        feeder = asyncio.create_task(self._feed(trace, t_start, time_scale))
         last_step_end: Optional[float] = None
         try:
             while True:
@@ -1118,12 +1185,14 @@ class PVQEngine:
                     st is not None and st.phase == "prefill" for st in self.slots
                 )
                 if n or chunked:
-                    await asyncio.sleep(0)  # yield to the arrival feeder
+                    with obs.span("engine/yield"):
+                        await asyncio.sleep(0)  # yield to the arrival feeder
                 elif feeder.done() and not self.pending and not prefilling:
                     break
                 else:
                     last_step_end = None  # idle: gaps are not ITL samples
-                    await asyncio.sleep(0.0005)  # wait for arrivals
+                    with obs.span("engine/yield"):
+                        await asyncio.sleep(0.0005)  # wait for arrivals
         finally:
             await feeder
         return self.report(time.perf_counter() - t_start)
@@ -1141,10 +1210,11 @@ class PVQEngine:
         keys (0 on the CPU and with ``eager=True``)."""
         done = self.finished
         toks = sum(len(r.generated) for r in done)
-        lat = [r.finish_t - r.submit_t for r in done
-               if r.finish_t is not None and r.submit_t is not None]
-        ttft = [r.first_token_t - r.submit_t for r in done
-                if r.first_token_t is not None and r.submit_t is not None]
+        # from when each was due (``origin_t``), so the feeder's lateness counts
+        lat = [r.finish_t - r.origin_t for r in done
+               if r.finish_t is not None and r.origin_t is not None]
+        ttft = [r.first_token_t - r.origin_t for r in done
+                if r.first_token_t is not None and r.origin_t is not None]
         lat_h = Histogram.from_values(lat)
         ttft_h = Histogram.from_values(ttft)
         qwait_h = Histogram.from_values(r.queue_wait_s for r in done)

@@ -41,6 +41,7 @@ from ..nn.models import build_model
 from ..nn.transformer import fold_in
 from ..optim import AdamW, cosine_schedule
 from ..optim.adamw import tree_leaves, tree_map
+from ..runtime import obs
 from ..runtime.fault_tolerance import StragglerPolicy, TrainingRunner
 
 #: the reference's rule for the leaves ``--pvq-qat`` projects
@@ -77,15 +78,22 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 def loss_and_grads(model, params, batch, rng, project=lambda p: p):
     """``(loss, metrics, grads)``: ``model.loss`` of ``project(params)`` and
     its gradients with respect to ``params`` (a tree like ``params``; zeros
-    where a leaf does not reach the loss), the params themselves untouched."""
-    latent = tree_map(lambda p: p.detach().requires_grad_(True), params)
-    leaves = tree_leaves(latent)
+    where a leaf does not reach the loss), the params themselves untouched.
+    Its phases are the spans ``train/project``, ``train/forward`` and
+    ``train/backward``."""
     with torch.enable_grad():
-        loss, metrics = model.loss(project(latent), batch, rng)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    it = iter(torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads))
+        with obs.span("train/project"):
+            latent = tree_map(lambda p: p.detach().requires_grad_(True), params)
+            leaves = tree_leaves(latent)
+            projected = project(latent)
+        with obs.span("train/forward"):
+            loss, metrics = model.loss(projected, batch, rng)
+        with obs.span("train/backward"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            it = iter(torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads))
+            grads = tree_map(lambda _: next(it), params)
     metrics = {k: v.detach() for k, v in metrics.items()}
-    return loss.detach(), metrics, tree_map(lambda _: next(it), params)
+    return loss.detach(), metrics, grads
 
 
 def make_state_and_step(model, optimizer, *, pvq_qat=False, pvq_k=None, pvq_group=256, seed=0,
@@ -95,7 +103,9 @@ def make_state_and_step(model, optimizer, *, pvq_qat=False, pvq_k=None, pvq_grou
     ``state`` starts the run from given ``(params, opt_state)`` (e.g. the
     reference's, carried across by ``convert``) instead of ``model.init``.
     ``step_fn`` returns the new state and the metrics ``ce``, ``aux``,
-    ``accuracy``, ``loss`` and ``grad_norm`` as device scalars."""
+    ``accuracy``, ``loss`` and ``grad_norm`` as device scalars; a call is the
+    span ``train/step``, its phases those of :func:`loss_and_grads` and
+    ``train/optimizer``.  The step reads nothing back to the host."""
     if pvq_qat and pvq_k is None:
         raise ValueError("pvq_qat needs pvq_k, the pulses a group of the STE projection")
     if state is None:
@@ -104,11 +114,13 @@ def make_state_and_step(model, optimizer, *, pvq_qat=False, pvq_k=None, pvq_grou
     project = qat_projector(pvq_k, pvq_group) if pvq_qat else (lambda p: p)
 
     def step_fn(state, batch):
-        params, opt_state = state
-        rng = step_generator(seed, opt_state.step, tree_leaves(params)[0].device)
-        loss, metrics, grads = loss_and_grads(model, params, batch, rng, project)
-        params, opt_state, gnorm = optimizer.update(grads, opt_state, params)
-        return (params, opt_state), dict(metrics, loss=loss, grad_norm=gnorm)
+        with obs.span("train/step"):
+            params, opt_state = state
+            rng = step_generator(seed, opt_state.step, tree_leaves(params)[0].device)
+            loss, metrics, grads = loss_and_grads(model, params, batch, rng, project)
+            with obs.span("train/optimizer"):
+                params, opt_state, gnorm = optimizer.update(grads, opt_state, params)
+            return (params, opt_state), dict(metrics, loss=loss, grad_norm=gnorm)
 
     return state, step_fn
 

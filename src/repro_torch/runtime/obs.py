@@ -7,13 +7,14 @@ process registry::
 
     if obs.enabled():                      # hot paths guard first
         obs.counter("engine.decode_steps").inc()
-        with obs.span("engine/decode_step", args={"active": n}):
-            ...
+    with obs.span("engine/prefill", args={"rows": n} if obs.tracing() else None):
+        ...
 
 Every accessor delegates to the module registry; when it is disabled
-(the default) ``counter``/``gauge``/``histogram``/``span`` return the
-shared :data:`~repro_torch.runtime.telemetry.NOOP` singleton, so unguarded
-cold-path calls still cost nothing but an attribute lookup.
+(the default) ``counter``/``gauge``/``histogram`` return the shared
+:data:`~repro_torch.runtime.telemetry.NOOP` singleton, and so does
+``span`` unless a ``torch.profiler`` runs, when it records into the
+profiler's trace (:func:`tracing`).
 """
 
 from __future__ import annotations
@@ -31,6 +32,13 @@ def registry() -> telemetry.MetricsRegistry:
 
 def enabled() -> bool:
     return telemetry.get_registry().enabled
+
+
+def tracing() -> bool:
+    """Whether a span would record (the registry is enabled or a profiler
+    runs): the guard of a span's arguments.  Instruments and probes follow
+    :func:`enabled` alone."""
+    return telemetry.tracing()
 
 
 def set_enabled(on: bool) -> bool:

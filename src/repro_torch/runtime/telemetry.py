@@ -25,7 +25,16 @@ Tracing
 -------
 ``registry.span(name, args=...)`` is a context manager recording a
 Chrome trace-event *complete* event (``ph: "X"``) with microsecond
-timestamps; ``trace_counter(name, value)`` records a counter-track event
+timestamps while the registry is enabled, and an event of the same name
+in ``torch.profiler``'s trace while a profiler runs, whatever the
+registry: there it shares the profiler's clock with the kernels, so a
+reader of the trace sees what the host was doing in every gap of the
+device.  The profiler's event is a function-scope ``RecordFunction``
+(``torch._C._profiler._RecordFunctionFast``), not a user annotation, so
+Kineto adds no device-side copy of it and the trace's device events are
+those of a run without spans.  A span whose name ends in ``_wait`` is one
+in which the host waits for the device (a read of the step's tokens, a
+synchronisation).  ``trace_counter(name, value)`` records a counter-track event
 (``ph: "C"``) that perfetto renders as a time series (the engine emits
 queue-depth and page-pool-free this way every decode step).
 ``export_chrome_trace`` writes a ``trace.json`` loadable in
@@ -34,9 +43,13 @@ https://ui.perfetto.dev (open the file directly) or ``chrome://tracing``.
 Hot-path contract
 -----------------
 A **disabled** registry is a true no-op: ``counter()``/``gauge()``/
-``histogram()``/``span()`` all return the shared :data:`NOOP` singleton
-and allocate nothing.  Call sites on hot loops additionally guard with
-``obs.enabled()`` so not even argument tuples are built.  Nothing in
+``histogram()`` return the shared :data:`NOOP` singleton and allocate
+nothing, and so does ``span()`` unless a profiler runs.  Call sites on hot
+loops additionally guard with ``obs.enabled()`` (instruments) or
+``obs.tracing()`` (a span's arguments) so not even argument tuples are
+built.  A running profiler enables spans only: instruments and the
+quantization probes, which read tensors back to the host, follow
+``enabled`` alone.  Nothing in
 this module is ever traced into a jit body — instrumentation lives in
 host-side serving loops, and the eager-only quantization probes bail out
 when handed a tracer.
@@ -64,9 +77,11 @@ import os
 import random
 import threading
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+from torch._C._autograd import _profiler_enabled as profiling
+from torch._C._profiler import _RecordFunctionFast
 
 METRICS_SCHEMA = "repro-metrics-v1"
 
@@ -236,23 +251,32 @@ NOOP = _Noop()
 
 
 class _Span:
-    """Context manager recording one Chrome complete event (``ph: X``)."""
+    """Context manager recording one Chrome complete event (``ph: X``) into
+    ``reg`` (None: the registry is off) and, with ``profiled``, one event
+    in the running profiler's trace."""
 
-    __slots__ = ("_reg", "name", "args", "_t0")
+    __slots__ = ("_reg", "name", "args", "_t0", "_rf")
 
-    def __init__(self, reg: "MetricsRegistry", name: str, args: Optional[dict]):
+    def __init__(self, reg: Optional["MetricsRegistry"], name: str, args: Optional[dict],
+                 profiled: bool):
         self._reg = reg
         self.name = name
         self.args = args
         self._t0 = 0.0
+        self._rf = _RecordFunctionFast(name) if profiled else None
 
     def __enter__(self) -> "_Span":
+        if self._rf is not None:
+            self._rf.__enter__()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc) -> bool:
         t1 = time.perf_counter()
-        self._reg._record_span(self.name, self._t0, t1, self.args)
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+        if self._reg is not None:
+            self._reg._record_span(self.name, self._t0, t1, self.args)
         return False
 
 
@@ -330,9 +354,10 @@ class MetricsRegistry:
     # --------------------------------------------------------------- tracing
 
     def span(self, name: str, args: Optional[dict] = None):
-        if not self.enabled:
+        profiled = profiling()
+        if not self.enabled and not profiled:
             return NOOP
-        return _Span(self, name, args)
+        return _Span(self if self.enabled else None, name, args, profiled)
 
     def _record_span(self, name: str, t0: float, t1: float, args) -> None:
         ev = {
@@ -437,28 +462,15 @@ def set_enabled(on: bool) -> bool:
     return prev
 
 
+def tracing() -> bool:
+    """Whether a span would record: the module registry is enabled or a
+    ``torch.profiler`` runs."""
+    return _REGISTRY.enabled or profiling()
+
+
 # ---------------------------------------------------------------------------
-# shared helpers (benchmarks, probes)
+# shared helpers (probes)
 # ---------------------------------------------------------------------------
-
-
-def time_call_us(fn: Callable[[], Any], reps: int = 5) -> float:
-    """us/call of a torch-producing thunk: one warmup call, then ``reps``
-    timed calls, synchronizing the CUDA stream around the timed region
-    when a card is present (PyTorch returns before the device finishes)."""
-    import torch
-
-    def sync():
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-
-    fn()
-    sync()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    sync()
-    return 1e6 * (time.perf_counter() - t0) / reps
 
 
 def snr_db(ref: np.ndarray, approx: np.ndarray, cap: float = 99.0) -> float:

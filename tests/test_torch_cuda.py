@@ -1595,3 +1595,44 @@ def test_one_rank_nccl_mesh_train_step_is_launch_train_step(tmp_path):
             assert torch.equal(a, b)
     finally:
         dist.destroy_process_group()
+
+
+@needs_cuda
+def test_cuda_program_spans_add_no_device_event_to_a_profiled_trace():
+    """A span under the profiler is a host event only: around eager kernels
+    and a graph replay, the trace's device events are those of the same work
+    without spans (a user annotation would add a device-side range)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.runtime import obs
+
+    x = torch.randn(256, 256, device="cuda")
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        (x @ x).relu().sum()
+    torch.cuda.current_stream().wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = (x @ x).relu().sum()
+
+    def device_names(spans: bool):
+        span = obs.span if spans else (lambda name: contextlib.nullcontext())
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                with span("engine/decode_step"):
+                    with span("engine/decode_launch"):
+                        (x @ x).relu()
+                        graph.replay()
+                    with span("engine/decode_wait"):
+                        out.cpu()
+            torch.cuda.synchronize()
+        evs = prof.events()
+        cuda = sorted(e.name for e in evs if e.device_type == torch.autograd.DeviceType.CUDA)
+        host = [e.name for e in evs if e.name.startswith("engine/")]
+        return cuda, host
+
+    bare, none = device_names(False)
+    spanned, host = device_names(True)
+    assert none == [] and len(host) == 9
+    assert spanned == bare and not any(n.startswith("engine/") for n in spanned)
