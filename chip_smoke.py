@@ -298,7 +298,7 @@ CI_PROMPT8_SERVE = [
 # CI's two engine smokes (ci.yml:99-132) with CI's flags, and the
 # full-width engine runs (a) batched admission and (b) chunked prefill with
 # prefix hits; each: (argv, agreement gated, kernels its path must launch)
-ENGINE_KERNELS = ("pvq_encode_batch", "pvq_matmul_q", "pvq_attn_q")
+ENGINE_KERNELS = ("pvq_encode_batch", "pvq_matmul_q", "pvq_attn_q", "act_quant_rows")
 CI_ENGINE_SATURATE = [
     "--arch", "smollm-360m", "--reduced", "--prompt-len", "12", "--gen", "8", "--engine",
     "--engine-slots", "3", "--requests", "6", "--rate", "0", "--pvq", "--act-int8", "--kv-pvq",
@@ -346,9 +346,10 @@ MOE_REDUCED_SERVE = [
     "--pvq", "--act-int8", "--agreement-min", "0.99", "--seed", "0",
 ]
 # the kernels each full-width path must launch
-SMOLLM_KERNELS = ("pvq_encode_batch", "pvq_matmul_q", "pvq_attn_q", "pvq_matmul")
+SMOLLM_KERNELS = ("pvq_encode_batch", "pvq_matmul_q", "pvq_attn_q", "pvq_matmul",
+                  "act_quant_rows")
 MOE_KERNELS = ("pvq_encode_batch", "pvq_matmul_q", "pvq_matmul", "pvq_matmul_q_batched",
-               "pvq_matmul_batched")
+               "pvq_matmul_batched", "act_quant_rows")
 # one MoE layer's expert banks at full width: (what, k_pad, n) of up/gate
 # (d 2048 -> d_expert 1408) and wo (1408 -> 2048, k padded to 1536); 64
 # experts; m = dispatch rows per expert: 1 at decode (4 tokens, capacity 1),
@@ -375,6 +376,16 @@ MMA_SOURCE = "src/repro_torch/kernels/csrc/pvq_matmul_mma.cuh"
 F_MMA_SOURCE = "src/repro_torch/kernels/csrc/pvq_matmul_f_mma.cuh"
 SPLITK_SOURCE = "src/repro_torch/kernels/csrc/pvq_matmul_splitk.cuh"
 F_SPLITK_SOURCE = "src/repro_torch/kernels/csrc/pvq_matmul_f_splitk.cuh"
+# the int8 boundary's timed shapes, bf16 x: (what, rows, d_in, k_pad);
+# smollm's four decode shapes come first (the head's takes the same
+# instance as the padded dense, the others one each)
+ACT_QUANT_ROWS = [("smollm decode, d 960 padded", 32, 960, 1024),
+                  ("smollm decode, tied head d 960", 32, 960, 960),
+                  ("smollm decode, d_ff 2560 (2 warps a row)", 32, 2560, 2560),
+                  ("smollm decode, v4 query hd 64", 480, 64, 64),
+                  ("deepseek decode, d", 64, 2048, 2048),
+                  ("deepseek prefill, d", 32768, 2048, 2048)]
+ACT_QUANT_SOURCE = "src/repro_torch/kernels/csrc/act_quant.cu"
 DEVICE_MS_BY = ("torch.profiler: mean device time of the call's kernels over 20 launches, "
                 "the L2 flushed before each (the flush's kernel left out)")
 
@@ -1048,6 +1059,35 @@ def check_encode(torch, timer, enc):
     return entry, rows
 
 
+def check_act_quant(torch, timer, mm):
+    """``act_quant_rows`` at each of ``ACT_QUANT_ROWS``: identical to its
+    plain version (the pad, then ``quantize_activations``: the chain it
+    replaced), timed by events (``ms``) and torch.profiler (``device_ms``)
+    beside that chain (``plain_ms``, ``plain_device_ms``).  Its bound: 2
+    bytes read and 1 written an element, 4 a row's scale."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    entry = {"name": "act_quant_rows", "route": "cuda", "source": ACT_QUANT_SOURCE,
+             "replaces": "none: the reference quantizes activations in jnp "
+                         "(src/repro/core/quantize.py:quantize_activations)",
+             "device_ms_by": DEVICE_MS_BY, "rows": []}
+    for what, m, d_in, k_pad in ACT_QUANT_ROWS:
+        x = (torch.randn(m, d_in, generator=gen, device="cuda") * 3).to(torch.bfloat16)
+        q, s = mm.act_quant_rows_cuda(x, k_pad)
+        q_ref, s_ref = mm.act_quant_rows_plain(x, k_pad)
+        if not (torch.equal(q, q_ref) and torch.equal(s, s_ref)):
+            fail(f"act_quant_rows ({what}): differs from the plain version")
+        kern = partial(mm.act_quant_rows_cuda, x, k_pad)
+        plain = partial(mm.act_quant_rows_plain, x, k_pad)
+        row = {"kernel": "act_quant_rows", "case": what, "rows": m, "d_in": d_in,
+               "k_pad": k_pad, "dtype": "bf16", "ms": timer(kern), "plain_ms": timer(plain),
+               "bound_ms": bound_ms(2 * m * d_in + m * k_pad + 4 * m, 0, 1)[0],
+               "bound_by": "bytes", "max_abs_err": 0.0}
+        timer.device_later(kern, (row, "device_ms", 1))
+        timer.device_later(plain, (row, "plain_device_ms", 1))
+        entry["rows"].append(row)
+    return entry
+
+
 def _plain_for_cuda(plain):
     """``plain`` answering for a CUDA entry point: the dispatch's tile
     arguments (``_body``, ``_chunk``, ``_plan``, ``_tuned``) are dropped."""
@@ -1065,7 +1105,8 @@ def plain_versions(mm, enc):
     saved = [(mod, name, getattr(mod, name + "_cuda"))
              for mod, name in ((mm, "pvq_matmul"), (mm, "pvq_matmul_q"),
                                (mm, "pvq_matmul_batched"), (mm, "pvq_matmul_q_batched"),
-                               (mm, "pvq_attn_q"), (enc, "pvq_encode_batch"))]
+                               (mm, "pvq_attn_q"), (mm, "act_quant_rows"),
+                               (enc, "pvq_encode_batch"))]
     try:
         for mod, name, _ in saved:
             setattr(mod, name + "_cuda", _plain_for_cuda(getattr(mod, name + "_plain")))
@@ -2825,11 +2866,12 @@ def families_phase(torch, serve, kernels_mod, mm, enc, quant, smi, kernel_rows=T
 # (arch, layers or None for all, the kernels its path launches): rwkv6 has
 # no attention and deepseek's MLA cache is dense, so neither launches v4
 RECURRENT_FULL = [
-    ("rwkv6-1.6b", None, ("pvq_encode_batch", "pvq_matmul_q", "pvq_matmul")),
+    ("rwkv6-1.6b", None, ("pvq_encode_batch", "pvq_matmul_q", "pvq_matmul", "act_quant_rows")),
     ("jamba-1.5-large-398b", 8, ("pvq_encode_batch", "pvq_matmul_q", "pvq_matmul_q_batched",
-                                 "pvq_attn_q", "pvq_matmul", "pvq_matmul_batched")),
+                                 "pvq_attn_q", "pvq_matmul", "pvq_matmul_batched",
+                                 "act_quant_rows")),
     ("deepseek-v2-236b", 4, ("pvq_encode_batch", "pvq_matmul_q", "pvq_matmul_q_batched",
-                             "pvq_matmul", "pvq_matmul_batched")),
+                             "pvq_matmul", "pvq_matmul_batched", "act_quant_rows")),
 ]
 # jamba's super-block: ~46 GB packed, ~88 GB in bf16 (packed as it is built)
 JAMBA_PEAK_GB = 75.0
@@ -3455,6 +3497,11 @@ def run_phases(torch, tree, kernels_only, smi, scratch, paper_only=False,
     entries["pvq_attn_q"]["prefill_chunk"] = check_attention_chunk(torch, timer, mm,
                                                                    quantize_activations)
     entries["pvq_encode_batch"], enc_rows = check_encode(torch, timer, enc)
+    if hasattr(mm, "act_quant_rows_cuda"):
+        entries["act_quant_rows"] = check_act_quant(torch, timer, mm)
+    else:  # a parent tree (--tree) may not have the kernel
+        print(json.dumps({"kernel_check": {"kernel": "act_quant_rows",
+                                           "skipped": "not in this tree"}}), flush=True)
     batched, batched_rows = check_batched(torch, timer, mm, quantize_activations, kernels_mod)
     entries.update(batched)
     fam_entries, fam_rows = family_kernel_rows(torch, timer, mm, quant, kernels_mod)
@@ -3555,9 +3602,12 @@ def run_phases(torch, tree, kernels_only, smi, scratch, paper_only=False,
     # launches_by_path has every full-width path's count
     order = (("pvq_encode_batch", "smollm-360m"), ("pvq_matmul_q", "smollm-360m"),
              ("pvq_attn_q", "smollm-360m"), ("pvq_matmul", "smollm-360m"),
-             ("pvq_matmul_q_batched", MOE_ARCH), ("pvq_matmul_batched", MOE_ARCH))
+             ("pvq_matmul_q_batched", MOE_ARCH), ("pvq_matmul_batched", MOE_ARCH),
+             ("act_quant_rows", "smollm-360m"))
     line = []
     for name, path in order:
+        if name not in entries:
+            continue
         e = dict(entries[name])
         e["launches"] = counts[path][name]
         e["launches_by_path"] = {p: c[name] for p, c in counts.items()}

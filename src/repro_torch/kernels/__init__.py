@@ -29,6 +29,7 @@ LAUNCHES: Dict[str, int] = {
     "pvq_attn_q": 0,
     "pvq_matmul_batched": 0,
     "pvq_matmul_q_batched": 0,
+    "act_quant_rows": 0,
 }
 
 

@@ -31,9 +31,10 @@ SOURCES: Dict[str, tuple] = {
     "pvq_matmul": (),
     "pvq_matmul_batched": (),
     "pvq_attn": (),
+    "act_quant": (),
 }
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
 #: source -> {exported C symbol: (argtypes, restype)}; bound once, at load
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
@@ -55,6 +56,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "pvq_attn": {
         "pvq_attn_q_smem_bytes": ([_I] * 4, ctypes.c_size_t),
         "pvq_attn_q_launch": ([_P] * 7 + [_I] * 6 + [_F] + [_I] * 2 + [_P] * 4, _I),
+    },
+    "act_quant": {
+        "act_quant_rows_launch": ([_P, _L, _I, _I, _I, _I, _P, _P, _P], _I),
     },
 }
 

@@ -35,18 +35,23 @@ def _route(t: torch.Tensor) -> str:
     raise ValueError(f"no PVQ kernel route for device {t.device}")
 
 
-def _quantize_x(x, act_quant, group=None):
-    """Resolve the ActQuant contract: ``(x, None)`` for float activations,
-    or int8 ``x`` with f32 scales (per-row ``(m,1)``, per-tile ``(m,k/G)``)."""
-    if act_quant is None:
-        return x, None
+def quantize_rows(x: torch.Tensor, k_pad: int, act_quant, *, tile: Optional[int] = None):
+    """``x (..., d_in)`` zero-padded to ``k_pad``, then quantized to int8 under
+    ``act_quant``: ``(q int8 (..., k_pad), f32 scales)``, per row ``(..., 1)``,
+    per tile ``(..., k_pad / tile)``.  Padding before quantizing lines the
+    per-tile scale groups up with rho groups.  Per row, a CUDA tensor
+    launches ``act_quant_rows`` (cast, pad and quantize in one kernel) and a
+    CPU tensor runs the plain composition; ``per_tile`` and ``per_tensor``
+    run the plain composition on both routes."""
+    if act_quant.mode == "per_row" and _route(x) == "cuda":
+        return mm.act_quant_rows_cuda(x, k_pad)
     from ..core.quantize import quantize_activations
 
-    if act_quant.mode == "per_tile":
-        if group is None:
-            raise ValueError("per_tile activation quantization needs the weight group")
-        return quantize_activations(x, act_quant, tile=group)
-    return quantize_activations(x, act_quant)
+    if act_quant.mode == "per_tile" and tile is None:
+        raise ValueError("per_tile activation quantization needs the weight group")
+    if x.shape[-1] != k_pad:
+        x = torch.nn.functional.pad(x, (0, k_pad - x.shape[-1]))
+    return quantize_activations(x, act_quant, tile=tile)
 
 
 # ---------------------------------------------------------------------------
@@ -65,10 +70,17 @@ def pvq_matmul(
     act_quant=None,
 ) -> torch.Tensor:
     """``act(x @ (pulses * rho) + bias)``; with ``act_quant`` x is quantized
-    to int8 and the int8 x int8 kernel v3 runs, else the float-activation
-    kernel v2."""
-    out_dtype = x.dtype
-    x, act_scale = _quantize_x(x, act_quant, group=group)
+    to int8 and the int8 x int8 kernel v3 runs, writing x's dtype, else the
+    float-activation kernel v2."""
+    act_scale, out_dtype = None, x.dtype
+    if act_quant is not None:
+        x, act_scale = quantize_rows(x, x.shape[-1], act_quant, tile=group)
+    return _matmul(x, w_pulses, scales, act_scale, group=group, bias=bias,
+                   activation=activation, out_dtype=out_dtype)
+
+
+def _matmul(x, w_pulses, scales, act_scale, *, group, bias, activation, out_dtype):
+    """Kernel v3 on int8 ``x`` with ``act_scale``, else kernel v2."""
     tuned = _tuned(autotune.get_tiles(x.shape[0], x.shape[-1], w_pulses.shape[-1], group=group,
                                       dtype=x.dtype, device=x.device))
     cuda = _route(x) == "cuda"
@@ -100,7 +112,8 @@ def packed_matmul(
 ) -> torch.Tensor:
     """``act(x @ dequant(packed) + bias)`` on a matmul-layout ``PackedPVQ``
     without dequantizing.  ``x`` (m, d_in) is zero-padded to ``k_pad``
-    BEFORE quantizing, so per-tile scale groups line up with rho groups."""
+    BEFORE quantizing (:func:`quantize_rows`); with ``act_quant`` the result
+    is in x's dtype."""
     if packed.layout != "matmul":
         raise ValueError(f"packed_matmul needs layout='matmul', got {packed.layout!r}")
     if packed.pulses.ndim != 2:
@@ -114,12 +127,13 @@ def packed_matmul(
             f"x feature dim {x.shape[-1]} matches neither the packed leaf's "
             f"logical d_in {d_in} nor its padded k_pad {k_pad}"
         )
-    if x.shape[-1] != k_pad:
+    act_scale, out_dtype = None, x.dtype
+    if act_quant is not None:
+        x, act_scale = quantize_rows(x, k_pad, act_quant, tile=packed.group)
+    elif x.shape[-1] != k_pad:
         x = torch.nn.functional.pad(x, (0, k_pad - x.shape[-1]))
-    return pvq_matmul(
-        x, packed.pulses, packed.scales, group=packed.group, bias=bias,
-        activation=activation, act_quant=act_quant,
-    )
+    return _matmul(x, packed.pulses, packed.scales, act_scale, group=packed.group, bias=bias,
+                   activation=activation, out_dtype=out_dtype)
 
 
 def packed_matmul_stacked(
@@ -138,7 +152,7 @@ def packed_matmul_stacked(
     (int8, batched v3); ``act_scale`` ``(E, m, 1)`` marks ``x`` as
     already-quantized int8 (``moe_forward`` quantizes its dispatch buffer
     once for the up and gate matmuls); neither runs batched v2 on float x.
-    ``x`` is zero-padded to ``k_pad`` BEFORE quantizing.
+    ``x`` is zero-padded to ``k_pad`` BEFORE quantizing (:func:`quantize_rows`).
     """
     if packed.layout != "matmul":
         raise ValueError(f"packed_matmul_stacked needs layout='matmul', got {packed.layout!r}")
@@ -157,14 +171,14 @@ def packed_matmul_stacked(
             f"logical d_in {d_in} nor its padded k_pad {k_pad}"
         )
     out_dtype = x.dtype if x.is_floating_point() else torch.float32
-    if x.shape[-1] != k_pad:
-        x = torch.nn.functional.pad(x, (0, k_pad - x.shape[-1]))
     if act_scale is not None:
         if x.dtype != torch.int8:
             raise ValueError(f"pre-quantized dispatch (act_scale given) needs int8 x, got {x.dtype}")
         act_scale = act_scale.to(torch.float32)
-    else:
-        x, act_scale = _quantize_x(x, act_quant, group=packed.group)
+    elif act_quant is not None:
+        x, act_scale = quantize_rows(x, k_pad, act_quant, tile=packed.group)
+    if x.shape[-1] != k_pad:
+        x = torch.nn.functional.pad(x, (0, k_pad - x.shape[-1]))
     tuned = _tuned(autotune.get_tiles(x.shape[1], k_pad, packed.pulses.shape[-1],
                                       group=packed.group, dtype=x.dtype, e=e, device=x.device))
     cuda = _route(x) == "cuda"
@@ -199,7 +213,7 @@ def pvq_attn_decode(q: torch.Tensor, kv, kv_len: torch.Tensor, *, sm_scale: floa
     ``(b, q_len, n_kv, gpr, hd)`` / ``(..., 1)`` / ``(..., 1)``.
     """
     from ..core.packed import is_paged_kv
-    from ..core.quantize import ActQuant, quantize_activations
+    from ..core.quantize import ActQuant
 
     if is_paged_kv(kv):
         # the slot-major view through the page table (a paged v4 would read
@@ -213,7 +227,7 @@ def pvq_attn_decode(q: torch.Tensor, kv, kv_len: torch.Tensor, *, sm_scale: floa
     m = q_len * gpr
 
     qg = q.reshape(b, q_len, n_kv, gpr, hd).permute(0, 2, 1, 3, 4).reshape(b * n_kv, m, hd)
-    q_i8, a_scale = quantize_activations(qg, ActQuant(mode="per_row"))
+    q_i8, a_scale = quantize_rows(qg, hd, ActQuant(mode="per_row"))
 
     # the planes go in their own (b, S, n_kv, X) layout: row bh of the
     # kernel is (batch bh // n_kv, kv head bh % n_kv)

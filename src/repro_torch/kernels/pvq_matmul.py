@@ -1,15 +1,16 @@
 """PVQ matmuls and packed-KV attention decode (port of
 ``repro.kernels.pvq_matmul``): kernels v2 ``pvq_matmul``, v3
 ``pvq_matmul_q``, their expert-batched forms ``pvq_matmul_batched`` and
-``pvq_matmul_q_batched``, and v4 ``pvq_attn_q``.
+``pvq_matmul_q_batched``, and v4 ``pvq_attn_q``; and ``act_quant_rows``,
+the per-row int8 quantization of the activations in front of v3 and v4.
 
 For each kernel, ``*_cuda`` launches the hand-written Hopper kernel
 (``csrc/pvq_matmul.cu``, ``csrc/pvq_matmul_batched.cu``,
-``csrc/pvq_attn.cu`` with ``csrc/pvq_attn_decode.cuh``) and ``*_plain``
-computes the same function in plain PyTorch.  Integer contractions in the
-plain versions run as f32 matmuls of integer-valued tensors, exact while
-``group * 127^2 < 2^24`` (``torch.mm`` on int8 wraps in int8); wider groups
-contract in int64.
+``csrc/pvq_attn.cu`` with ``csrc/pvq_attn_decode.cuh``,
+``csrc/act_quant.cu``) and ``*_plain`` computes the same function in plain
+PyTorch.  Integer contractions in the plain versions run as f32 matmuls of
+integer-valued tensors, exact while ``group * 127^2 < 2^24`` (``torch.mm``
+on int8 wraps in int8); wider groups contract in int64.
 """
 
 from __future__ import annotations
@@ -240,6 +241,55 @@ def pvq_matmul_cuda(
     LAUNCHES["pvq_matmul"] += 1
     V2_BODY_LAUNCHES[body] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# the int8 boundary: per-row activation quantization in front of v3 and v4
+# ---------------------------------------------------------------------------
+
+
+def act_quant_rows_plain(x: torch.Tensor, k_pad: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``x (..., d_in)`` zero-padded to ``k_pad``, then quantized per row
+    (``core.quantize.quantize_activations``): ``(q int8 (..., k_pad),
+    scale f32 (..., 1))``."""
+    from ..core.quantize import ActQuant, quantize_activations
+
+    if x.shape[-1] != k_pad:
+        x = torch.nn.functional.pad(x, (0, k_pad - x.shape[-1]))
+    return quantize_activations(x, ActQuant("per_row"))
+
+
+def act_quant_rows_cuda(x: torch.Tensor, k_pad: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`act_quant_rows_plain` in one launch (``csrc/act_quant.cu``):
+    the cast, the pad and the quantization fused, bit for bit the same.
+    ``x`` is f32 or bf16 with unit stride along its last dim; its rows may
+    lie any stride apart.  Feeds the clamp and zero-scale probe as
+    ``quantize_activations`` does (off while a graph is captured)."""
+    from ..core.quantize import _probe_act_quant
+
+    if x.device.type != "cuda":
+        raise ValueError(f"act_quant_rows_cuda needs a CUDA tensor, got {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"act_quant_rows takes f32 or bf16 x, got {x.dtype}")
+    d_in = x.shape[-1]
+    if k_pad < max(d_in, 1):
+        raise ValueError(f"k_pad {k_pad} below the row width {d_in}")
+    x2 = x.reshape(-1, d_in)
+    if x2.stride(-1) != 1:
+        x2 = x2.contiguous()
+    rows = x2.shape[0]
+    q = torch.empty((*x.shape[:-1], k_pad), dtype=torch.int8, device=x.device)
+    scale = torch.empty((*x.shape[:-1], 1), dtype=torch.float32, device=x.device)
+    if rows:
+        ld = x2.stride(0) if rows > 1 else d_in
+        status = build.launcher("act_quant_rows_launch")(
+            x2.data_ptr(), ld, int(x.dtype == torch.bfloat16), rows, d_in, k_pad,
+            q.data_ptr(), scale.data_ptr(), _stream(x),
+        )
+        build.check(status, "act_quant_rows")
+        LAUNCHES["act_quant_rows"] += 1
+    _probe_act_quant(q, scale)
+    return q, scale
 
 
 # ---------------------------------------------------------------------------

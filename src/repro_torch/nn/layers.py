@@ -105,16 +105,19 @@ def pvq_quantize_dense(p: Params, *, group: int = 128, k_pulses: int) -> Params:
 
 
 def pvq_dense(p: Params, x: torch.Tensor, *, activation: str = "none", act_quant=None) -> torch.Tensor:
-    """Packed dense layer: x goes to the kernel in f32 (int8 after
-    quantization when an ``ActQuant`` is in effect, by default the process
-    one) and the result comes back in x's dtype."""
+    """Packed dense layer: with an ``ActQuant`` in effect (by default the
+    process one) x goes to the kernel in its own dtype, is quantized to int8
+    there and the result comes back in that dtype; without one x goes in
+    f32 (kernel v2) and the result is cast back to x's dtype."""
     from ..core.quantize import default_act_quant
 
     if act_quant is None:
         act_quant = default_act_quant()
     lead, k_in = x.shape[:-1], x.shape[-1]
-    xf = x.reshape(-1, k_in).to(torch.float32)
-    y = ops.packed_matmul(xf, p["kernel"], bias=p.get("bias"), activation=activation,
+    x2 = x.reshape(-1, k_in)
+    if act_quant is None:
+        x2 = x2.to(torch.float32)
+    y = ops.packed_matmul(x2, p["kernel"], bias=p.get("bias"), activation=activation,
                           act_quant=act_quant)
     return y.reshape(*lead, y.shape[-1]).to(x.dtype)
 
@@ -194,9 +197,7 @@ def _packed_unembed(table, x: torch.Tensor, act_quant=None) -> torch.Tensor:
     n_groups = d // g
     act_scale = None
     if act_quant is not None:
-        from ..core.quantize import quantize_activations
-
-        xs, act_scale = quantize_activations(x, act_quant)
+        xs, act_scale = ops.quantize_rows(x, d, act_quant)
     else:
         xs = x.to(torch.float32)
     pp = table.pulses.reshape(vocab, n_groups, g)

@@ -203,18 +203,19 @@ _KERNEL_ACT = {"swiglu": "silu", "silu": "silu", "geglu": "gelu",
 
 
 def _fold_dispatch(buf: torch.Tensor) -> torch.Tensor:
-    """(g, E, C, d) dispatch buffer -> per-expert matrices (E, g*C, d) f32."""
+    """(g, E, C, d) dispatch buffer -> per-expert matrices (E, g*C, d), in
+    the buffer's dtype."""
     g, e, c, d = buf.shape
-    return buf.permute(1, 0, 2, 3).reshape(e, g * c, d).to(torch.float32)
+    return buf.permute(1, 0, 2, 3).reshape(e, g * c, d)
 
 
 def _quantize_dispatch(buf: torch.Tensor, act_quant):
     """Quantize the folded dispatch buffer ONCE (per-row int8): the
     ``(int8 (E, g*C, d), scales (E, g*C, 1))`` pair feeds both the up and
     the gate expert matmuls.  Empty capacity slots get zero scales."""
-    from ..core.quantize import quantize_activations
+    from ..kernels import ops
 
-    return quantize_activations(_fold_dispatch(buf), act_quant)
+    return ops.quantize_rows(_fold_dispatch(buf), buf.shape[-1], act_quant)
 
 
 def _expert_matmul(buf: torch.Tensor, w, *, activation: str = "none", act_quant=None,
@@ -235,8 +236,10 @@ def _expert_matmul(buf: torch.Tensor, w, *, activation: str = "none", act_quant=
         xb, act_scale = x_quant
         y = ops.packed_matmul_stacked(xb, w, activation=activation, act_scale=act_scale)
     else:
-        y = ops.packed_matmul_stacked(_fold_dispatch(buf), w, activation=activation,
-                                      act_quant=act_quant)
+        xb = _fold_dispatch(buf)
+        if act_quant is None:
+            xb = xb.to(torch.float32)  # v2 rounds its f64 sums to x's dtype: f32
+        y = ops.packed_matmul_stacked(xb, w, activation=activation, act_quant=act_quant)
     f = y.shape[-1]
     return y.reshape(e, g, c, f).permute(1, 0, 2, 3).to(buf.dtype)
 

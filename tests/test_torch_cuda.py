@@ -9,8 +9,8 @@ Every test skips without a CUDA card.  The continuous-batching engine on
 the reduced model gives the same tokens on the kernels as on their plain
 versions, with kernel v4 at its chunked-prefill caller among them.  Tolerances: the encoder, kernel v3
 (each of its three bodies: splitk, direct, mma) and its expert-batched form
-(without the tanh-gelu epilogue) and kernel v4
-are identical to their plain versions (same float operation order, no FMA
+(without the tanh-gelu epilogue), kernel v4 and the int8 boundary
+(``act_quant_rows``) are identical to their plain versions (same float operation order, no FMA
 contraction, the plain versions' fixed summation trees); kernel v2 (each
 of its three bodies: splitk, direct, mma), its batched form and the gelu epilogue
 within ``rtol=1e-5, atol=1e-5 * max|y|`` (v2's group sums run in f64 in
@@ -28,6 +28,8 @@ from functools import partial
 import numpy as np
 import pytest
 import torch
+from _act_quant_rows import SHAPES as ACT_SHAPES
+from _act_quant_rows import act_rows
 from _chip_smoke_module import chip_smoke
 from _encode_rows import encode_rows
 
@@ -80,7 +82,7 @@ def test_cuda_matmuls_match_plain(m, k, n, group, body):
     assert _v2_launches_since(before_v2) == {b: 6 if b == body else 0 for b in V2_BODY_LAUNCHES}
     before = dict(V3_BODY_LAUNCHES)
     for mode in ("per_row", "per_tile", "per_tensor"):
-        xq, a = ops._quantize_x(x, port_q.ActQuant(mode), group)
+        xq, a = port_q.quantize_activations(x, port_q.ActQuant(mode), tile=group)
         for act in ("none", "relu", "gelu"):
             got = port_mm.pvq_matmul_q_cuda(xq, pulses, scales, a, bias, group=group, activation=act)
             want = port_mm.pvq_matmul_q_plain(xq, pulses, scales, a, bias, group=group, activation=act)
@@ -112,8 +114,8 @@ def test_cuda_mma_body_matches_plain(m, k, n, group):
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(m * 7 + k + n + group)
     pulses, scales, bias, x = _v3_cases(m, k, n, group, gen, dev)
-    xq, a_row = ops._quantize_x(x, port_q.ActQuant("per_row"), group)
-    xt, a_tile = ops._quantize_x(x, port_q.ActQuant("per_tile"), group)
+    xq, a_row = port_q.quantize_activations(x, port_q.ActQuant("per_row"), tile=group)
+    xt, a_tile = port_q.quantize_activations(x, port_q.ActQuant("per_tile"), tile=group)
     a_scalar = a_row.amax().reshape(1, 1)
     cases = [(xq, a_row), (xq, a_scalar)] + ([(xt, a_tile)] if k > group else [])
     before = dict(V3_BODY_LAUNCHES)
@@ -287,7 +289,7 @@ def test_cuda_bias_epilogue_every_body_matches_plain(m, k, n, body):
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(m + k + n)
     pulses, scales, bias, x = _v3_cases(m, k, n, 256, gen, dev)
-    xq, a = ops._quantize_x(x, port_q.ActQuant(), 256)
+    xq, a = port_q.quantize_activations(x, port_q.ActQuant(), tile=256)
     before, before_v2 = dict(V3_BODY_LAUNCHES), dict(V2_BODY_LAUNCHES)
     for act in ("none", "relu"):
         got = port_mm.pvq_matmul_q_cuda(xq, pulses, scales, a, bias, group=256, activation=act,
@@ -318,7 +320,7 @@ def test_cuda_recurrent_shapes_match_plain_on_the_rules_body_and_direct(m, k, n,
     gen = torch.Generator().manual_seed(m + k + n)
     pulses, scales, bias, x = _v3_cases(m, k, n, 256, gen, dev)
     bias = bias if with_bias else None
-    xq, a = ops._quantize_x(x, port_q.ActQuant(), 256)
+    xq, a = port_q.quantize_activations(x, port_q.ActQuant(), tile=256)
     rule = "splitk" if m <= 8 else "mma"
     want_q = port_mm.pvq_matmul_q_plain(xq, pulses, scales, a, bias, group=256)
     want_f = port_mm.pvq_matmul_plain(x, pulses, scales, bias, group=256)
@@ -394,7 +396,8 @@ def _plain_versions():
     on the same CUDA tensors (a test-only patch of what ``ops`` reads)."""
     saved = [(mod, name, getattr(mod, name + "_cuda"))
              for mod, name in ((port_mm, "pvq_matmul"), (port_mm, "pvq_matmul_q"),
-                               (port_mm, "pvq_attn_q"), (port_enc, "pvq_encode_batch"))]
+                               (port_mm, "pvq_attn_q"), (port_mm, "act_quant_rows"),
+                               (port_enc, "pvq_encode_batch"))]
     try:
         for mod, name, _ in saved:
             setattr(mod, name + "_cuda",
@@ -530,7 +533,58 @@ def test_ops_route_cuda_tensors_to_kernels():
     ops.pvq_encode(torch.randn(3, 16, device=dev), k_pulses=8)
     assert LAUNCHES["pvq_matmul"] == before["pvq_matmul"] + 1
     assert LAUNCHES["pvq_matmul_q"] == before["pvq_matmul_q"] + 1
+    assert LAUNCHES["act_quant_rows"] == before["act_quant_rows"] + 1
     assert LAUNCHES["pvq_encode_batch"] == before["pvq_encode_batch"] + 1
+
+
+# the CPU test's shapes, smollm's v4 query rows (head dim 64), the
+# prefill's 32k rows of deepseek's d, jamba's x_proj rows (in registers in
+# bf16, read twice in f32); a ragged width (the element-by-element path) and
+# rows past the register budget in both dtypes (read twice)
+ACT_CARD_SHAPES = ACT_SHAPES + [(480, 64, 64), (32768, 2048, 2048), (4, 16384, 16384),
+                                (7, 588, 768), (3, 40000, 40192)]
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,d_in,k_pad", ACT_CARD_SHAPES)
+def test_cuda_act_quant_rows_matches_plain_bit_for_bit(rows, d_in, k_pad, dtype):
+    x = act_rows(rows + d_in, rows, d_in, dtype, device="cuda")
+    before = LAUNCHES["act_quant_rows"]
+    q, scale = port_mm.act_quant_rows_cuda(x, k_pad)
+    assert LAUNCHES["act_quant_rows"] == before + 1
+    want_q, want_scale = port_mm.act_quant_rows_plain(x, k_pad)
+    assert torch.equal(q, want_q) and torch.equal(scale, want_scale)
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_act_quant_rows_reads_strided_misaligned_and_stacked_rows(dtype):
+    """Rows a stride apart, a base off the 16-byte grid, and an
+    expert-stacked ``(E, m, d)`` buffer: each one launch, each the plain
+    version's bits."""
+    wide = act_rows(5, 48, 2 * 960, dtype, device="cuda")
+    for x, k_pad in ((wide[:, :960], 1024), (wide[:, 1:961], 1024),
+                     (wide.reshape(4, 24, 960), 960)):
+        before = LAUNCHES["act_quant_rows"]
+        q, scale = port_mm.act_quant_rows_cuda(x, k_pad)
+        assert LAUNCHES["act_quant_rows"] == before + 1
+        want_q, want_scale = port_mm.act_quant_rows_plain(x, k_pad)
+        assert torch.equal(q, want_q) and torch.equal(scale, want_scale)
+
+
+@needs_cuda
+def test_cuda_quantize_rows_launches_per_row_only():
+    """``ops.quantize_rows`` launches the kernel per row; per tile and per
+    tensor it runs the plain composition on the card."""
+    x = act_rows(6, 9, 960, torch.bfloat16, device="cuda")
+    before = LAUNCHES["act_quant_rows"]
+    got = ops.quantize_rows(x, 1024, port_q.ActQuant("per_row"))
+    assert LAUNCHES["act_quant_rows"] == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, port_mm.act_quant_rows_plain(x, 1024)))
+    for mode in ("per_tile", "per_tensor"):
+        ops.quantize_rows(x, 1024, port_q.ActQuant(mode), tile=256)
+    assert LAUNCHES["act_quant_rows"] == before + 1
 
 
 def _bank(gen, e, k, n, group, dev):
@@ -633,7 +687,7 @@ def test_forced_bodies_agree_and_mma_refuses_what_it_cannot_take():
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(5)
     pulses, scales, bias, x = _v3_cases(40, 512, 96, 64, gen, dev)
-    xq, a = ops._quantize_x(x, port_q.ActQuant(), 64)
+    xq, a = port_q.quantize_activations(x, port_q.ActQuant(), tile=64)
     for body in port_mm.V3_BODIES:
         rows = slice(0, 8) if body == "splitk" else slice(None)
         want = port_mm.pvq_matmul_q_plain(xq[rows], pulses, scales, a[rows], bias, group=64)
@@ -669,8 +723,8 @@ def test_cuda_splitk_body_matches_plain(m, group, ngroups, n):
     k = group * ngroups
     gen = torch.Generator().manual_seed(m * 131 + group + n + k)
     pulses, scales, bias, x = _v3_cases(m, k, n, group, gen, dev)
-    xq, a_row = ops._quantize_x(x, port_q.ActQuant("per_row"), group)
-    xt, a_tile = ops._quantize_x(x, port_q.ActQuant("per_tile"), group)
+    xq, a_row = port_q.quantize_activations(x, port_q.ActQuant("per_row"), tile=group)
+    xt, a_tile = port_q.quantize_activations(x, port_q.ActQuant("per_tile"), tile=group)
     cases = [(xq, a_row), (xq, a_row.amax().reshape(1, 1))] + ([(xt, a_tile)] if k > group else [])
     body = "splitk" if n % 16 == 0 else "direct"
     before = dict(V3_BODY_LAUNCHES)
@@ -1075,6 +1129,30 @@ def test_cuda_captured_decode_matches_eager_across_block_fills():
     for a, b in zip(_packed_kv_leaves(eager_cache), _packed_kv_leaves(static.cache)):
         for name in ("k_pulses", "k_scales", "v_pulses", "v_scales", "tail_k", "tail_v"):
             assert torch.equal(getattr(a, name), getattr(b, name)), name
+
+
+@needs_cuda
+def test_cuda_captured_decode_step_quantizes_once_per_int8_boundary():
+    """A replayed decode step of reduced smollm (``--act-int8 --kv-pvq``)
+    launches ``act_quant_rows`` once per packed dense (each a v3 launch),
+    once per v4 call (its query) and once for the tied head."""
+    from repro_torch import kernels
+    from repro_torch.launch import serve
+
+    model, params = _reduced_packed("smollm-360m")
+    gen = torch.Generator().manual_seed(23)
+    prompt = torch.randint(0, model.cfg.vocab_size, (2, 13), generator=gen).cuda()
+    feed = torch.randint(0, model.cfg.vocab_size, (2, 2), generator=gen).cuda()
+    with port_q.act_quant_scope(port_q.ActQuant()), port_q.kv_quant_scope(port_q.KVQuant(8, 16)):
+        _, cache = model.prefill(params, {"tokens": prompt}, cache_len=32)
+        step = serve._lockstep(model, params, cache, prompt, eager=False)
+        step(feed[:, :1], 13)  # captures the graph
+        before = kernels.snapshot()
+        step(feed[:, 1:], 14)  # replays it
+        torch.cuda.synchronize()
+    launches = kernels.since(before)[0]
+    assert launches["pvq_matmul_q"] > 0 and launches["pvq_attn_q"] > 0
+    assert launches["act_quant_rows"] == launches["pvq_matmul_q"] + launches["pvq_attn_q"] + 1
 
 
 @needs_cuda

@@ -18,6 +18,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _act_quant_rows import SHAPES as ACT_SHAPES
+from _act_quant_rows import TIES_ROUNDED, act_rows
 from _encode_rows import encode_rows
 from _hyp import given, settings, st
 
@@ -757,6 +759,61 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         port_mm.pvq_matmul_cuda(torch.randn(2, 8), torch.zeros(8, 4, dtype=torch.int8),
                                 torch.ones(1, 4), group=8)
+    with pytest.raises(ValueError, match="CUDA"):
+        port_mm.act_quant_rows_cuda(torch.randn(2, 8), 8)
+
+
+# ---------------------------------------------------------------------------
+# the int8 boundary (ops.quantize_rows; csrc/act_quant.cu on the card)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,d_in,k_pad", ACT_SHAPES)
+def test_quantize_rows_cpu_route_is_pad_then_quantize_activations(rows, d_in, k_pad, dtype):
+    """Per row, the CPU route of ``quantize_rows`` is ``F.pad`` of the f32
+    cast, then ``quantize_activations``, bit for bit in ``q`` and ``scale``:
+    the zero row gets scale 0, the ties row rounds half to even, the
+    negative absmax sets its row's scale."""
+    x = act_rows(rows * 7 + d_in, rows, d_in, dtype)
+    q, scale = ops.quantize_rows(x, k_pad, port_q.ActQuant("per_row"))
+    want_q, want_scale = port_q.quantize_activations(
+        torch.nn.functional.pad(x.float(), (0, k_pad - d_in)), port_q.ActQuant("per_row"))
+    assert q.dtype == torch.int8 and tuple(q.shape) == (rows, k_pad)
+    assert scale.dtype == torch.float32 and tuple(scale.shape) == (rows, 1)
+    assert torch.equal(q, want_q) and torch.equal(scale, want_scale)
+    assert not q[:, d_in:].any()
+    ties = 0 if rows == 1 else 1
+    np.testing.assert_array_equal(q[ties, : len(TIES_ROUNDED)].numpy(), TIES_ROUNDED)
+    assert float(scale[ties]) == 1.0
+    if rows > 1:
+        assert float(scale[0]) == 0.0 and not q[0].any()
+        assert float(scale[2]) == float(np.float32(40.0) / np.float32(127.0))
+        assert int(q[2, d_in // 2]) == -127
+
+
+@pytest.mark.parametrize("bias,activation", [(False, "none"), (True, "silu")])
+def test_pvq_dense_on_bf16_x_matches_the_f32_composition(bias, activation):
+    """``pvq_dense`` hands a bf16 ``x`` to ``quantize_rows`` uncast and lets
+    kernel v3 write bf16: the same bits as the f32 composition it replaced
+    (cast, pad, quantize, v3 in f32, cast back)."""
+    from repro_torch.core.packed import pack_matmul
+    from repro_torch.nn.layers import pvq_dense
+
+    gen = torch.Generator().manual_seed(31)
+    packed = pack_matmul(torch.randn(960, 320, generator=gen) * 0.05, group=256, k=128)
+    p = {"kernel": packed}
+    if bias:
+        p["bias"] = (torch.randn(320, generator=gen) * 0.1).to(torch.bfloat16)
+    x = act_rows(33, 32, 960, torch.bfloat16).reshape(4, 8, 960)
+    got = pvq_dense(p, x, activation=activation, act_quant=port_q.ActQuant())
+
+    xf = torch.nn.functional.pad(x.reshape(-1, 960).to(torch.float32), (0, 1024 - 960))
+    xq, a = port_q.quantize_activations(xf, port_q.ActQuant())
+    want = port_mm.pvq_matmul_q_plain(xq, packed.pulses, packed.scales, a, p.get("bias"),
+                                      group=256, activation=activation)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, want.to(torch.bfloat16).reshape(4, 8, 320))
 
 
 # ---------------------------------------------------------------------------
